@@ -1,0 +1,102 @@
+"""PyTorch port on an NVIDIA GPU: the CUDA kernel against its plain-torch
+twin, and a whole frame against the JAX package's golden. Needs a CUDA
+device (``cuda`` marker; skips without one).
+
+This file imports neither JAX nor the JAX package, so it also runs where
+only PyTorch is installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+(``--noconftest`` because tests/conftest.py imports JAX.)"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from webgpu_raytracing_tpu_torch.config import F32_MAX, RenderSettings
+from webgpu_raytracing_tpu_torch.models.scene import scene_from_facesets
+from webgpu_raytracing_tpu_torch.models.test_models import (
+    ground_plane,
+    unit_cube_model,
+    uv_sphere,
+)
+from webgpu_raytracing_tpu_torch.ops import cluster_cuda as cc
+from webgpu_raytracing_tpu_torch.renderer import Renderer
+
+torch.set_num_threads(1)
+pytestmark = pytest.mark.cuda
+
+GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "mini_scene_2f.npz")
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def test_kernel_matches_twin_on_card(cuda):
+    """Random rays with inactive lanes, finite t_max, NaN origins and
+    exclusion codes: kernel and twin give the same codes and t bits."""
+    scene = scene_from_facesets(
+        [
+            ("sphere", uv_sphere((0, 0, -4), 1.0, lat=10, lon=14)),
+            ("plane", ground_plane(-1.5, 8.0)),
+            ("cube", unit_cube_model()),
+        ],
+        np.ones((1, 3), np.float32) * 0.8,
+        np.zeros((1, 3), np.float32),
+    )
+    tables = scene.tables(cuda)
+    n = 5000
+    rng = np.random.default_rng(18)
+    o = rng.uniform(-3, 3, (n, 3)).astype(np.float32)
+    o[rng.uniform(size=n) < 0.03, 1] = np.nan
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tmax = np.where(rng.uniform(size=n) < 0.5, F32_MAX,
+                    rng.uniform(0.5, 8.0, n)).astype(np.float32)
+    active = rng.uniform(size=n) > 0.1
+    excl = rng.integers(-1, tables.clusters.face_id.numel(), n)
+
+    def t(a, dt=None):
+        return torch.as_tensor(a, dtype=dt, device=cuda)
+
+    args = cc.prepare_tiles(
+        t(o), t(d), t(tmax), tables, t(active), t(excl, torch.int32)
+    )
+    before = cc.trace_closest_tiles.launches
+    t_k, c_k = cc.trace_closest_tiles(**args)
+    torch.cuda.synchronize()
+    assert cc.trace_closest_tiles.launches == before + 1
+    t_w, c_w = cc._trace_closest_torch(**args)
+    np.testing.assert_array_equal(c_k.cpu().numpy(), c_w.cpu().numpy())
+    np.testing.assert_array_equal(
+        t_k.cpu().numpy().view(np.int32), t_w.cpu().numpy().view(np.int32)
+    )
+    assert (c_k >= 0).sum() > 100
+
+
+def test_golden_mini_scene_on_card(cuda):
+    scene = scene_from_facesets(
+        [
+            ("light", uv_sphere((0, 3, -4), 0.5, material_idx=1, lat=4, lon=6)),
+            ("sphere", uv_sphere((0, 0, -4), 1.0, lat=6, lon=8)),
+            ("plane", ground_plane(-1.5, 8.0)),
+        ],
+        np.array([[0.8, 0.4, 0.3], [0, 0, 0]], np.float32),
+        np.array([[0, 0, 0], [6, 6, 6]], np.float32),
+    )
+    st = RenderSettings(width=32, height=32, bounces_depth=3, sample_count=1,
+                        environment="procedural")
+    before = cc.trace_closest_tiles.launches
+    r = Renderer(scene, st, base_seed=77, device=cuda)
+    r.step()
+    r.step()
+    assert cc.trace_closest_tiles.launches == before + 2 * 2 * 2
+    got = r.buffers.image.cpu().numpy()
+    rmse = float(np.sqrt(np.mean((got - np.load(GOLDEN)["image"]) ** 2)))
+    assert rmse < 1e-5, rmse

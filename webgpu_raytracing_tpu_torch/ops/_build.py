@@ -1,0 +1,105 @@
+"""Build and load the package's CUDA kernels.
+
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into ONE
+shared library with a plain C interface, loaded with ctypes. The library
+goes to ``build/kernels/libwrt_torch_<hash>.so`` beside the package (the
+checkout's ``build/`` directory, ignored by git), named by a hash of the
+sources and the flags, so a changed source rebuilds and an unchanged one
+loads at once. The build happens at first use, never at import.
+
+Flags: ``--fmad=false`` keeps every product rounded before its add (the
+reference's strict arithmetic); there is no ``--use_fast_math``, so
+``/`` and ``sqrt`` stay IEEE-rounded. A missing or failing ``nvcc``
+raises with its output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "--fmad=false",
+    "-shared", "-Xcompiler", "-fPIC",
+]
+
+_lock = threading.Lock()
+_lib = None
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc")
+    if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        path = "/usr/local/cuda/bin/nvcc"
+    if path is None:
+        raise RuntimeError(
+            "nvcc not found: the CUDA kernels of webgpu_raytracing_tpu_torch "
+            "are built at first use and need the CUDA toolkit"
+        )
+    return path
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
+def library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        with open(src, "rb") as fh:
+            h.update(os.path.basename(src).encode())
+            h.update(fh.read())
+    return os.path.join(BUILD_DIR, f"libwrt_torch_{h.hexdigest()[:16]}.so")
+
+
+def build() -> str:
+    """Compile the kernels if the library for the current sources is
+    missing; return its path."""
+    so = library_path()
+    if os.path.exists(so):
+        return so
+    nvcc = _nvcc()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *_sources()]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}"
+        )
+    os.replace(tmp, so)
+    return so
+
+
+def load() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library; bind its entries."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        lib = ctypes.CDLL(build())
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.wrt_trace_closest.restype = i
+        lib.wrt_trace_closest.argtypes = [
+            p, p, p, p,  # o, d, inv_d, t_max
+            p, p, p, i,  # excl, snear, order, n_cols
+            p, p, i, p,  # box, face_id, slots, tri
+            f, p, p,  # eps2, t_out, code_out
+            i, i, p,  # n_tiles, tile, stream
+        ]
+        lib.wrt_error_string.restype = ctypes.c_char_p
+        lib.wrt_error_string.argtypes = [i]
+        _lib = lib
+        return lib

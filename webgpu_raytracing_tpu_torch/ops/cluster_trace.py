@@ -1,0 +1,169 @@
+"""Cluster tables and the plain-torch pieces of the clustered trace
+(counterpart of ``webgpu_raytracing_tpu/ops/cluster_trace.py``).
+
+The scene is cut into clusters of up to S triangles (models/cluster.py).
+A trace walks, per 128-ray tile, the clusters whose boxes the tile's rays
+enter, nearest entry first. This module holds what runs outside the
+closest-hit kernel (ops/cluster_cuda.py): the tables, the per-tile
+cluster entry distances (:func:`tile_nears_fused`) and the exact
+sequential Möller–Trumbore evaluation (:func:`exact_face_eval`).
+
+The bilinear-form matrix ``mat_b`` is kept for table parity with the JAX
+package (its Pallas kernel feeds it to the MXU); the Hopper kernel tests
+triangles with exact sequential f32 arithmetic and does not read it. The
+bf16 pre-split twin ``mat_b2`` exists only for the TPU's matrix unit and
+is not built.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..config import EPSILON, F32_MAX, MIN_DIST
+from .strictf import scross, sdot3
+
+_INF = float(F32_MAX)
+# f32(EPSILON²): the backface/parallel cull threshold of render.ts:384
+EPS2 = float(np.float32(EPSILON * EPSILON))
+
+
+@dataclasses.dataclass(frozen=True)
+class ClusterTables:
+    """Single-level cluster tables on one device."""
+
+    box: torch.Tensor  # (C, 6) f32 AABB min.xyz, max.xyz
+    mat_b: torch.Tensor  # (C, 10, 4*S) f32 Möller–Trumbore bilinear matrix
+    face_id: torch.Tensor  # (C, S) i32 global face ids (-1 pad)
+    # (n_faces,) i32 cluster-slot code (cid*S + slot) of each face's
+    # two-sided duplicate, -1 when none (see the JAX ClusterTables)
+    partner_code: Optional[torch.Tensor] = None
+
+    def to(self, device) -> "ClusterTables":
+        return ClusterTables(
+            **{
+                f.name: (
+                    None
+                    if getattr(self, f.name) is None
+                    else getattr(self, f.name).to(device)
+                )
+                for f in dataclasses.fields(self)
+            }
+        )
+
+
+def pack_cluster_tables(clusters, partner=None, *, device) -> ClusterTables:
+    """models.cluster.ClusterSet → ClusterTables (same B layout and
+    partner codes as the JAX package's ``pack_cluster_tables``).
+
+    Two-level tables (``clusters.super_box`` set) are not supported: their
+    kernel (the supercluster walk) is not ported yet."""
+    if clusters.super_box is not None:
+        raise NotImplementedError(
+            "two-level cluster tables (group_size > 0) are not ported yet"
+        )
+    c, s, _ = clusters.n.shape
+    b = np.zeros((c, 10, 4 * s), dtype=np.float32)
+    nt = np.transpose(clusters.n, (0, 2, 1))
+    b[:, 6:9, 0 * s : 1 * s] = -nt
+    b[:, 0:3, 1 * s : 2 * s] = nt
+    b[:, 9, 1 * s : 2 * s] = -clusters.k0
+    b[:, 3:6, 2 * s : 3 * s] = np.transpose(clusters.e2, (0, 2, 1))
+    b[:, 6:9, 2 * s : 3 * s] = np.transpose(clusters.q2, (0, 2, 1))
+    b[:, 3:6, 3 * s : 4 * s] = -np.transpose(clusters.e1, (0, 2, 1))
+    b[:, 6:9, 3 * s : 4 * s] = -np.transpose(clusters.q1, (0, 2, 1))
+
+    partner_code = None
+    if partner is not None:
+        fid = np.asarray(clusters.face_id)
+        n_faces = int(partner.shape[0])
+        code_of = np.full(n_faces, -1, np.int32)
+        sel = fid >= 0
+        codes = (
+            np.arange(c, dtype=np.int32)[:, None] * s
+            + np.arange(s, dtype=np.int32)[None, :]
+        )
+        code_of[fid[sel]] = codes[sel]
+        partner_code = torch.from_numpy(
+            np.where(partner >= 0, code_of[np.maximum(partner, 0)], -1)
+            .astype(np.int32)
+        ).to(device)
+
+    return ClusterTables(
+        box=torch.from_numpy(np.ascontiguousarray(clusters.box)).to(device),
+        mat_b=torch.from_numpy(b).to(device),
+        face_id=torch.from_numpy(
+            np.ascontiguousarray(clusters.face_id)
+        ).to(device),
+        partner_code=partner_code,
+    )
+
+
+def exact_face_eval(o, d, tri, present, t_bound):
+    """Exact sequential Möller–Trumbore under the reference's semantics
+    (render.ts:359-409; JAX ``_exact_face_eval``): cull, barycentric gates
+    against det, true division, strict t interval. Broadcasts over any
+    leading shape. Returns (valid, t, u, v)."""
+    p0, e1, e2 = tri[..., 0:3], tri[..., 3:6], tri[..., 6:9]
+    h = scross(d, e2)
+    det = sdot3(e1, h)
+    sv = o - p0
+    u_num = sdot3(sv, h)
+    q = scross(sv, e1)
+    v_num = sdot3(d, q)
+    t_num = sdot3(e2, q)
+    culled = det < EPS2
+    bary_ok = (
+        (u_num >= 0.0) & (u_num <= det) & (v_num >= 0.0)
+        & (u_num + v_num <= det)
+    )
+    det_safe = torch.where(culled, torch.ones_like(det), det)
+    t = t_num / det_safe
+    valid = present & ~culled & bary_ok & (t > MIN_DIST) & (t < t_bound)
+    return valid, t, u_num / det_safe, v_num / det_safe
+
+
+def tile_nears_fused(
+    o: torch.Tensor,  # (R, 3), R divisible by tile
+    inv_d: torch.Tensor,  # (R, 3)
+    t_max: torch.Tensor,  # (R,)
+    boxes: torch.Tensor,  # (C, 6)
+    tile: int,
+    max_elems: int = 1 << 24,
+) -> torch.Tensor:
+    """Per-tile per-cluster minimum entry distance (n_tiles, C): the
+    slab test of every ray against every box (entry clamped at 0, +inf on
+    a miss or when the entry is not below the ray's t_max), min-reduced
+    over each tile. Same per-axis arithmetic as the JAX function; tiles
+    are processed in batches of at most ``max_elems`` ray-box pairs."""
+    r = o.shape[0]
+    n_tiles = r // tile
+    c = boxes.shape[0]
+    out = torch.empty((n_tiles, c), dtype=torch.float32, device=o.device)
+    per = max(1, min(n_tiles, max_elems // (tile * c)))
+    bmin = boxes[:, 0:3]
+    bmax = boxes[:, 3:6]
+    for t0_ in range(0, n_tiles, per):
+        t1_ = min(n_tiles, t0_ + per)
+        sl = slice(t0_ * tile, t1_ * tile)
+        ot, it, tt = o[sl], inv_d[sl], t_max[sl]
+        near = None
+        far = None
+        for ax in range(3):
+            a = (bmin[None, :, ax] - ot[:, ax : ax + 1]) * it[:, ax : ax + 1]
+            b = (bmax[None, :, ax] - ot[:, ax : ax + 1]) * it[:, ax : ax + 1]
+            lo = torch.minimum(a, b)
+            hi = torch.maximum(a, b)
+            # the JAX function starts from near=-inf / far=+inf; max/min
+            # against those are identities (NaN-propagating alike)
+            near = lo if near is None else torch.maximum(near, lo)
+            far = hi if far is None else torch.minimum(far, hi)
+        hit = (near < far) & (near < tt[:, None]) & (far > MIN_DIST)
+        nears = torch.where(
+            hit, torch.clamp(near, min=0.0), torch.full_like(near, _INF)
+        )
+        out[t0_:t1_] = torch.amin(nears.view(t1_ - t0_, tile, c), dim=1)
+    return out

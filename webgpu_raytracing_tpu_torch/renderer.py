@@ -1,0 +1,345 @@
+"""Render orchestration: progressive accumulation + per-frame step
+(counterpart of ``webgpu_raytracing_tpu/renderer.py``; the reference's
+renderFrame, render.ts:1651-1710).
+
+The accumulation image is an explicit ``(H, W, 4)`` tensor — rgb sum in
+``[..., :3]``, sample count in ``[..., 3]`` — the reference image-buffer
+layout. Every tensor lives on the device given to :class:`Renderer`; a
+frame is :func:`render_frame` on that device, and seeds are drawn on the
+host exactly as the JAX package draws them, so both packages render the
+same frames from the same ``base_seed``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from .camera import Camera
+from .config import F32_MAX, BlitView, RenderSettings, check_supported
+from .models.scene import Scene, SceneTables
+from .ops import rng
+from .ops.integrator import face_point_offset, path_trace
+from .ops.raygen import camera_rays
+from .ops.tonemap import apply as tonemap_apply
+from .ops.tonemap import gamma as tonemap_gamma
+
+
+@dataclasses.dataclass(frozen=True)
+class FrameBuffers:
+    """Persistent frame state (the reference's storage buffers,
+    render.ts:122-159): accumulation image, G-buffer, and the previous-
+    frame snapshots."""
+
+    image: torch.Tensor  # (H, W, 4) f32: rgb sum, sample count
+    geo_position: torch.Tensor  # (H, W, 3) f32
+    geo_face: torch.Tensor  # (H, W) i32
+    geo_object: torch.Tensor  # (H, W) i32
+    prev_image: torch.Tensor  # (H, W, 4) f32
+    prev_geo_position: torch.Tensor  # (H, W, 3) f32
+    prev_geo_face: torch.Tensor  # (H, W) i32
+
+    @staticmethod
+    def create(width: int, height: int, device) -> "FrameBuffers":
+        def z(*shape):
+            return torch.zeros(shape, dtype=torch.float32, device=device)
+
+        def m1(*shape):
+            return torch.full(shape, -1, dtype=torch.int32, device=device)
+
+        return FrameBuffers(
+            image=z(height, width, 4),
+            geo_position=z(height, width, 3),
+            geo_face=m1(height, width),
+            geo_object=torch.zeros(
+                (height, width), dtype=torch.int32, device=device
+            ),
+            prev_image=z(height, width, 4),
+            prev_geo_position=z(height, width, 3),
+            prev_geo_face=m1(height, width),
+        )
+
+    def rotated(self) -> "FrameBuffers":
+        """Prev-buffer rotation (the updatePrev copies, render.ts:1694-1699)."""
+        return dataclasses.replace(
+            self,
+            prev_image=self.image.clone(),
+            prev_geo_position=self.geo_position.clone(),
+            prev_geo_face=self.geo_face.clone(),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class FrameInputs:
+    """Per-frame values (the reference's uniforms, render.ts:57-106)."""
+
+    view: torch.Tensor  # (4, 4) f32, on the render device
+    seed: int  # 32-bit frame seed
+    counter: int  # frames accumulated so far (0 clears)
+    jitter: torch.Tensor  # (2,) f32, on the render device
+
+
+def _face_to_object(tables: SceneTables, face: torch.Tensor) -> torch.Tensor:
+    """Global face index → model index via the model face offsets."""
+    f = face.clamp(min=0).unsqueeze(-1)
+    return (
+        (f >= tables.model_face_offset[None, :]).to(torch.int32).sum(-1) - 1
+    ).to(torch.int32)
+
+
+def render_tile(
+    buffers: FrameBuffers,
+    tables: SceneTables,
+    env_data,
+    inputs: FrameInputs,
+    row0: int,
+    settings: RenderSettings,
+    tile_height: int,
+) -> Tuple[FrameBuffers, torch.Tensor]:
+    """One progressive frame over a horizontal slab of the image
+    (megakernel main, render.ts:1434-1509). Returns (buffers, rays)."""
+    check_supported(settings)
+    dev = tables.device
+    h, w = tile_height, settings.render_width
+    r = h * w
+
+    ys, xs = torch.meshgrid(
+        torch.arange(h, dtype=torch.int32, device=dev) + row0,
+        torch.arange(w, dtype=torch.int32, device=dev),
+        indexing="ij",
+    )
+    idx = (xs + ys * w).reshape(r)
+    base_pos = (
+        torch.stack([xs, ys], dim=-1).reshape(r, 2).to(torch.float32)
+        + inputs.jitter[None, :]
+    )
+
+    state = rng.seed_state(inputs.seed, idx)
+
+    image = buffers.image
+    if inputs.counter == 0:  # clear on counter == 0 (render.ts:1454-1459)
+        image = torch.zeros_like(image)
+
+    def one_sample(pos, state):
+        o, d, state = camera_rays(pos, inputs.view, state, settings)
+        t_max = torch.full((r,), F32_MAX, dtype=torch.float32, device=dev)
+        return path_trace(o, d, t_max, state, tables, env_data, settings)
+
+    # primary sample (render.ts:1464-1468)
+    res = one_sample(base_pos, state)
+    state = res.state
+    color = torch.zeros((r, 3), dtype=torch.float32, device=dev) + res.color
+    rays = res.rays
+    samples = torch.ones((r, 1), dtype=torch.float32, device=dev)
+
+    # G-buffer write from the primary hit (render.ts:1470-1475)
+    fh = res.first_hit
+    face = fh.face.clamp(min=0).long()
+    primary_point = face_point_offset(
+        tables.tri[face], tables.shade_normal[face], fh.u, fh.v
+    )
+    geo_position = primary_point.reshape(h, w, 3)
+    geo_face = fh.face.reshape(h, w)
+    geo_object = _face_to_object(tables, fh.face).reshape(h, w)
+
+    # extra stratified-jittered samples (render.ts:1477-1495)
+    for _ in range(settings.sample_count):
+        t2, state = rng.random_2(state)
+        pos = base_pos + rng.sample_insquare(t2) * 0.5
+        res = one_sample(pos, state)
+        state = res.state
+        color = color + res.color
+        rays = rays + res.rays
+        samples = samples + 1.0
+
+    if settings.debug_reprojection:
+        new_image = image
+    elif settings.blit_view == BlitView.NORMALS:
+        new_image = torch.cat(
+            [color, torch.ones_like(samples)], dim=-1
+        ).reshape(h, w, 4)
+    else:
+        new_image = image + torch.cat([color, samples], dim=-1).reshape(h, w, 4)
+
+    out = dataclasses.replace(
+        buffers,
+        image=new_image,
+        geo_position=geo_position,
+        geo_face=geo_face,
+        geo_object=geo_object,
+    )
+    return out, rays
+
+
+@torch.no_grad()
+def render_frame(
+    buffers: FrameBuffers,
+    tables: SceneTables,
+    env_data,
+    inputs: FrameInputs,
+    settings: RenderSettings,
+) -> Tuple[FrameBuffers, torch.Tensor]:
+    """Single-device frame: the whole image is one tile."""
+    return render_tile(
+        buffers, tables, env_data, inputs, 0, settings,
+        settings.render_height,
+    )
+
+
+@torch.no_grad()
+def blit(image: torch.Tensor, prev_image: torch.Tensor,
+         settings: RenderSettings) -> torch.Tensor:
+    """Accumulation buffer → display color (render.ts:184-244): pick the
+    buffer by blit view, rgb / samples × exposure, gamma(1/γ), tonemap."""
+    if settings.blit_view == BlitView.NORMALS:
+        color = image[..., :3]
+    elif settings.blit_view == BlitView.PREV_IMAGE:
+        color = prev_image[..., :3] / torch.clamp(prev_image[..., 3:4], min=1e-20)
+    else:
+        color = image[..., :3] / torch.clamp(image[..., 3:4], min=1e-20)
+        if settings.blit_view == BlitView.IMAGE:
+            color = color * settings.exposure
+    color = tonemap_gamma(color, 1.0 / settings.gamma)
+    color = tonemap_apply(color, settings.tonemapping)
+    return torch.clamp(color, 0.0, 1.0)
+
+
+class Renderer:
+    """Host-side progressive renderer: owns the accumulation state, the
+    reset-on-change policy (store.ts:192-344) and the prev-buffer rotation
+    (render.ts:1651-1657). Everything lives on ``device``."""
+
+    def __init__(
+        self,
+        scene: Scene,
+        settings: RenderSettings,
+        env_data=None,
+        camera: Optional[Camera] = None,
+        base_seed: Optional[int] = None,
+        *,
+        device,
+    ):
+        check_supported(settings)
+        self.device = torch.device(device)
+        self.scene = scene
+        self.settings = settings
+        self.tables = scene.tables(self.device)
+        if env_data is None:
+            env_data = np.zeros((1, 1, 3), np.float32)
+        self.env_data = torch.as_tensor(
+            np.asarray(env_data, np.float32), device=self.device
+        )
+        self.camera = camera or Camera()
+        self.counter = 0
+        self.frame_counter = 0
+        self.buffers = FrameBuffers.create(
+            settings.render_width, settings.render_height, self.device
+        )
+        self._rng = np.random.default_rng(base_seed)
+        self.last_rays = 0.0  # rays traced in the last frame (metrics)
+        self._prev_view = np.eye(4, dtype=np.float32)
+
+    def reset(self) -> None:
+        self.counter = 0
+
+    def update_settings(self, **kw) -> None:
+        """A settings change resets accumulation (gpu.ts:512-525)."""
+        settings = self.settings.replace(**kw)
+        check_supported(settings)
+        self.settings = settings
+        if kw.keys() & {
+            "width", "height", "resolution_scale", "geometry_buffer_scale"
+        }:
+            self.buffers = FrameBuffers.create(
+                settings.render_width, settings.render_height, self.device
+            )
+        self.reset()
+
+    def move_camera(self, d) -> None:
+        if self.camera.move(np.asarray(d, dtype=np.float32)):
+            self.reset()
+
+    def rotate_camera(self, d) -> None:
+        if self.camera.rotate(np.asarray(d, dtype=np.float32)):
+            self.reset()
+
+    def step(self, seed: Optional[int] = None) -> None:
+        """renderFrame (render.ts:1651-1710). Seeds and jitter are drawn
+        from the host generator in the JAX package's order."""
+        if seed is None:
+            seed = int(self._rng.integers(0, 2**32, dtype=np.uint64))
+        # without reprojection updatePrev fires every frame, and with it
+        # the jitter uniform is redrawn (render.ts:1660-1665)
+        jitter = (
+            (self._rng.random(2).astype(np.float32) - 0.5)
+            * self.settings.jitter_strength
+        )
+        view = self.camera.view_matrix()
+        inputs = FrameInputs(
+            view=torch.as_tensor(view, device=self.device),
+            seed=seed,
+            counter=self.counter,
+            jitter=torch.as_tensor(jitter, device=self.device),
+        )
+        self.buffers, rays = render_frame(
+            self.buffers, self.tables, self.env_data, inputs, self.settings
+        )
+        self.last_rays = float(rays)
+        self.counter += 1
+        # reprojection_rate == 0: updatePrev fires every frame
+        self.buffers = self.buffers.rotated()
+        self._prev_view = view
+
+    def render(self, spp: int) -> np.ndarray:
+        """Accumulate until >= spp samples/pixel; return display image."""
+        per_frame = 1 + self.settings.sample_count
+        while self.counter * per_frame < spp:
+            self.step()
+        return self.image()
+
+    def image(self) -> np.ndarray:
+        """Display image, top row first (the reference's blit maps buffer
+        row 0 to the bottom of the canvas, render.ts:163-183)."""
+        img = blit(self.buffers.image, self.buffers.prev_image, self.settings)
+        return img.cpu().numpy()[::-1]
+
+    # --- checkpoint / resume, the JAX package's npz format ---
+    def save_checkpoint(self, path: str) -> None:
+        """Atomic: write a sibling temp file, fsync, then os.replace."""
+        arrays = {
+            f.name: getattr(self.buffers, f.name).cpu().numpy()
+            for f in dataclasses.fields(FrameBuffers)
+        }
+        final = path if path.endswith(".npz") else path + ".npz"
+        tmp = final + ".tmp"
+        with open(tmp, "wb") as fh:
+            np.savez(
+                fh,
+                counter=self.counter,
+                frame_counter=self.frame_counter,
+                cam_position=self.camera.position,
+                cam_orientation=self.camera.orientation,
+                prev_view=self._prev_view,
+                **arrays,
+            )
+            fh.flush()
+            os.fsync(fh.fileno())
+        os.replace(tmp, final)
+
+    def load_checkpoint(self, path: str) -> None:
+        z = np.load(path)
+        self.buffers = FrameBuffers(
+            **{
+                f.name: torch.as_tensor(z[f.name], device=self.device)
+                for f in dataclasses.fields(FrameBuffers)
+            }
+        )
+        self.counter = int(z["counter"])
+        self.frame_counter = int(z["frame_counter"])
+        self.camera.position = z["cam_position"]
+        self.camera.orientation = z["cam_orientation"]
+        self._prev_view = z["prev_view"]
