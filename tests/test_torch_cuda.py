@@ -79,9 +79,18 @@ def test_kernel_matches_twin_on_card(cuda):
     )
     assert (c_k >= 0).sum() > 100
 
+    # the any-hit entry on the same shadow-like set
+    before = cc.trace_any_tiles.launches
+    a_k = cc.trace_any_tiles(**args)
+    torch.cuda.synchronize()
+    assert cc.trace_any_tiles.launches == before + 1
+    a_w = cc._trace_any_torch(**args)
+    np.testing.assert_array_equal(a_k.cpu().numpy(), a_w.cpu().numpy())
+    assert 100 < int((a_k >= 0).sum()) < n - 100
 
-def test_golden_mini_scene_on_card(cuda):
-    scene = scene_from_facesets(
+
+def _mini_scene():
+    return scene_from_facesets(
         [
             ("light", uv_sphere((0, 3, -4), 0.5, material_idx=1, lat=4, lon=6)),
             ("sphere", uv_sphere((0, 0, -4), 1.0, lat=6, lon=8)),
@@ -90,6 +99,30 @@ def test_golden_mini_scene_on_card(cuda):
         np.array([[0.8, 0.4, 0.3], [0, 0, 0]], np.float32),
         np.array([[0, 0, 0], [6, 6, 6]], np.float32),
     )
+
+
+def test_nee_launches_on_card(cuda):
+    """A 2-frame NEE render (2 samples, 2 segments): 8 closest-hit and 8
+    any-hit launches, and the same accumulation as on the CPU (twins)."""
+    st = RenderSettings(width=32, height=32, bounces_depth=3, sample_count=1,
+                        environment="procedural", next_event_estimation=True)
+    k1, k_any = cc.trace_closest_tiles.launches, cc.trace_any_tiles.launches
+    r = Renderer(_mini_scene(), st, base_seed=77, device=cuda)
+    r.step()
+    r.step()
+    assert cc.trace_closest_tiles.launches == k1 + 2 * 2 * 2
+    assert cc.trace_any_tiles.launches == k_any + 2 * 2 * 2
+    c = Renderer(_mini_scene(), st, base_seed=77, device="cpu")
+    c.step()
+    c.step()
+    got, want = r.buffers.image.cpu().numpy(), c.buffers.image.numpy()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    ok = ~np.isnan(want)
+    assert float(np.sqrt(np.mean((got[ok] - want[ok]) ** 2))) < 1e-5
+
+
+def test_golden_mini_scene_on_card(cuda):
+    scene = _mini_scene()
     st = RenderSettings(width=32, height=32, bounces_depth=3, sample_count=1,
                         environment="procedural")
     before = cc.trace_closest_tiles.launches

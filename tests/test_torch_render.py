@@ -161,15 +161,12 @@ def test_checkpoint_moves_across_packages(tmp_path, direction):
 
 UNSUPPORTED = [
     dict(reprojection_rate=2),
-    dict(next_event_estimation=True),
-    dict(env_importance_sampling=True),
     dict(use_hit_predictor=True),
     dict(exact_pairs=True),
     dict(debug_bvh=True),
     dict(frame_slabs=2),
     dict(resolution_scale=0.5),
     dict(geometry_buffer_scale=0.5),
-    dict(bounces_depth=1),
     dict(traversal="clustered"),
 ]
 

@@ -152,10 +152,11 @@ class RenderSettings:
     debug_reprojection: bool = False
 
     use_hit_predictor: bool = False
-    # "auto" is the only traversal here: the closest-hit kernel for CUDA
-    # tensors, its plain torch twin for CPU tensors (ops/cluster_cuda.py)
+    # "auto" is the only traversal here: the cluster kernel's entries for
+    # CUDA tensors, their plain torch twins for CPU tensors
+    # (ops/cluster_cuda.py)
     traversal: str = "auto"
-    # rays per tile of the closest-hit trace (one CUDA block per tile)
+    # rays per tile of the cluster traces (one CUDA block per tile)
     trace_tile: int = 128
     exact_pairs: bool = False
     exact_pairs_bounce: bool = False
@@ -178,15 +179,12 @@ def check_supported(settings: RenderSettings) -> None:
     implement yet (each is a later slice of the port)."""
     unsupported = {
         "reprojection_rate > 0": settings.reprojection_rate > 0,
-        "next_event_estimation": settings.next_event_estimation,
-        "env_importance_sampling": settings.env_importance_sampling,
         "use_hit_predictor": settings.use_hit_predictor,
         "exact_pairs": settings.exact_pairs,
         "debug_bvh": settings.debug_bvh,
         "frame_slabs > 1": settings.frame_slabs > 1,
         "resolution_scale != 1": settings.resolution_scale != 1.0,
         "geometry_buffer_scale != 1": settings.geometry_buffer_scale != 1.0,
-        "bounces_depth <= 1": settings.bounces_depth <= 1,
         "traversal != 'auto'": settings.traversal != "auto",
     }
     bad = [name for name, hit in unsupported.items() if hit]

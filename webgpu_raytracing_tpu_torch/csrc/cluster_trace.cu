@@ -1,10 +1,13 @@
-// Closest-hit cluster trace for NVIDIA Hopper (sm_90a).
+// Closest-hit and any-hit cluster trace for NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU kernels of webgpu_raytracing_tpu/ops/cluster_pallas.py
-// in closest-hit, non-pairs mode: `_kernel_lockstep` (:1141) and the serial
-// `_kernel` / `_kernel_one_tile` (:396, :436, the hbm=True streaming form).
-// Both compute, per ray, the closest triangle among the clusters whose boxes
-// the ray's 128-ray tile enters, walking clusters nearest entry first.
+// in non-pairs mode: `_kernel_lockstep` (:1141; any-hit branch :1243) and
+// the serial `_kernel` / `_kernel_one_tile` (:396, :436, the hbm=True
+// streaming form; any-hit bound :576). Both compute, per ray, the closest
+// triangle (closest-hit) or some blocking triangle (any-hit, shadow rays)
+// among the clusters whose boxes the ray's 128-ray tile enters, walking
+// clusters nearest entry first. One body, templated on kAnyHit, serves both
+// entry points, so the slab test and Möller–Trumbore are written once.
 //
 // What is NOT carried over: the TPU kernels evaluate Möller–Trumbore as a
 // bilinear-form matmul (ray matrix x cluster matrix B) because the MXU is
@@ -33,6 +36,13 @@
 //   * the slot whose code equals the ray's exclusion code is skipped;
 //   * inactive rays arrive with t_max = 0 and return (0, -1); misses
 //     return (t_max, -1); NaN origins fail every compare and miss.
+//
+// Any-hit contract (`wrt_trace_any`, JAX `trace_any_clustered` semantics;
+// twin `_trace_any_torch`): the ray returns at the FIRST valid slot in walk
+// order (cluster order, then slot order) with 0 < t < t_max, writing its
+// code, else -1. The bound is the exact `t < t_max` of the clustered oracle,
+// not the Pallas kernel's truncated packed key, which blurs t ~ t_max: that
+// is where a shadow ray aimed at a light meets the light's own face.
 
 #include <cuda_runtime.h>
 
@@ -46,7 +56,8 @@ __device__ __forceinline__ float max_nan(float a, float b) {
   return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
 }
 
-__global__ void trace_closest_kernel(
+template <bool kAnyHit>
+__global__ void trace_kernel(
     const float* __restrict__ o, const float* __restrict__ d,
     const float* __restrict__ inv_d, const float* __restrict__ t_max,
     const int* __restrict__ excl, const float* __restrict__ snear,
@@ -54,6 +65,7 @@ __global__ void trace_closest_kernel(
     const float* __restrict__ box, const int* __restrict__ face_id, int slots,
     const float* __restrict__ tri, float eps2, float* __restrict__ t_out,
     int* __restrict__ code_out) {
+  // any-hit: t_out is unused (may be null) and best stays t_max
   const long long tile = blockIdx.x;
   const long long ray = tile * blockDim.x + threadIdx.x;
 
@@ -112,13 +124,18 @@ __global__ void trace_closest_kernel(
       if (!(u >= 0.0f && u <= det && v >= 0.0f && u + v <= det)) continue;
       const float t = __fdiv_rn(tn, det);
       if (!(t > 0.0f)) continue;
-      if (t < best || (t == best && code < best_code)) {
+      if constexpr (kAnyHit) {
+        if (t < best) {
+          code_out[ray] = code;
+          return;
+        }
+      } else if (t < best || (t == best && code < best_code)) {
         best = t;
         best_code = code;
       }
     }
   }
-  t_out[ray] = best;
+  if constexpr (!kAnyHit) t_out[ray] = best;
   code_out[ray] = best_code;
 }
 
@@ -131,9 +148,22 @@ extern "C" int wrt_trace_closest(
     float eps2, float* t_out, int* code_out, int n_tiles, int tile,
     void* stream) {
   if (n_tiles > 0) {
-    trace_closest_kernel<<<n_tiles, tile, 0, (cudaStream_t)stream>>>(
+    trace_kernel<false><<<n_tiles, tile, 0, (cudaStream_t)stream>>>(
         o, d, inv_d, t_max, excl, snear, order, n_cols, box, face_id, slots,
         tri, eps2, t_out, code_out);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int wrt_trace_any(
+    const float* o, const float* d, const float* inv_d, const float* t_max,
+    const int* excl, const float* snear, const int* order, int n_cols,
+    const float* box, const int* face_id, int slots, const float* tri,
+    float eps2, int* code_out, int n_tiles, int tile, void* stream) {
+  if (n_tiles > 0) {
+    trace_kernel<true><<<n_tiles, tile, 0, (cudaStream_t)stream>>>(
+        o, d, inv_d, t_max, excl, snear, order, n_cols, box, face_id, slots,
+        tri, eps2, nullptr, code_out);
   }
   return (int)cudaGetLastError();
 }

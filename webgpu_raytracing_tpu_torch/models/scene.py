@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..ops.cluster_trace import ClusterTables, pack_cluster_tables
+from ..ops.env_sample import ENV_FIELDS, EnvDistribution
 from .bvh import BVH, build_bvh
 from .cluster import build_clusters
 from .face import FaceSet
@@ -83,6 +84,20 @@ def tables_from_numpy(arrays: Dict[str, np.ndarray], device) -> SceneTables:
             partner_code=None if pc is None else t(pc),
         ),
         **{k: t(arrays[k]) for k in TABLE_FIELDS},
+    )
+
+
+def env_distribution_from_numpy(
+    arrays: Dict[str, np.ndarray], device
+) -> EnvDistribution:
+    """Build an EnvDistribution from numpy arrays keyed by field name
+    (``img``, ``row_cdf``, ``cond_cdf``, ``lum``, ``total``): how tests
+    hand a JAX ``EnvDistribution``'s tables to the port."""
+    return EnvDistribution(
+        **{
+            k: torch.from_numpy(np.array(arrays[k], copy=True)).to(device)
+            for k in ENV_FIELDS
+        }
     )
 
 

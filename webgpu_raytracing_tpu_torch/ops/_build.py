@@ -7,6 +7,9 @@ checkout's ``build/`` directory, ignored by git), named by a hash of the
 sources and the flags, so a changed source rebuilds and an unchanged one
 loads at once. The build happens at first use, never at import.
 
+Entry points: ``wrt_trace_closest`` and ``wrt_trace_any``
+(``csrc/cluster_trace.cu``), and ``wrt_error_string``.
+
 Flags: ``--fmad=false`` keeps every product rounded before its add (the
 reference's strict arithmetic); there is no ``--use_fast_math``, so
 ``/`` and ``sqrt`` stay IEEE-rounded. A missing or failing ``nvcc``
@@ -97,6 +100,14 @@ def load() -> ctypes.CDLL:
             p, p, p, i,  # excl, snear, order, n_cols
             p, p, i, p,  # box, face_id, slots, tri
             f, p, p,  # eps2, t_out, code_out
+            i, i, p,  # n_tiles, tile, stream
+        ]
+        lib.wrt_trace_any.restype = i
+        lib.wrt_trace_any.argtypes = [
+            p, p, p, p,  # o, d, inv_d, t_max
+            p, p, p, i,  # excl, snear, order, n_cols
+            p, p, i, p,  # box, face_id, slots, tri
+            f, p,  # eps2, code_out
             i, i, p,  # n_tiles, tile, stream
         ]
         lib.wrt_error_string.restype = ctypes.c_char_p

@@ -1,19 +1,23 @@
-"""Closest-hit cluster trace: dispatcher, CUDA kernel wrapper and its
-plain-torch twin (counterpart of ``trace_closest_clustered_pallas`` with
-``exact_pairs=False``, ``any_hit=False`` and of ``code_to_face`` /
-``rederive_uv`` in ``webgpu_raytracing_tpu/ops/cluster_pallas.py``).
+"""Cluster trace, closest-hit and any-hit: dispatchers, the CUDA kernel
+wrapper and its plain-torch twins (counterpart of
+``trace_closest_clustered_pallas`` with ``exact_pairs=False``, with
+``any_hit`` False or True, and of ``code_to_face`` / ``rederive_uv`` in
+``webgpu_raytracing_tpu/ops/cluster_pallas.py``).
 
 Around the kernel, as plain torch (the JAX package does the same outside
 Pallas): pad the rays to whole tiles, compute each tile's per-cluster
 entry distance (:func:`.cluster_trace.tile_nears_fused`), and sort every
 row ascending with a stable sort, giving each tile its cluster order.
-The kernel (``csrc/cluster_trace.cu``) walks that order per ray and
-returns the best ``t`` and code ``cid * S + slot``; :func:`code_to_face`
-and :func:`rederive_uv` then give the face id and the exact t, u, v.
+The kernel (``csrc/cluster_trace.cu``) walks that order per ray. The
+closest-hit entry returns the best ``t`` and code ``cid * S + slot``;
+:func:`code_to_face` and :func:`rederive_uv` then give the face id and the
+exact t, u, v. The any-hit entry (shadow rays) returns the code of the
+first valid hit with ``t < t_max`` in walk order, or -1.
 
-:func:`trace_closest_tiles` launches the kernel for CUDA tensors and runs
-:func:`_trace_closest_torch` for CPU tensors only; any other device
-raises. There is no fallback from one to the other.
+:func:`trace_closest_tiles` and :func:`trace_any_tiles` launch the kernel
+for CUDA tensors and run :func:`_trace_closest_torch` /
+:func:`_trace_any_torch` for CPU tensors only; any other device raises.
+There is no fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -71,18 +75,21 @@ def _slab(bx, o, inv_d):
     return near, far
 
 
-def _trace_closest_torch(
+def _walk_torch(
     o, d, inv_d, t_max, excl, snear, order, box, face_id, tri, tile,
-    chunk: Optional[int] = None,
+    any_hit: bool, chunk: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain-torch twin of the kernel: the same per-ray walk, vectorized
-    over the rays still walking. Step k takes every live ray's k-th
-    cluster of its tile's order; a ray leaves the walk at the first entry
-    whose tile distance is not below its best t, skips a cluster its own
-    slab test rejects, and otherwise tests the cluster's slots in chunks
-    of ``chunk`` rays (default 2**18 on a GPU, 2**15 elsewhere). Within a
-    step the winner is the lexicographic minimum of (t, code), exactly
-    what the kernel's sequential slot loop keeps."""
+    """Plain-torch twin of the kernel (both entries): the same per-ray
+    walk, vectorized over the rays still walking. Step k takes every live
+    ray's k-th cluster of its tile's order; a ray leaves the walk at the
+    first entry whose tile distance is not below its best t (any-hit: its
+    t_max, or once it has a hit), skips a cluster its own slab test
+    rejects, and otherwise tests the cluster's slots in chunks of
+    ``chunk`` rays (default 2**18 on a GPU, 2**15 elsewhere). Within a
+    step the closest-hit winner is the lexicographic minimum of (t, code),
+    exactly what the kernel's sequential slot loop keeps; the any-hit
+    winner is the LOWEST valid slot (the kernel returns at the first
+    one). Returns (best t, code); any-hit leaves best t at t_max."""
     r = o.shape[0]
     dev = o.device
     if chunk is None:
@@ -110,8 +117,17 @@ def _trace_closest_torch(
             present = (fid >= 0) & (codes != excl[rr][:, None])
             trow = tri[fid.clamp(min=0).long()]  # (m, S, 9)
             ok, t, _, _ = exact_face_eval(
-                o[rr][:, None, :], d[rr][:, None, :], trow, present, inf
+                o[rr][:, None, :], d[rr][:, None, :], trow, present,
+                best[rr][:, None] if any_hit else inf,
             )
+            if any_hit:
+                first = torch.amin(
+                    torch.where(ok, codes, torch.full_like(codes, big)), dim=1
+                )
+                best_code[rr] = torch.where(
+                    first < big, first, torch.full_like(first, -1)
+                )
+                continue
             t = torch.where(ok, t, torch.full_like(t, inf))
             t_c = torch.amin(t, dim=1)
             code_c = torch.amin(
@@ -124,11 +140,26 @@ def _trace_closest_torch(
             better = (t_c < b_t) | ((t_c == b_t) & (code_c < b_c))
             best[rr] = torch.where(better, t_c, b_t)
             best_code[rr] = torch.where(better, code_c, b_c)
+        if any_hit:
+            live = live[best_code[live] < 0]
     return best, best_code
 
 
+def _trace_closest_torch(*args, **kw) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of the closest-hit entry → (best t, code)."""
+    return _walk_torch(*args, any_hit=False, **kw)
+
+
+def _trace_any_torch(*args, **kw) -> torch.Tensor:
+    """Plain twin of the any-hit entry → code of the first valid hit in
+    walk order, or -1."""
+    return _walk_torch(*args, any_hit=True, **kw)[1]
+
+
 def _launch_kernel(o, d, inv_d, t_max, excl, snear, order, box, face_id,
-                   tri, tile):
+                   tri, tile, any_hit: bool = False):
+    """Check the arguments and launch the closest-hit (→ (t, code)) or
+    the any-hit (→ code) entry of the kernel; counts the launch."""
     from ._build import load
 
     tensors = dict(
@@ -156,24 +187,37 @@ def _launch_kernel(o, d, inv_d, t_max, excl, snear, order, box, face_id,
         or box.shape != (face_id.shape[0], 6) or tri.shape[1:] != (9,)
         or not 0 < tile <= 1024
     ):
-        raise ValueError("trace_closest_tiles: inconsistent shapes")
+        raise ValueError("cluster trace kernel: inconsistent shapes")
     lib = load()
-    t_out = torch.empty((r,), dtype=torch.float32, device=dev)
     code_out = torch.empty((r,), dtype=torch.int32, device=dev)
+    t_out = None if any_hit else torch.empty(
+        (r,), dtype=torch.float32, device=dev
+    )
+    head = (
+        o.data_ptr(), d.data_ptr(), inv_d.data_ptr(), t_max.data_ptr(),
+        excl.data_ptr(), snear.data_ptr(), order.data_ptr(), n_cols,
+        box.data_ptr(), face_id.data_ptr(), face_id.shape[1],
+        tri.data_ptr(), EPS2,
+    )
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.wrt_trace_closest(
-            o.data_ptr(), d.data_ptr(), inv_d.data_ptr(), t_max.data_ptr(),
-            excl.data_ptr(), snear.data_ptr(), order.data_ptr(), n_cols,
-            box.data_ptr(), face_id.data_ptr(), face_id.shape[1],
-            tri.data_ptr(), EPS2, t_out.data_ptr(), code_out.data_ptr(),
-            n_tiles, tile, stream,
-        )
+        if any_hit:
+            err = lib.wrt_trace_any(
+                *head, code_out.data_ptr(), n_tiles, tile, stream
+            )
+        else:
+            err = lib.wrt_trace_closest(
+                *head, t_out.data_ptr(), code_out.data_ptr(), n_tiles,
+                tile, stream,
+            )
     if err != 0:
         raise RuntimeError(
             "cluster trace kernel launch failed: "
             + lib.wrt_error_string(err).decode()
         )
+    if any_hit:
+        trace_any_tiles.launches += 1
+        return code_out
     trace_closest_tiles.launches += 1
     return t_out, code_out
 
@@ -195,6 +239,27 @@ def trace_closest_tiles(o, d, inv_d, t_max, excl, snear, order, box,
 
 
 trace_closest_tiles.launches = 0
+
+
+def trace_any_tiles(o, d, inv_d, t_max, excl, snear, order, box, face_id,
+                    tri, tile):
+    """Per-ray any-hit over each tile's sorted cluster order → code of
+    the first valid hit with t < t_max in walk order, or -1. CUDA tensors
+    launch the kernel (and count the launch in
+    ``trace_any_tiles.launches``); CPU tensors run the plain twin."""
+    if o.device.type == "cuda":
+        return _launch_kernel(
+            o, d, inv_d, t_max, excl, snear, order, box, face_id, tri, tile,
+            any_hit=True,
+        )
+    if o.device.type == "cpu":
+        return _trace_any_torch(
+            o, d, inv_d, t_max, excl, snear, order, box, face_id, tri, tile
+        )
+    raise ValueError(f"no any-hit trace for device {o.device}")
+
+
+trace_any_tiles.launches = 0
 
 
 def prepare_tiles(o, d, t_max, tables, active=None, excl_code=None,
@@ -252,3 +317,21 @@ def trace_closest_clustered_cuda(
     best_t, code = trace_closest_tiles(**args)
     face = code_to_face(code[:r0], tables.clusters.face_id)
     return rederive_uv(o, d, best_t[:r0], face, tables)
+
+
+def trace_any_clustered_cuda(
+    o: torch.Tensor,  # (R, 3)
+    d: torch.Tensor,  # (R, 3)
+    t_max: torch.Tensor,  # (R,)
+    tables,
+    active: Optional[torch.Tensor] = None,
+    excl_code: Optional[torch.Tensor] = None,
+    tile: int = 128,
+) -> torch.Tensor:
+    """Shadow-ray query → (R,) bool, True where some triangle blocks the
+    ray with 0 < t < t_max. Inactive rays and NaN origins are unblocked.
+    ``prepare_tiles`` feeds t_max into the tile distances, so short rays
+    prune clusters there."""
+    r0 = o.shape[0]
+    args = prepare_tiles(o, d, t_max, tables, active, excl_code, tile)
+    return trace_any_tiles(**args)[:r0] >= 0

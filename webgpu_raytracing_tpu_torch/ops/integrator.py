@@ -4,11 +4,18 @@
 
 The whole ray batch advances one path segment at a time with dead lanes
 masked; RNG advances are masked per lane to replicate the SIMT draw order.
-This slice covers the main path: closest-hit traces through the cluster
-kernel, emission/albedo accumulation, cosine-weighted bounces, Russian
-roulette and the deferred environment fetch. Next-event estimation and
-environment importance sampling are later slices
-(``config.check_supported`` refuses them).
+Closest-hit legs go through the cluster kernel's closest-hit entry and
+shadow legs through its any-hit entry (ops/cluster_cuda.py). Here:
+emission/albedo accumulation, cosine-weighted bounces, Russian roulette,
+the deferred environment fetch, next-event estimation of the lights
+(``sampleLights`` → ``pointColor``, render.ts:849-869 and 1143-1157, dead
+code in the reference and live here as in the JAX package), environment
+importance sampling with MIS (ops/env_sample.py), and the direct-lighting
+integrator :func:`trace_direct` (BASELINE config #1).
+
+Every leg is traced unsorted: the JAX package's ray sort is a pure
+reordering with identical results, and its sort key would be a second
+dense slab-test pass per leg on the card.
 """
 
 from __future__ import annotations
@@ -17,11 +24,19 @@ from typing import NamedTuple
 
 import torch
 
-from ..config import F32_MAX, RenderSettings, ShadingType
-from . import rng
-from .cluster_cuda import trace_closest_clustered_cuda
+from ..config import F32_MAX, INV_PI, RenderSettings, ShadingType
+from . import detmath, rng
+from .cluster_cuda import trace_any_clustered_cuda, trace_closest_clustered_cuda
+from .env_sample import (
+    EnvDistribution,
+    balance_weight,
+    bsdf_pdf,
+    env_pdf,
+    sample_env,
+)
 from .envmap import sample_environment
 from .intersect import Hit
+from .strictf import scross, sdot3
 
 _ORIGIN = 1.0 / 32.0
 _FLOAT_SCALE = 1.0 / 65536.0
@@ -34,6 +49,16 @@ def trace_closest(o, d, t_max, tables, settings, active=None, excl=None):
     legs are traced unsorted: the JAX package's ray sort is a pure
     reordering with identical results."""
     return trace_closest_clustered_cuda(
+        o, d, t_max, tables, active, excl_code=excl, tile=settings.trace_tile
+    )
+
+
+def trace_any(o, d, t_max, tables, settings, active=None, excl=None):
+    """Shadow-ray trace → (R,) bool blocked: the kernel's any-hit entry
+    for CUDA tensors, its plain twin for CPU tensors. Rays leaving a
+    two-sided face exclude its duplicate by code, as the Pallas path
+    does."""
+    return trace_any_clustered_cuda(
         o, d, t_max, tables, active, excl_code=excl, tile=settings.trace_tile
     )
 
@@ -76,6 +101,71 @@ def face_normal(shade_row, u, v, shading: ShadingType):
     return shade_row[..., 0:3]
 
 
+class LightSample(NamedTuple):
+    p: torch.Tensor  # (R,) 1/pdf
+    point: torch.Tensor  # (R, 3)
+    normal: torch.Tensor  # (R, 3)
+    material_idx: torch.Tensor  # (R,) i32
+
+
+def sample_lights(state, tables, settings: RenderSettings):
+    """sampleLights → sampleModel(models[0]) → sampleFace
+    (render.ts:849-869). Model 0 is the light by scene contract. Draws
+    ``random_1u`` then ``random_2`` on every lane (unmasked, as in JAX)."""
+    offset = tables.model_face_offset[0].long()
+    count = tables.model_face_count[0].long()
+    u1, state = rng.random_1u(state)
+    face_idx = offset + u1 % count
+    t2, state = rng.random_2(state)
+    uv = rng.sample_intriangle(t2)
+    u, v = uv[..., 0], uv[..., 1]
+    tri = tables.tri[face_idx]
+    shade = tables.shade_normal[face_idx]
+    point = face_point_offset(tri, shade, u, v)
+    normal = face_normal(shade, u, v, settings.shading_type)
+    # 1/pdf = |cross(e1, e2)|/2 × face count (render.ts:862-869)
+    cr = scross(tri[..., 3:6], tri[..., 6:9])
+    area = torch.sqrt(sdot3(cr, cr)) / 2.0
+    p = area * count.to(torch.float32)
+    mat = tables.face_material[face_idx]
+    return LightSample(p=p, point=point, normal=normal, material_idx=mat), state
+
+
+def light_ray(point, ls: LightSample):
+    """Shadow ray from a shading point to a light sample → (direction,
+    t_max = distance to the light point, squared distance)."""
+    ds = ls.point - point
+    d_sq = sdot3(ds, ds)
+    inv_d = detmath.det_div(1.0, detmath.det_sqrt(torch.clamp(d_sq, min=1e-20)))
+    t_max = detmath.det_sqrt(torch.clamp(d_sq, min=0.0))
+    return ds * inv_d.unsqueeze(-1), t_max, d_sq
+
+
+def direct_light(point, normal, state, tables, settings: RenderSettings,
+                 active=None, excl=None):
+    """pointColor (render.ts:1143-1157): ``samples_per_point`` light
+    samples, each with a shadow ray; emission × cosine / r² × (1/pdf).
+
+    NaN shading points (the reference's inverted offsetRay select, see
+    :func:`offset_ray`) stay NaN: their shadow rays come out unshadowed
+    and the contribution poisons the pixel, exactly as in the JAX package
+    and the reference (deliberate parity)."""
+    r = point.shape[0]
+    color = torch.zeros((r, 3), dtype=torch.float32, device=point.device)
+    for _ in range(settings.samples_per_point):
+        ls, state = sample_lights(state, tables, settings)
+        dirn, t_max, d_sq = light_ray(point, ls)
+        shadowed = trace_any(
+            point, dirn, t_max, tables, settings, active, excl
+        )
+        vis = torch.where(shadowed, 0.0, 1.0)
+        cosine = torch.clamp(sdot3(dirn, normal), min=0.0)
+        emission = tables.mat_emission[ls.material_idx.long()]
+        contrib = (vis * cosine * ls.p / torch.clamp(d_sq, min=1e-20))
+        color = color + emission * contrib.unsqueeze(-1)
+    return color / float(settings.samples_per_point), state
+
+
 class PathResult(NamedTuple):
     color: torch.Tensor  # (R, 3)
     state: torch.Tensor  # (R,) RNG state words
@@ -92,7 +182,15 @@ def path_trace(
     env_data,
     settings: RenderSettings,
 ) -> PathResult:
-    """pixelColor (render.ts:1167-1212), wavefront-unrolled."""
+    """pixelColor (render.ts:1167-1212), wavefront-unrolled. With
+    ``next_event_estimation`` each vertex also samples the lights; with
+    ``env_importance_sampling`` (``env_data`` an :class:`EnvDistribution`)
+    each vertex up to ``env_nee_depth`` also samples the environment, and
+    both environment strategies are MIS-combined (balance heuristic)."""
+    env_is = settings.env_importance_sampling
+    dist = env_data if env_is else None
+    env_img = env_data.img if isinstance(env_data, EnvDistribution) else env_data
+
     r = o.shape[0]
     dev = o.device
     color = torch.zeros((r, 3), dtype=torch.float32, device=dev)
@@ -100,10 +198,12 @@ def path_trace(
     alive = torch.ones((r,), dtype=torch.bool, device=dev)
     first_hit = None
     rays = torch.zeros((), dtype=torch.float32, device=dev)
+    prev_bsdf_pdf = torch.zeros((r,), dtype=torch.float32, device=dev)
 
     # deferred environment lookup: each lane misses at most once
     env_dir = torch.zeros((r, 3), dtype=torch.float32, device=dev)
     env_w = torch.zeros((r, 3), dtype=torch.float32, device=dev)
+    env_mis_pdf = torch.full((r,), -1.0, dtype=torch.float32, device=dev)
 
     pc = tables.clusters.partner_code
     excl = None
@@ -120,9 +220,12 @@ def path_trace(
             first_hit = hit
 
         found = hit.face >= 0
-        miss = (alive & ~found).unsqueeze(-1)
-        env_dir = torch.where(miss, d, env_dir)
-        env_w = torch.where(miss, throughput, env_w)
+        miss = alive & ~found
+        env_dir = torch.where(miss.unsqueeze(-1), d, env_dir)
+        env_w = torch.where(miss.unsqueeze(-1), throughput, env_w)
+        if env_is and seg > 0:
+            # the previous vertex also env-NEE'd: weigh the BSDF strategy
+            env_mis_pdf = torch.where(miss, prev_bsdf_pdf, env_mis_pdf)
 
         h = alive & found
         h3 = h.unsqueeze(-1)
@@ -138,13 +241,57 @@ def path_trace(
         n = face_normal(shade, hit.u, hit.v, settings.shading_type)
         new_o = face_point_offset(tri, shade, hit.u, hit.v)
 
-        # rays leaving this vertex exclude the hit face's two-sided twin
+        # rays leaving this vertex (shadow and bounce) exclude the hit
+        # face's two-sided twin
         if pc is not None:
             excl = torch.where(h, pc[face], torch.full_like(hit.face, -1))
+
+        if settings.next_event_estimation:
+            nee, state = direct_light(
+                new_o, n, state, tables, settings, active=h, excl=excl
+            )
+            color = torch.where(h3, color + nee * throughput, color)
+            rays = rays + h.to(torch.float32).sum() * float(
+                settings.samples_per_point
+            )
+
+        # env-NEE up to env_nee_depth vertices (0: all); deeper vertices
+        # keep BSDF sampling as their only env strategy (MIS weight 1)
+        run_env = env_is and (
+            settings.env_nee_depth == 0 or seg < settings.env_nee_depth
+        )
+        if run_env:
+            ed, erad, epdf, s_env = sample_env(dist, state)
+            state = rng.masked_advance(state, s_env, h)
+            nn = detmath.normalize(n)
+            facing = sdot3(ed, nn) > 0.0
+            blocked = trace_any(
+                new_o, ed,
+                torch.full((r,), F32_MAX, dtype=torch.float32, device=dev),
+                tables, settings, h & facing, excl,
+            )
+            vis = h & facing & ~blocked
+            w_env = balance_weight(epdf, bsdf_pdf(ed, n))
+            # f = albedo/π is already folded into throughput; × cos/pdf
+            contrib = throughput * erad * (
+                torch.clamp(sdot3(ed, nn), min=0.0) * INV_PI * w_env
+                / torch.clamp(epdf, min=1e-20)
+            ).unsqueeze(-1)
+            color = torch.where(vis.unsqueeze(-1), color + contrib, color)
+            rays = rays + (h & facing).to(torch.float32).sum()
 
         t2, s2 = rng.random_2(state)
         state = rng.masked_advance(state, s2, h)
         new_d = rng.sample_cosine_weighted_hemisphere(t2, n)
+        if env_is:
+            # -1: the deferred env fetch applies weight 1 (no env-NEE
+            # competed at this vertex)
+            pv = (
+                bsdf_pdf(new_d, n)
+                if run_env
+                else torch.full((r,), -1.0, dtype=torch.float32, device=dev)
+            )
+            prev_bsdf_pdf = torch.where(h, pv, prev_bsdf_pdf)
 
         # russian roulette (render.ts:1201-1208)
         p = torch.amax(throughput, dim=-1)
@@ -162,7 +309,12 @@ def path_trace(
         o = torch.where(a3, new_o, o)
         d = torch.where(a3, new_d, d)
 
-    env = sample_environment(env_data, env_dir, settings.environment)
+    env = sample_environment(env_img, env_dir, settings.environment)
+    if env_is:
+        w_bsdf = balance_weight(
+            torch.clamp(env_mis_pdf, min=0.0), env_pdf(dist, env_dir)
+        )
+        env = env * torch.where(env_mis_pdf >= 0.0, w_bsdf, 1.0).unsqueeze(-1)
     color = color + env * env_w
 
     if first_hit is None:
@@ -173,3 +325,43 @@ def path_trace(
             face=torch.full((r,), -1, dtype=torch.int32, device=dev),
         )
     return PathResult(color=color, state=state, first_hit=first_hit, rays=rays)
+
+
+def trace_direct(o, d, t_max0, state, tables, env_data,
+                 settings: RenderSettings) -> PathResult:
+    """Direct-lighting-only integrator (BASELINE config #1, chosen when
+    ``bounces_depth <= 1``): one primary hit, emission + light NEE, the
+    environment on a miss."""
+    if isinstance(env_data, EnvDistribution):
+        env_data = env_data.img
+    r = o.shape[0]
+    hit = trace_closest(o, d, t_max0, tables, settings)
+    found = hit.face >= 0
+    f3 = found.unsqueeze(-1)
+    env = sample_environment(env_data, d, settings.environment)
+    color = torch.where(f3, 0.0, env)
+
+    face = hit.face.clamp(min=0).long()
+    mat = tables.face_material[face].long()
+    emission = tables.mat_emission[mat]
+    albedo = tables.mat_color[mat]
+    tri = tables.tri[face]
+    shade = tables.shade_normal[face]
+    n = face_normal(shade, hit.u, hit.v, settings.shading_type)
+    point = face_point_offset(tri, shade, hit.u, hit.v)
+
+    pc = tables.clusters.partner_code
+    excl = (
+        None
+        if pc is None
+        else torch.where(found, pc[face], torch.full_like(hit.face, -1))
+    )
+    nee, state = direct_light(
+        point, n, state, tables, settings, active=found, excl=excl
+    )
+    color = torch.where(f3, emission + albedo * nee, color)
+    rays = torch.tensor(
+        float(r * (1 + settings.samples_per_point)), dtype=torch.float32,
+        device=o.device,
+    )
+    return PathResult(color=color, state=state, first_hit=hit, rays=rays)

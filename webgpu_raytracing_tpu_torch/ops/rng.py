@@ -98,3 +98,16 @@ def sample_cosine_weighted_hemisphere(t, n):
 def sample_insquare(t):
     """rng.ts:125-127 — uniform in [-1, 1]^2."""
     return 2.0 * t - 1.0
+
+
+def sample_intriangle(t):
+    """Uniform barycentric (u, v) in the unit triangle: the standard
+    reflection, as the JAX package has it (the reference's rng.ts:129-131
+    leaves ``t`` unreflected when t.x >= t.y and lands outside the
+    triangle a quarter of the time)."""
+    u, v = t[..., 0], t[..., 1]
+    flip = u + v > 1.0
+    return torch.stack(
+        [torch.where(flip, 1.0 - u, u), torch.where(flip, 1.0 - v, v)],
+        dim=-1,
+    )

@@ -23,7 +23,8 @@ from .camera import Camera
 from .config import F32_MAX, BlitView, RenderSettings, check_supported
 from .models.scene import Scene, SceneTables
 from .ops import rng
-from .ops.integrator import face_point_offset, path_trace
+from .ops.env_sample import EnvDistribution
+from .ops.integrator import face_point_offset, path_trace, trace_direct
 from .ops.raygen import camera_rays
 from .ops.tonemap import apply as tonemap_apply
 from .ops.tonemap import gamma as tonemap_gamma
@@ -119,6 +120,7 @@ def render_tile(
     )
 
     state = rng.seed_state(inputs.seed, idx)
+    integrator = trace_direct if settings.bounces_depth <= 1 else path_trace
 
     image = buffers.image
     if inputs.counter == 0:  # clear on counter == 0 (render.ts:1454-1459)
@@ -127,7 +129,7 @@ def render_tile(
     def one_sample(pos, state):
         o, d, state = camera_rays(pos, inputs.view, state, settings)
         t_max = torch.full((r,), F32_MAX, dtype=torch.float32, device=dev)
-        return path_trace(o, d, t_max, state, tables, env_data, settings)
+        return integrator(o, d, t_max, state, tables, env_data, settings)
 
     # primary sample (render.ts:1464-1468)
     res = one_sample(base_pos, state)
@@ -208,10 +210,25 @@ def blit(image: torch.Tensor, prev_image: torch.Tensor,
     return torch.clamp(color, 0.0, 1.0)
 
 
+def _check_env(settings: RenderSettings, env_data) -> None:
+    if settings.env_importance_sampling and not isinstance(
+        env_data, EnvDistribution
+    ):
+        raise ValueError(
+            "env_importance_sampling needs env_data to be an "
+            "EnvDistribution (ops.env_sample.build_env_distribution), "
+            f"not {type(env_data).__name__}"
+        )
+
+
 class Renderer:
     """Host-side progressive renderer: owns the accumulation state, the
     reset-on-change policy (store.ts:192-344) and the prev-buffer rotation
-    (render.ts:1651-1657). Everything lives on ``device``."""
+    (render.ts:1651-1657). Everything lives on ``device``.
+
+    ``env_data`` is an (H, W, 3) radiance image or cubemap faces, or, for
+    ``env_importance_sampling``, an :class:`EnvDistribution` (whose
+    ``img`` then serves the environment fetches too)."""
 
     def __init__(
         self,
@@ -224,15 +241,19 @@ class Renderer:
         device,
     ):
         check_supported(settings)
+        _check_env(settings, env_data)
         self.device = torch.device(device)
         self.scene = scene
         self.settings = settings
         self.tables = scene.tables(self.device)
         if env_data is None:
             env_data = np.zeros((1, 1, 3), np.float32)
-        self.env_data = torch.as_tensor(
-            np.asarray(env_data, np.float32), device=self.device
-        )
+        if isinstance(env_data, EnvDistribution):
+            self.env_data = env_data.to(self.device)
+        else:
+            self.env_data = torch.as_tensor(
+                np.asarray(env_data, np.float32), device=self.device
+            )
         self.camera = camera or Camera()
         self.counter = 0
         self.frame_counter = 0
@@ -250,6 +271,7 @@ class Renderer:
         """A settings change resets accumulation (gpu.ts:512-525)."""
         settings = self.settings.replace(**kw)
         check_supported(settings)
+        _check_env(settings, self.env_data)
         self.settings = settings
         if kw.keys() & {
             "width", "height", "resolution_scale", "geometry_buffer_scale"
