@@ -1,15 +1,16 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--frames 4] [--seed 0]
+    python3 chip_smoke.py [--frames 4] [--config5-frames 2] [--seed 0]
 
 Phases (any failure exits non-zero; nothing is caught to carry on):
 
 1. environment: torch/CUDA/nvcc versions, the card's name and power limit;
    fails when no CUDA device is visible. TF32 is switched off.
-2. build: compiles both entries of the cluster trace kernel
-   (``wrt_trace_closest``, ``wrt_trace_any``; csrc/cluster_trace.cu) from
-   the checkout into build/kernels/.
-3. kernels vs twins: on 1080p ray sets of ``stress_scene(44_556)`` made
+2. build: compiles the four entries of the cluster trace kernels
+   (``wrt_trace_closest``, ``wrt_trace_any``: K1;
+   ``wrt_trace_closest_two_level``, ``wrt_trace_any_two_level``: K3;
+   csrc/cluster_trace.cu) from the checkout into build/kernels/.
+3. K1 vs twins: on 1080p ray sets of ``stress_scene(44_556)`` made
    from frame 0 exactly as ``path_trace`` makes them, each CUDA entry and
    its plain-torch twin run on the same device tensors. Closest-hit: the
    primary rays and the first bounce set (with source-face exclusion
@@ -17,10 +18,12 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
    to the light point) and the env-NEE set (``sample_env`` directions on
    a 1024x2048 equirect of the procedural sky, t_max = F32_MAX, active =
    hit & facing). Codes must agree on all but 1e-5 of the rays. Both are
-   timed with CUDA events.
+   timed with CUDA events; the twin also counts the leg's work, which
+   gives the kernel's bound (f32 operations over 67 TFLOP/s, bytes over
+   3.35 TB/s, the larger).
 4. the 1080p paths through ``Renderer`` (one warm-up frame, then
-   ``--frames`` timed frames; launch counts zeroed just before the timed
-   frames and read just after):
+   ``--frames`` timed frames; the four launch counts zeroed just before
+   the timed frames and read just after):
    default (procedural sky): finite image, 6 closest-hit launches/frame;
    NEE: 6 closest-hit + 6 any-hit launches/frame, no +-inf pixel (the
    y = 0 floor's shading points are NaN by the reference's own offset
@@ -35,6 +38,25 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
    NEE, ``bounces_depth=1`` and env-IS, the frame on the card equals the
    port's frame on the CPU (the twins the tier-1 tests hold against JAX):
    equal NaN masks, RMSE < 1e-5 over the other pixels.
+7. config #5 (BASELINE.md): ``stress_scene(1_000_000)``, two-level tables
+   (G = 64), set-up time printed.
+   a. K3 vs twins on the rays of one 4K slab (rows 1080-1349 of
+      3840x2160, 1,036,800 rays) of frame 0: primary and first bounce
+      (closest-hit), NEE shadow (any-hit); as phase 3.
+   b. K3 route vs K1 route on the same primary and bounce rays: the tile
+      entry distances over the 227 supers + K3 against those over all
+      14,528 clusters + K1; face ids must be identical; both timed.
+   c. the config #5 frame: 3840x2160, ``RenderSettings`` defaults,
+      procedural sky, ``frame_slabs=8``, one warm-up and
+      ``--config5-frames`` timed frames: 48 two-level closest-hit launches
+      per frame and no other, 2 samples per pixel per frame, finite image;
+      ms/frame, Mrays/s, peak device memory.
+   d. slabs and resume at 960x544 on the same tables: 8 slabs equal 1
+      slab bit for bit; a run saved after one frame and resumed in a fresh
+      Renderer equals the uninterrupted run bit for bit.
+   e. NEE on the 1M scene at 1920x1080 in 4 slabs, one warm-up and one
+      timed frame: 24 two-level closest-hit + 24 two-level any-hit
+      launches.
 
 Prints the per-kernel JSON line, then the ``nvidia-smi`` name/power line,
 then ``{"ok": true, "device": {...}}`` as the last line.
@@ -58,6 +80,14 @@ SLICE = dict(
 )
 N_TRIANGLES = 44_556
 SKY_SHAPE = (1024, 2048)  # the synthesized equirect of the env-IS path
+CONFIG5_TRIANGLES = 1_000_000
+CONFIG5 = dict(width=3840, height=2160, frame_slabs=8)
+CONFIG5_SLAB = 4  # the slab (of 8) whose frame-0 rays phase 7 compares
+CONFIG5_CHECK = (960, 544)  # width, height of the slabs and resume checks
+DEVICE = "cuda"
+# H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3
+PEAK_F32 = 67e12
+PEAK_BYTES = 3.35e12
 
 
 def fail(msg: str) -> None:
@@ -102,8 +132,9 @@ def phase_build():
           f"{os.path.relpath(so)}", flush=True)
 
 
-def _time_cuda(torch, fn, reps: int) -> float:
-    fn()  # warm-up
+def _time_cuda(torch, fn, reps: int, warm: bool = True) -> float:
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -137,13 +168,14 @@ def sky_equirect(torch, h: int, w: int, dev):
 
 
 def _compare_leg(torch, name, args, card, any_hit=False):
-    """One leg through the kernel entry and its twin on the same device
-    tensors: codes must agree; closest-hit t must be bit-equal where they
-    do."""
+    """One leg through its kernel entry (K3 for a two-level ``args``, else
+    K1) and its twin on the same device tensors: codes must agree;
+    closest-hit t must be bit-equal where they do. The twin counts the
+    leg's work, which bounds the kernel."""
     from webgpu_raytracing_tpu_torch.ops import cluster_cuda as cc
 
-    wrapper = cc.trace_any_tiles if any_hit else cc.trace_closest_tiles
-    twin = cc._trace_any_torch if any_hit else cc._trace_closest_torch
+    wrapper, twin = (cc.trace_any_args if any_hit
+                     else cc.trace_closest_args)(args)
     n_rays = args["o"].shape[0]
     live = int((args["t_max"] > 0).sum())
     before = wrapper.launches
@@ -151,8 +183,11 @@ def _compare_leg(torch, name, args, card, any_hit=False):
     torch.cuda.synchronize()
     if wrapper.launches != before + 1:
         fail(f"{name}: kernel launch was not counted")
-    out_w = twin(**args)
+    stats = {}
+    t0 = time.perf_counter()
+    out_w = twin(**args, stats=stats)
     torch.cuda.synchronize()
+    counted_s = time.perf_counter() - t0
     code_k, code_w = (out_k, out_w) if any_hit else (out_k[1], out_w[1])
     bad = torch.nonzero(code_k != code_w).flatten()
     mismatch = int(bad.numel())
@@ -170,11 +205,19 @@ def _compare_leg(torch, name, args, card, any_hit=False):
             bool(both.any())) else 0.0
     hits = int((code_k >= 0).sum())
     ms_k = _time_cuda(torch, lambda: wrapper(**args), 5)
-    ms_w = _time_cuda(torch, lambda: twin(**args), 1)
+    ms_w = _time_cuda(torch, lambda: twin(**args), 1, warm=False)
+    work = cc.walk_stats(stats, args["face_id"], any_hit)
+    ops_ms = work["ops"] / PEAK_F32 * 1e3
+    bytes_ms = work["bytes"] / PEAK_BYTES * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
     what = "blocked" if any_hit else "hits"
     print(f"{name}: {n_rays} rays ({live} live), {hits} {what}, code "
           f"mismatches {mismatch}, flag mismatches {flag_mismatch}, max abs "
           f"err {max_abs:g}; kernel {ms_k:.3f} ms, twin {ms_w:.3f} ms "
+          f"(counting run {counted_s:.1f} s); work {work['box_tests']} box "
+          f"tests, {work['slot_tests']} slot tests, {work['ops']} f32 ops, "
+          f"{work['bytes']} bytes -> bound {bound_ms:.4f} ms by {bound_by} "
           f"({card})", flush=True)
     if max(mismatch, flag_mismatch) > MISMATCH_LIMIT * n_rays:
         fail(f"{name}: {mismatch} code mismatches > {MISMATCH_LIMIT:g} of "
@@ -183,21 +226,22 @@ def _compare_leg(torch, name, args, card, any_hit=False):
         fail(f"{name}: kernel and twin t differ where faces agree")
     return dict(n=n_rays, live=live, hits=hits, mismatch=mismatch,
                 flag_mismatch=flag_mismatch, max_abs=max_abs, ms=ms_k,
-                plain_ms=ms_w)
+                plain_ms=ms_w, bound_ms=bound_ms, bound_by=bound_by,
+                ops=work["ops"], bytes=work["bytes"],
+                box_tests=work["box_tests"], slot_tests=work["slot_tests"])
 
 
-def phase_kernel_vs_twin(torch, scene, sky, seed, card):
-    """Kernels vs twins on frame 0's legs, made exactly as Renderer.step /
-    path_trace make them."""
+def frame0_legs(torch, tables, st, seed, row0=0, rows=None, sky=None):
+    """Frame 0's trace legs over image rows [row0, row0 + rows), made
+    exactly as Renderer.step / path_trace make them (global pixel indices
+    and RNG streams): name → keyword arguments of ``prepare_tiles``.
+    Primary, first bounce (exclusion codes), NEE shadow (the first light
+    sample) and, given ``sky``, the env-NEE shadow set."""
     import numpy as np
 
     from webgpu_raytracing_tpu_torch.camera import Camera
-    from webgpu_raytracing_tpu_torch.config import RenderSettings
     from webgpu_raytracing_tpu_torch.ops import cluster_cuda as cc
     from webgpu_raytracing_tpu_torch.ops import detmath, rng
-    from webgpu_raytracing_tpu_torch.ops.cluster_cuda import (
-        code_to_face, prepare_tiles, rederive_uv,
-    )
     from webgpu_raytracing_tpu_torch.ops.env_sample import sample_env
     from webgpu_raytracing_tpu_torch.ops.integrator import (
         face_normal, face_point_offset, light_ray, sample_lights,
@@ -205,16 +249,15 @@ def phase_kernel_vs_twin(torch, scene, sky, seed, card):
     from webgpu_raytracing_tpu_torch.ops.raygen import camera_rays
     from webgpu_raytracing_tpu_torch.ops.strictf import sdot3
 
-    dev = torch.device("cuda")
-    st = RenderSettings(**SLICE)
-    tables = scene.tables(dev)
-    w, h = st.render_width, st.render_height
+    dev = torch.device(DEVICE)
+    w = st.render_width
+    h = st.render_height if rows is None else rows
     r = w * h
     frame_seed = int(
         np.random.default_rng(seed).integers(0, 2**32, dtype=np.uint64)
     )
     ys, xs = torch.meshgrid(
-        torch.arange(h, dtype=torch.int32, device=dev),
+        torch.arange(h, dtype=torch.int32, device=dev) + row0,
         torch.arange(w, dtype=torch.int32, device=dev), indexing="ij",
     )
     idx = (xs + ys * w).reshape(r)
@@ -222,15 +265,11 @@ def phase_kernel_vs_twin(torch, scene, sky, seed, card):
     view = torch.as_tensor(Camera().view_matrix(), device=dev)
     o, d, state = camera_rays(pos, view, rng.seed_state(frame_seed, idx), st)
     t_max = torch.full((r,), F32_MAX, device=dev)
-    tile = st.trace_tile
-    closest, anyhit = {}, {}
-    args = prepare_tiles(o, d, t_max, tables, tile=tile)
-    closest["primary"] = _compare_leg(torch, "primary", args, card)
+    legs = {"primary": dict(o=o, d=d, t_max=t_max)}
 
     # path_trace's segment-0 vertex on the kernel's primary hits
-    t_k, code = cc.trace_closest_tiles(**args)
-    face = code_to_face(code[:r], tables.clusters.face_id)
-    hit = rederive_uv(o, d, t_k[:r], face, tables)
+    hit = cc.trace_closest_clustered_cuda(o, d, t_max, tables,
+                                          tile=st.trace_tile)
     h_mask = hit.face >= 0
     fi = hit.face.clamp(min=0).long()
     n = face_normal(tables.shade_normal[fi], hit.u, hit.v, st.shading_type)
@@ -238,44 +277,95 @@ def phase_kernel_vs_twin(torch, scene, sky, seed, card):
                               hit.u, hit.v)
     excl = torch.where(h_mask, tables.clusters.partner_code[fi],
                        torch.full_like(hit.face, -1))
-
-    # NEE shadow set (direct_light, first light sample)
     ls, _ = sample_lights(state, tables, st)
     dirn, t_light, _ = light_ray(new_o, ls)
-    args = prepare_tiles(new_o, dirn, t_light, tables, active=h_mask,
-                         excl_code=excl, tile=tile)
-    anyhit["nee"] = _compare_leg(torch, "nee shadow", args, card, True)
-
-    # env-NEE set (path_trace's env-IS branch)
-    ed, _, _, _ = sample_env(sky, state)
-    facing = sdot3(ed, detmath.normalize(n)) > 0.0
-    args = prepare_tiles(new_o, ed, t_max, tables, active=h_mask & facing,
-                         excl_code=excl, tile=tile)
-    anyhit["env"] = _compare_leg(torch, "env shadow", args, card, True)
-
-    # first bounce set
+    legs["nee"] = dict(o=new_o, d=dirn, t_max=t_light, active=h_mask,
+                       excl_code=excl)
+    if sky is not None:
+        ed, _, _, _ = sample_env(sky, state)
+        facing = sdot3(ed, detmath.normalize(n)) > 0.0
+        legs["env"] = dict(o=new_o, d=ed, t_max=t_max,
+                           active=h_mask & facing, excl_code=excl)
     t2, _ = rng.random_2(state)
     new_d = rng.sample_cosine_weighted_hemisphere(t2, n)
-    args = prepare_tiles(new_o, new_d, t_max, tables, active=h_mask,
-                         excl_code=excl, tile=tile)
-    closest["bounce"] = _compare_leg(torch, "bounce", args, card)
+    legs["bounce"] = dict(o=new_o, d=new_d, t_max=t_max, active=h_mask,
+                          excl_code=excl)
+    return legs
+
+
+def compare_legs(torch, tables, legs, card, tile, label=""):
+    """Each leg of ``legs`` through its kernel and twin → (closest,
+    any-hit) dicts of _compare_leg results."""
+    from webgpu_raytracing_tpu_torch.ops.cluster_cuda import prepare_tiles
+
+    closest, anyhit = {}, {}
+    names = {"primary": "primary", "bounce": "bounce", "nee": "nee shadow",
+             "env": "env shadow"}
+    for key in ("primary", "nee", "env", "bounce"):
+        if key not in legs:
+            continue
+        args = prepare_tiles(tables=tables, tile=tile, **legs[key])
+        any_hit = key in ("nee", "env")
+        out = _compare_leg(torch, label + names[key], args, card, any_hit)
+        (anyhit if any_hit else closest)[key] = out
     return closest, anyhit
+
+
+def phase_kernel_vs_twin(torch, scene, sky, seed, card):
+    """K1 vs twins on frame 0's 1080p legs of the slice scene."""
+    from webgpu_raytracing_tpu_torch.config import RenderSettings
+
+    st = RenderSettings(**SLICE)
+    tables = scene.tables(torch.device(DEVICE))
+    legs = frame0_legs(torch, tables, st, seed, sky=sky)
+    return compare_legs(torch, tables, legs, card, st.trace_tile)
+
+
+WRAPPERS = ("trace_closest_tiles", "trace_any_tiles",
+            "trace_closest_two_level_tiles", "trace_any_two_level_tiles")
+
+
+def _launch_counts():
+    from webgpu_raytracing_tpu_torch.ops import cluster_cuda as cc
+
+    return tuple(getattr(cc, w).launches for w in WRAPPERS)
+
+
+def _zero_launch_counts():
+    from webgpu_raytracing_tpu_torch.ops import cluster_cuda as cc
+
+    for w in WRAPPERS:
+        getattr(cc, w).launches = 0
+
+
+class Prebuilt:
+    """A scene whose tables are already on the card: the Renderers of the
+    later config #5 checks share the tables of the config #5 frame instead
+    of rebuilding 1M faces each."""
+
+    def __init__(self, tables):
+        self._tables = tables
+
+    def tables(self, device):
+        return self._tables
 
 
 def drive_path(torch, name, scene, st, frames, seed, card, per_frame,
                env_data=None, finite=True):
     """Render one warm-up and ``frames`` timed frames through Renderer on
-    the card; check sample counts, launch counts (closest, any-hit per
-    frame) and the image; return the measured numbers."""
-    from webgpu_raytracing_tpu_torch.ops import cluster_cuda as cc
+    the card; check sample counts, launch counts (per frame, in the order
+    of WRAPPERS) and the image; return (the measured numbers, the
+    Renderer)."""
     from webgpu_raytracing_tpu_torch.renderer import Renderer
 
+    t0 = time.perf_counter()
     r = Renderer(scene, st, env_data=env_data, base_seed=seed,
-                 device="cuda")
+                 device=DEVICE)
+    setup_s = time.perf_counter() - t0
     r.step()  # warm-up
     torch.cuda.synchronize()
-    cc.trace_closest_tiles.launches = 0
-    cc.trace_any_tiles.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts()
     rays = 0.0
     t0 = time.perf_counter()
     for _ in range(frames):
@@ -283,14 +373,15 @@ def drive_path(torch, name, scene, st, frames, seed, card, per_frame,
         rays += r.last_rays
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = (cc.trace_closest_tiles.launches, cc.trace_any_tiles.launches)
+    launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated()
     img = r.buffers.image
     want = (1.0 + st.sample_count) * (frames + 1)
     if not bool((img[..., 3] == want).all()):
         fail(f"{name}: sample counts differ from {want}")
-    expect = (per_frame[0] * frames, per_frame[1] * frames)
+    expect = tuple(n * frames for n in per_frame)
     if launches != expect:
-        fail(f"{name}: (closest, any-hit) launches {launches} in {frames} "
+        fail(f"{name}: launches {launches} of {WRAPPERS} in {frames} "
              f"frames, expected {expect}")
     rgb = img[..., :3]
     if bool(torch.isinf(rgb).any()):
@@ -305,13 +396,15 @@ def drive_path(torch, name, scene, st, frames, seed, card, per_frame,
         fail(f"{name}: display image shape {disp.shape}")
     ms = dt / frames * 1e3
     mrays = rays / dt / 1e6
-    print(f"{name}: {frames} frames of {st.width}x{st.height}, "
-          f"{ms:.1f} ms/frame, {mrays:.3f} Mrays/s "
-          f"({rays / frames:.0f} rays/frame), launches closest {launches[0]}"
-          f" any-hit {launches[1]}, NaN pixels {nan_share:.4f} ({card})",
-          flush=True)
+    print(f"{name}: {frames} frames of {st.width}x{st.height} "
+          f"(frame_slabs {st.frame_slabs}), {ms:.1f} ms/frame, "
+          f"{mrays:.3f} Mrays/s ({rays / frames:.0f} rays/frame), launches "
+          f"{dict(zip(WRAPPERS, launches))}, NaN pixels {nan_share:.4f}, "
+          f"peak memory {peak / 2**30:.2f} GiB, Renderer set-up "
+          f"{setup_s:.1f} s ({card})", flush=True)
     return dict(launches=launches, ms_per_frame=ms, mrays=mrays,
-                nan_share=nan_share)
+                nan_share=nan_share, peak_gib=peak / 2**30,
+                rays_per_frame=rays / frames), r
 
 
 def phase_paths(torch, scene, sky, frames, seed, card):
@@ -322,15 +415,15 @@ def phase_paths(torch, scene, sky, frames, seed, card):
     paths = {}
     base = RenderSettings(**SLICE)
     paths["default"] = drive_path(torch, "default path", scene, base, frames,
-                                  seed, card, (6, 0))
+                                  seed, card, (6, 0, 0, 0))[0]
     paths["nee"] = drive_path(
         torch, "NEE path", scene, base.replace(next_event_estimation=True),
-        frames, seed, card, (6, 6), finite=False,
-    )
+        frames, seed, card, (6, 6, 0, 0), finite=False,
+    )[0]
     env_st = base.replace(environment="equirect", env_importance_sampling=True)
     paths["envis"] = drive_path(torch, "env-IS path", scene, env_st, frames,
-                                seed, card, (6, 6), env_data=sky,
-                                finite=False)
+                                seed, card, (6, 6, 0, 0), env_data=sky,
+                                finite=False)[0]
     lanes = 1920 * 1080
     state = rng.seed_state(
         12345, torch.arange(lanes, dtype=torch.int32, device="cuda")
@@ -375,7 +468,7 @@ def phase_direct(torch, frames, seed, card):
                         bounces_depth=1,
                         projection_type=ProjectionType.PERSPECTIVE)
     return drive_path(torch, "direct path (config #1)", analytic_scene(), st,
-                      frames, seed, card, (2, 2), finite=False)
+                      frames, seed, card, (2, 2, 0, 0), finite=False)[0]
 
 
 def mini_scene():
@@ -454,17 +547,124 @@ def phase_reference(torch):
     return out
 
 
+def phase_config5_kernels(torch, tables, seed, card):
+    """7a/7b: K3 vs twins on one 4K slab's frame-0 legs of the 1M scene,
+    then the K3 route (super entry distances + K3) against the K1 route
+    (entry distances over every cluster + K1) on the primary and bounce
+    rays: identical face ids, both timed."""
+    from webgpu_raytracing_tpu_torch.config import RenderSettings
+    from webgpu_raytracing_tpu_torch.ops import cluster_cuda as cc
+
+    st = RenderSettings(**CONFIG5)
+    rows = st.render_height // st.frame_slabs
+    legs = frame0_legs(torch, tables, st, seed, row0=CONFIG5_SLAB * rows,
+                       rows=rows)
+    closest, anyhit = compare_legs(torch, tables, legs, card, st.trace_tile,
+                                   label="config #5 slab ")
+    routes = {}
+    for key in ("primary", "bounce"):
+        leg = legs[key]
+
+        def prep(two_level):
+            return cc.prepare_tiles(tables=tables, tile=st.trace_tile,
+                                    two_level=two_level, **leg)
+
+        def route(two_level):
+            args = prep(two_level)
+            return cc.trace_closest_args(args)[0](**args)[1]
+
+        faces = {tl: cc.code_to_face(route(tl), tables.clusters.face_id)
+                 for tl in (True, False)}
+        torch.cuda.synchronize()
+        mismatch = int((faces[True] != faces[False]).sum())
+        a1 = prep(False)
+        ms = dict(
+            two_level_route=_time_cuda(torch, lambda: route(True), 3),
+            two_level_prep=_time_cuda(torch, lambda: prep(True), 3),
+            single_level_route=_time_cuda(torch, lambda: route(False), 1,
+                                          warm=False),
+            single_level_prep=_time_cuda(torch, lambda: prep(False), 1,
+                                         warm=False),
+            k1_kernel=_time_cuda(torch, lambda: cc.trace_closest_tiles(**a1),
+                                 3),
+        )
+        del a1
+        print(f"config #5 slab {key}: K3 route {ms['two_level_route']:.3f} ms"
+              f" (prep {ms['two_level_prep']:.3f}), K1 route over all "
+              f"{tables.clusters.box.shape[0]} clusters "
+              f"{ms['single_level_route']:.3f} ms (prep "
+              f"{ms['single_level_prep']:.3f}, K1 {ms['k1_kernel']:.3f}); "
+              f"face mismatches {mismatch} of {faces[True].numel()} ({card})",
+              flush=True)
+        if mismatch:
+            fail(f"config #5 {key}: K3 and K1 routes differ on {mismatch} "
+                 "faces")
+        routes[key] = dict(mismatch=mismatch, **ms)
+    return closest, anyhit, routes
+
+
+def _bits_equal(torch, a, b) -> bool:
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def phase_config5_slabs_resume(torch, tables, seed, card):
+    """7d: slabs vs one slab, and checkpoint resume, bit for bit."""
+    import dataclasses
+
+    from webgpu_raytracing_tpu_torch.config import RenderSettings
+    from webgpu_raytracing_tpu_torch.renderer import FrameBuffers, Renderer
+
+    st = RenderSettings(width=CONFIG5_CHECK[0], height=CONFIG5_CHECK[1],
+                        frame_slabs=8)
+
+    def run(settings, steps):
+        r = Renderer(Prebuilt(tables), settings, base_seed=seed,
+                     device=DEVICE)
+        for _ in range(steps):
+            r.step()
+        return r
+
+    def same(a, b):
+        return all(
+            _bits_equal(torch, getattr(a.buffers, f.name),
+                        getattr(b.buffers, f.name))
+            for f in dataclasses.fields(FrameBuffers)
+        )
+
+    slabs, whole = run(st, 1), run(st.replace(frame_slabs=1), 1)
+    if not same(slabs, whole):
+        fail("config #5: 8 slabs differ from 1 slab")
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke", "config5_checkpoint.npz")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    uninterrupted = run(st, 2)
+    slabs.save_checkpoint(path)
+    resumed = run(st, 0)
+    resumed.load_checkpoint(path)
+    resumed.step()
+    if not same(resumed, uninterrupted):
+        fail("config #5: the resumed run differs from the uninterrupted one")
+    os.unlink(path)
+    print(f"config #5 at {st.width}x{st.height}: 8 slabs = 1 slab bit for "
+          "bit; resume from a checkpoint = uninterrupted run bit for bit "
+          f"({card})", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=4)
+    ap.add_argument("--config5-frames", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
     a = ap.parse_args()
+    t_start = time.perf_counter()
 
     import torch
 
     card = phase_environment(torch)
     phase_build()
+    from webgpu_raytracing_tpu_torch.config import RenderSettings
     from webgpu_raytracing_tpu_torch.models.stress import stress_scene
+    from webgpu_raytracing_tpu_torch.ops.cluster_cuda import is_two_level
     from webgpu_raytracing_tpu_torch.ops.env_sample import (
         build_env_distribution,
     )
@@ -481,6 +681,55 @@ def main() -> int:
     paths = phase_paths(torch, scene, sky, a.frames, a.seed, card)
     paths["direct"] = phase_direct(torch, a.frames, a.seed, card)
     reference = phase_reference(torch)
+    del scene
+
+    # 7. config #5
+    t0 = time.perf_counter()
+    scene5 = stress_scene(CONFIG5_TRIANGLES)
+    scene_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tables5 = scene5.tables(torch.device("cuda"))
+    torch.cuda.synchronize()
+    ct = tables5.clusters
+    c, g = ct.box.shape[0], ct.group
+    c2 = 0 if ct.super_box is None else ct.super_box.shape[0]
+    real = int((ct.face_id[:, 0] >= 0).sum())
+    table_bytes = sum(
+        x.numel() * x.element_size()
+        for x in [getattr(tables5, k) for k in (
+            "node_box", "node_meta", "tri", "shade_normal", "face_material",
+            "model_face_offset", "model_face_count", "mat_color",
+            "mat_emission")]
+        + [getattr(ct, k) for k in ("box", "mat_b", "face_id",
+                                     "partner_code", "super_box",
+                                     "child_box_t")]
+        if x is not None
+    )
+    print(f"config #5 scene: stress_scene({CONFIG5_TRIANGLES}) "
+          f"{tables5.tri.shape[0]} faces in {len(scene5.models)} models, "
+          f"built in {scene_s:.1f} s; tables on the card in "
+          f"{time.perf_counter() - t0:.1f} s: C = {c} clusters ({real} with "
+          f"faces), C2 = {c2} supers of G = {g}, {table_bytes} bytes",
+          flush=True)
+    if not (is_two_level(ct) and g == 64 and c == c2 * g):
+        fail(f"config #5: tables are not two-level with G = 64 (C {c}, C2 "
+             f"{c2}, G {g})")
+    closest5, anyhit5, routes = phase_config5_kernels(torch, tables5, a.seed,
+                                                      card)
+    paths["config5"], r5 = drive_path(
+        torch, "config #5 frame", scene5, RenderSettings(**CONFIG5),
+        a.config5_frames, a.seed, card, (0, 0, 6 * CONFIG5["frame_slabs"], 0),
+    )
+    del scene5
+    tables5 = r5.tables
+    del r5
+    phase_config5_slabs_resume(torch, tables5, a.seed, card)
+    paths["config5_nee"] = drive_path(
+        torch, "config #5 NEE (1080p)", Prebuilt(tables5),
+        RenderSettings(width=1920, height=1080, frame_slabs=4,
+                       next_event_estimation=True),
+        1, a.seed, card, (0, 0, 24, 24), finite=False,
+    )[0]
 
     def by_path(i):
         return {k: v["launches"][i] for k, v in paths.items()
@@ -490,38 +739,36 @@ def main() -> int:
     mrays = {k: v["mrays"] for k, v in paths.items()}
     source = "webgpu_raytracing_tpu_torch/csrc/cluster_trace.cu"
     pallas = "webgpu_raytracing_tpu/ops/cluster_pallas.py"
+
+    def entry(name, replaces, i, legs, main_leg, **extra):
+        leg = legs[main_leg]
+        launches = by_path(i)
+        if not launches:
+            fail(f"{name}: no launch on any path")
+        return dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=sum(launches.values()), launches_by_path=launches,
+            max_abs_err=max(x["max_abs"] for x in legs.values()),
+            mismatches=max(x["mismatch"] for x in legs.values()),
+            ms=leg["ms"], plain_ms=leg["plain_ms"],
+            bound_ms=leg["bound_ms"], bound_by=leg["bound_by"],
+            library_ms=None, timed_leg=main_leg, legs=legs, **extra,
+        )
+
     print(json.dumps({"kernels": [
-        {
-            "name": "trace_closest_clustered",
-            "route": "cuda",
-            "source": source,
-            "replaces": f"{pallas}:1141",
-            "launches": sum(by_path(0).values()),
-            "launches_by_path": by_path(0),
-            "max_abs_err": max(x["max_abs"] for x in closest.values()),
-            "mismatches": max(x["mismatch"] for x in closest.values()),
-            "ms": closest["bounce"]["ms"],
-            "plain_ms": closest["bounce"]["plain_ms"],
-            "legs": closest,
-            "ms_per_frame": frame_ms,
-            "mrays_per_s": mrays,
-        },
-        {
-            "name": "trace_any_clustered",
-            "route": "cuda",
-            "source": source,
-            "replaces": f"{pallas}:576 and :1243",
-            "launches": sum(by_path(1).values()),
-            "launches_by_path": by_path(1),
-            "max_abs_err": max(x["max_abs"] for x in anyhit.values()),
-            "mismatches": max(x["mismatch"] for x in anyhit.values()),
-            "ms": anyhit["nee"]["ms"],
-            "plain_ms": anyhit["nee"]["plain_ms"],
-            "legs": anyhit,
-            "sample_env_ms": paths["envis"]["sample_env_ms"],
-            "reference_rmse": reference,
-        },
+        entry("trace_closest_clustered", f"{pallas}:1141", 0, closest,
+              "bounce", ms_per_frame=frame_ms, mrays_per_s=mrays),
+        entry("trace_any_clustered", f"{pallas}:576 and :1243", 1, anyhit,
+              "nee", sample_env_ms=paths["envis"]["sample_env_ms"],
+              reference_rmse=reference),
+        entry("trace_closest_clustered_two_level", f"{pallas}:1379", 2,
+              closest5, "bounce", routes=routes,
+              config5_frame=paths["config5"]),
+        entry("trace_any_clustered_two_level", f"{pallas}:1379", 3, anyhit5,
+              "nee"),
     ]}), flush=True)
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all",
+          flush=True)
     print(smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

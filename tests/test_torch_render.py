@@ -164,7 +164,6 @@ UNSUPPORTED = [
     dict(use_hit_predictor=True),
     dict(exact_pairs=True),
     dict(debug_bvh=True),
-    dict(frame_slabs=2),
     dict(resolution_scale=0.5),
     dict(geometry_buffer_scale=0.5),
     dict(traversal="clustered"),

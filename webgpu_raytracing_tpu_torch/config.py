@@ -182,7 +182,6 @@ def check_supported(settings: RenderSettings) -> None:
         "use_hit_predictor": settings.use_hit_predictor,
         "exact_pairs": settings.exact_pairs,
         "debug_bvh": settings.debug_bvh,
-        "frame_slabs > 1": settings.frame_slabs > 1,
         "resolution_scale != 1": settings.resolution_scale != 1.0,
         "geometry_buffer_scale != 1": settings.geometry_buffer_scale != 1.0,
         "traversal != 'auto'": settings.traversal != "auto",

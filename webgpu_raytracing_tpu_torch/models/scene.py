@@ -2,9 +2,10 @@
 ``webgpu_raytracing_tpu/models/scene.py``).
 
 The per-model preorder BVHs are concatenated with rebased skip links, the
-faces flattened into SoA tables, and the scene cut into single-level
-clusters, exactly as in the JAX package; :meth:`Scene.tables` returns the
-same arrays as torch tensors on an explicit device.
+faces flattened into SoA tables, and the scene cut into clusters (grouped
+into superclusters once the scene is large), exactly as in the JAX
+package; :meth:`Scene.tables` returns the same arrays as torch tensors on
+an explicit device.
 
 Load-bearing contract preserved: **model 0 is the light source**.
 """
@@ -35,7 +36,9 @@ TABLE_FIELDS = (
     "mat_color",
     "mat_emission",
 )
-CLUSTER_FIELDS = ("box", "mat_b", "face_id", "partner_code")
+CLUSTER_FIELDS = (
+    "box", "mat_b", "face_id", "partner_code", "super_box", "child_box_t",
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,23 +69,21 @@ class SceneTables:
 
 def tables_from_numpy(arrays: Dict[str, np.ndarray], device) -> SceneTables:
     """Build SceneTables from numpy arrays keyed by field name; the
-    cluster fields are keyed ``clusters.box``, ``clusters.mat_b``,
-    ``clusters.face_id`` and ``clusters.partner_code`` (optional). This is
-    how tests hand the JAX package's tables to the port."""
+    cluster fields are keyed ``clusters.<name>`` for each name of
+    ``CLUSTER_FIELDS`` (``partner_code``, ``super_box`` and
+    ``child_box_t`` optional). This is how tests hand the JAX package's
+    tables to the port."""
 
     def t(a):
         return torch.from_numpy(np.require(a, requirements=["C", "W"])).to(
             device
         )
 
-    pc = arrays.get("clusters.partner_code")
     return SceneTables(
-        clusters=ClusterTables(
-            box=t(arrays["clusters.box"]),
-            mat_b=t(arrays["clusters.mat_b"]),
-            face_id=t(arrays["clusters.face_id"]),
-            partner_code=None if pc is None else t(pc),
-        ),
+        clusters=ClusterTables(**{
+            k: t(arrays["clusters." + k])
+            for k in CLUSTER_FIELDS if "clusters." + k in arrays
+        }),
         **{k: t(arrays[k]) for k in TABLE_FIELDS},
     )
 
@@ -140,9 +141,9 @@ class Scene:
         group_size: int | None = None,
     ) -> SceneTables:
         """Flatten all models into threaded traversal + shading tables on
-        ``device``. Scenes large enough for two-level clusters (more than
-        1024 clusters' worth of faces, or ``group_size > 0``) raise
-        ``NotImplementedError``."""
+        ``device``. ``group_size`` None picks two-level clusters (G = 64)
+        for scenes of more than 1024 clusters' worth of faces, as the JAX
+        package does; 0 forces single-level tables."""
         node_box_l, node_meta_l = [], []
         face_off, face_cnt = [], []
         node_off = 0
@@ -171,11 +172,8 @@ class Scene:
         ).astype(np.float32)
 
         if group_size is None:
-            group_size = 64 if len(fs) > 1024 * cluster_size else 0
-        if group_size:
-            raise NotImplementedError(
-                "two-level cluster tables (group_size > 0) are not ported yet"
-            )
+            total_faces = sum(len(m.faces) for m in self.models)
+            group_size = 64 if total_faces > 1024 * cluster_size else 0
         # two-sided duplicate map: face j is i's partner iff it has the
         # same p0 with e1/e2 swapped (JAX scene.py:138-155)
         f_total = len(fs)
@@ -192,7 +190,9 @@ class Scene:
         partner = np.where(match, cand, -1).astype(np.int32)
 
         clusters = pack_cluster_tables(
-            build_clusters(self.models, cluster_size=cluster_size),
+            build_clusters(
+                self.models, cluster_size=cluster_size, group_size=group_size
+            ),
             partner=partner,
             device=device,
         )

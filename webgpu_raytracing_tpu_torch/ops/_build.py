@@ -7,8 +7,10 @@ checkout's ``build/`` directory, ignored by git), named by a hash of the
 sources and the flags, so a changed source rebuilds and an unchanged one
 loads at once. The build happens at first use, never at import.
 
-Entry points: ``wrt_trace_closest`` and ``wrt_trace_any``
-(``csrc/cluster_trace.cu``), and ``wrt_error_string``.
+Entry points (``csrc/cluster_trace.cu``): ``wrt_trace_closest`` and
+``wrt_trace_any`` (single-level, K1), ``wrt_trace_closest_two_level`` and
+``wrt_trace_any_two_level`` (two-level, K3), and ``wrt_error_string``.
+:func:`load` raises if the library lacks any of them.
 
 Flags: ``--fmad=false`` keeps every product rounded before its add (the
 reference's strict arithmetic); there is no ``--use_fast_math``, so
@@ -86,6 +88,26 @@ def build() -> str:
     return so
 
 
+def _entries():
+    """Each entry symbol → (restype, argtypes)."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    head = [
+        p, p, p, p,  # o, d, inv_d, t_max
+        p, p, p, i,  # excl, snear, order, n_cols
+        p, p, i, p,  # box, face_id, slots, tri
+        f,  # eps2
+    ]
+    tail = [i, i, p]  # n_tiles, tile, stream
+    return {
+        "wrt_trace_closest": (i, head + [p, p] + tail),  # t_out, code_out
+        "wrt_trace_any": (i, head + [p] + tail),  # code_out
+        # group, t_out, code_out
+        "wrt_trace_closest_two_level": (i, head + [i, p, p] + tail),
+        "wrt_trace_any_two_level": (i, head + [i, p] + tail),  # group, code
+        "wrt_error_string": (ctypes.c_char_p, [i]),
+    }
+
+
 def load() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library; bind its entries."""
     global _lib
@@ -93,24 +115,15 @@ def load() -> ctypes.CDLL:
         if _lib is not None:
             return _lib
         lib = ctypes.CDLL(build())
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.wrt_trace_closest.restype = i
-        lib.wrt_trace_closest.argtypes = [
-            p, p, p, p,  # o, d, inv_d, t_max
-            p, p, p, i,  # excl, snear, order, n_cols
-            p, p, i, p,  # box, face_id, slots, tri
-            f, p, p,  # eps2, t_out, code_out
-            i, i, p,  # n_tiles, tile, stream
-        ]
-        lib.wrt_trace_any.restype = i
-        lib.wrt_trace_any.argtypes = [
-            p, p, p, p,  # o, d, inv_d, t_max
-            p, p, p, i,  # excl, snear, order, n_cols
-            p, p, i, p,  # box, face_id, slots, tri
-            f, p,  # eps2, code_out
-            i, i, p,  # n_tiles, tile, stream
-        ]
-        lib.wrt_error_string.restype = ctypes.c_char_p
-        lib.wrt_error_string.argtypes = [i]
+        entries = _entries()
+        missing = [name for name in entries if not hasattr(lib, name)]
+        if missing:
+            raise RuntimeError(
+                f"kernel library {library_path()} lacks {', '.join(missing)}"
+            )
+        for name, (restype, argtypes) in entries.items():
+            fn = getattr(lib, name)
+            fn.restype = restype
+            fn.argtypes = argtypes
         _lib = lib
         return lib

@@ -3,9 +3,13 @@
 
 The scene is cut into clusters of up to S triangles (models/cluster.py).
 A trace walks, per 128-ray tile, the clusters whose boxes the tile's rays
-enter, nearest entry first. This module holds what runs outside the
-closest-hit kernel (ops/cluster_cuda.py): the tables, the per-tile
-cluster entry distances (:func:`tile_nears_fused`) and the exact
+enter, nearest entry first. Large scenes add a second level: G
+consecutive clusters form a supercluster (``super_box``), the tile walks
+supers nearest entry first, and the kernel slab-tests each super's G
+children itself (``child_box_t`` keeps the JAX package's transposed copy
+of those boxes). This module holds what runs outside the trace kernels
+(ops/cluster_cuda.py): the tables, the per-tile entry distances
+(:func:`tile_nears_fused`, over clusters or over supers) and the exact
 sequential Möller–Trumbore evaluation (:func:`exact_face_eval`).
 
 The bilinear-form matrix ``mat_b`` is kept for table parity with the JAX
@@ -33,7 +37,13 @@ EPS2 = float(np.float32(EPSILON * EPSILON))
 
 @dataclasses.dataclass(frozen=True)
 class ClusterTables:
-    """Single-level cluster tables on one device."""
+    """Cluster tables on one device.
+
+    Two-level layout (large scenes, models/cluster.py ``group_size``):
+    ``super_box`` / ``child_box_t`` present, and supercluster ``s`` owns
+    the cluster rows ``[s*G, (s+1)*G)`` (pad rows: inverted-empty boxes,
+    no faces). ``box`` always holds all C cluster boxes. Single-level:
+    both None."""
 
     box: torch.Tensor  # (C, 6) f32 AABB min.xyz, max.xyz
     mat_b: torch.Tensor  # (C, 10, 4*S) f32 Möller–Trumbore bilinear matrix
@@ -41,6 +51,13 @@ class ClusterTables:
     # (n_faces,) i32 cluster-slot code (cid*S + slot) of each face's
     # two-sided duplicate, -1 when none (see the JAX ClusterTables)
     partner_code: Optional[torch.Tensor] = None
+    super_box: Optional[torch.Tensor] = None  # (C2, 6) f32
+    # (C2, 8, G) f32: rows 0:3 child bmin.xyz, 3:6 bmax.xyz, 6:8 zero
+    child_box_t: Optional[torch.Tensor] = None
+
+    @property
+    def group(self) -> int:
+        return 0 if self.super_box is None else self.child_box_t.shape[2]
 
     def to(self, device) -> "ClusterTables":
         return ClusterTables(
@@ -56,15 +73,9 @@ class ClusterTables:
 
 
 def pack_cluster_tables(clusters, partner=None, *, device) -> ClusterTables:
-    """models.cluster.ClusterSet → ClusterTables (same B layout and
-    partner codes as the JAX package's ``pack_cluster_tables``).
-
-    Two-level tables (``clusters.super_box`` set) are not supported: their
-    kernel (the supercluster walk) is not ported yet."""
-    if clusters.super_box is not None:
-        raise NotImplementedError(
-            "two-level cluster tables (group_size > 0) are not ported yet"
-        )
+    """models.cluster.ClusterSet → ClusterTables (same B layout, partner
+    codes and two-level fields as the JAX package's
+    ``pack_cluster_tables``)."""
     c, s, _ = clusters.n.shape
     b = np.zeros((c, 10, 4 * s), dtype=np.float32)
     nt = np.transpose(clusters.n, (0, 2, 1))
@@ -75,6 +86,19 @@ def pack_cluster_tables(clusters, partner=None, *, device) -> ClusterTables:
     b[:, 6:9, 2 * s : 3 * s] = np.transpose(clusters.q2, (0, 2, 1))
     b[:, 3:6, 3 * s : 4 * s] = -np.transpose(clusters.e1, (0, 2, 1))
     b[:, 6:9, 3 * s : 4 * s] = -np.transpose(clusters.q1, (0, 2, 1))
+
+    super_box = child_box_t = None
+    if clusters.super_box is not None:
+        g = clusters.group
+        c2 = clusters.super_box.shape[0]
+        cb = np.zeros((c2, 8, g), dtype=np.float32)
+        grp = clusters.box.reshape(c2, g, 6)
+        cb[:, 0:3, :] = np.transpose(grp[:, :, 0:3], (0, 2, 1))
+        cb[:, 3:6, :] = np.transpose(grp[:, :, 3:6], (0, 2, 1))
+        super_box = torch.from_numpy(
+            np.ascontiguousarray(clusters.super_box)
+        ).to(device)
+        child_box_t = torch.from_numpy(cb).to(device)
 
     partner_code = None
     if partner is not None:
@@ -99,6 +123,8 @@ def pack_cluster_tables(clusters, partner=None, *, device) -> ClusterTables:
             np.ascontiguousarray(clusters.face_id)
         ).to(device),
         partner_code=partner_code,
+        super_box=super_box,
+        child_box_t=child_box_t,
     )
 
 

@@ -5,14 +5,17 @@ renderFrame, render.ts:1651-1710).
 The accumulation image is an explicit ``(H, W, 4)`` tensor — rgb sum in
 ``[..., :3]``, sample count in ``[..., 3]`` — the reference image-buffer
 layout. Every tensor lives on the device given to :class:`Renderer`; a
-frame is :func:`render_frame` on that device, and seeds are drawn on the
-host exactly as the JAX package draws them, so both packages render the
-same frames from the same ``base_seed``.
+frame is :func:`render_frame` on that device (or
+:func:`render_frame_slabs`, in horizontal slabs, for ``frame_slabs`` >
+1), and seeds are drawn on the host exactly as the JAX package draws
+them, so both packages render the same frames from the same
+``base_seed``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 from typing import Optional, Tuple
 
@@ -193,6 +196,52 @@ def render_frame(
 
 
 @torch.no_grad()
+def render_frame_slabs(
+    buffers: FrameBuffers,
+    tables: SceneTables,
+    env_data,
+    inputs: FrameInputs,
+    settings: RenderSettings,
+) -> Tuple[FrameBuffers, torch.Tensor]:
+    """Big-frame path (``frame_slabs`` > 1): the frame as ``frame_slabs``
+    horizontal slabs, one :func:`render_tile` call each, so the
+    wavefront's (rays x state-columns) temporaries scale with the slab,
+    not the frame (config #5: 4K in 8 slabs of 1,036,800 rays).
+
+    The current-frame rows are sliced per slab and the prev_* snapshots
+    ride whole; ``row0`` keeps pixel indices, and so RNG streams, global,
+    which makes the slabs bit-identical to the single-tile frame."""
+    n = settings.frame_slabs
+    h = settings.render_height
+    if h % n:
+        raise ValueError(f"frame_slabs={n} must divide render_height={h}")
+    if settings.geo_height != h:
+        raise ValueError(
+            "frame_slabs requires geometry_buffer_scale == 1 (slab rows "
+            "must align between the image and the G-buffer)"
+        )
+    hs = h // n
+    current = ("image", "geo_position", "geo_face", "geo_object")
+    outs = []
+    rays = 0.0
+    for b in range(n):
+        sl = slice(b * hs, (b + 1) * hs)
+        slab = dataclasses.replace(
+            buffers, **{k: getattr(buffers, k)[sl] for k in current}
+        )
+        out, r = render_tile(
+            slab, tables, env_data, inputs, b * hs, settings, hs
+        )
+        outs.append(out)
+        rays = rays + r
+    merged = dataclasses.replace(
+        buffers,
+        **{k: torch.cat([getattr(o, k) for o in outs]) for k in current},
+    )
+    return merged, rays
+
+
+@torch.no_grad()
 def blit(image: torch.Tensor, prev_image: torch.Tensor,
          settings: RenderSettings) -> torch.Tensor:
     """Accumulation buffer → display color (render.ts:184-244): pick the
@@ -307,7 +356,11 @@ class Renderer:
             counter=self.counter,
             jitter=torch.as_tensor(jitter, device=self.device),
         )
-        self.buffers, rays = render_frame(
+        frame_fn = (
+            render_frame_slabs if self.settings.frame_slabs > 1
+            else render_frame
+        )
+        self.buffers, rays = frame_fn(
             self.buffers, self.tables, self.env_data, inputs, self.settings
         )
         self.last_rays = float(rays)
@@ -331,7 +384,11 @@ class Renderer:
 
     # --- checkpoint / resume, the JAX package's npz format ---
     def save_checkpoint(self, path: str) -> None:
-        """Atomic: write a sibling temp file, fsync, then os.replace."""
+        """Atomic: write a sibling temp file, fsync, then os.replace.
+        Beside the JAX package's keys (which that package reads back), the
+        file holds the host generator's state (``rng_state``, JSON), so a
+        resumed run draws the same frame seeds and jitter as one that was
+        never stopped."""
         arrays = {
             f.name: getattr(self.buffers, f.name).cpu().numpy()
             for f in dataclasses.fields(FrameBuffers)
@@ -346,6 +403,7 @@ class Renderer:
                 cam_position=self.camera.position,
                 cam_orientation=self.camera.orientation,
                 prev_view=self._prev_view,
+                rng_state=np.array(json.dumps(self._rng.bit_generator.state)),
                 **arrays,
             )
             fh.flush()
@@ -365,3 +423,5 @@ class Renderer:
         self.camera.position = z["cam_position"]
         self.camera.orientation = z["cam_orientation"]
         self._prev_view = z["prev_view"]
+        if "rng_state" in z:
+            self._rng.bit_generator.state = json.loads(str(z["rng_state"]))
