@@ -6,9 +6,10 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
 
 1. environment: torch/CUDA/nvcc versions, the card's name and power limit;
    fails when no CUDA device is visible. TF32 is switched off.
-2. build: compiles the four entries of the cluster trace kernels
+2. build: compiles the six entries of the cluster trace kernels
    (``wrt_trace_closest``, ``wrt_trace_any``: K1;
    ``wrt_trace_closest_two_level``, ``wrt_trace_any_two_level``: K3;
+   ``wrt_trace_pairs``: K2p; ``wrt_trace_pairs_two_level``: K3p;
    csrc/cluster_trace.cu) from the checkout into build/kernels/.
 3. K1 vs twins: on 1080p ray sets of ``stress_scene(44_556)`` made
    from frame 0 exactly as ``path_trace`` makes them, each CUDA entry and
@@ -21,15 +22,24 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
    timed with CUDA events; the twin also counts the leg's work, which
    gives the kernel's bound (f32 operations over 67 TFLOP/s, bytes over
    3.35 TB/s, the larger).
+   K2p vs twin on the primary and first-bounce sets: t1, the three codes
+   and the flag agree on all but 1e-5 of the rays; after
+   ``adjudicate_compact`` the faces equal K1's on the same rays (each
+   exception printed, with whether it is an exact tie; fail above 1e-5);
+   the flag rate; kernel, twin and adjudication timed with CUDA events;
+   the bound from the twin's pairs work counts.
 4. the 1080p paths through ``Renderer`` (one warm-up frame, then
-   ``--frames`` timed frames; the four launch counts zeroed just before
+   ``--frames`` timed frames; the six launch counts zeroed just before
    the timed frames and read just after):
    default (procedural sky): finite image, 6 closest-hit launches/frame;
    NEE: 6 closest-hit + 6 any-hit launches/frame, no +-inf pixel (the
    y = 0 floor's shading points are NaN by the reference's own offset
    rule, so its NEE pixels are NaN; their share is printed);
    env-IS on the synthesized equirect: 6 + 6 launches/frame, no +-inf,
-   plus the time of ``sample_env`` on 2,073,600 lanes.
+   plus the time of ``sample_env`` on 2,073,600 lanes;
+   exact pairs (``exact_pairs`` and ``exact_pairs_bounce``): 6 K2p and no
+   K1 closest-hit launch per frame; its image against the default path's
+   (same seed and frame count): equal NaN masks, RMSE < 1e-5.
    Every pixel must hold 2 samples per frame.
 5. direct integrator (config #1): the analytic spheres-and-plane scene at
    256x256, ``bounces_depth=1``, perspective: 2 + 2 launches per frame.
@@ -42,7 +52,8 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
    (G = 64), set-up time printed.
    a. K3 vs twins on the rays of one 4K slab (rows 1080-1349 of
       3840x2160, 1,036,800 rays) of frame 0: primary and first bounce
-      (closest-hit), NEE shadow (any-hit); as phase 3.
+      (closest-hit), NEE shadow (any-hit); as phase 3; and K3p vs twin
+      on the primary and bounce rays, its adjudicated faces against K3's.
    b. K3 route vs K1 route on the same primary and bounce rays: the tile
       entry distances over the 227 supers + K3 against those over all
       14,528 clusters + K1; face ids must be identical; both timed.
@@ -57,9 +68,12 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
    e. NEE on the 1M scene at 1920x1080 in 4 slabs, one warm-up and one
       timed frame: 24 two-level closest-hit + 24 two-level any-hit
       launches.
+   f. the config #5 frame with ``exact_pairs`` (primary legs only, the
+      JAX meaning), one warm-up and one timed frame: 16 K3p + 32 K3
+      closest-hit launches, finite image.
 
-Prints the per-kernel JSON line, then the ``nvidia-smi`` name/power line,
-then ``{"ok": true, "device": {...}}`` as the last line.
+Prints the per-kernel JSON line (six kernels), then the ``nvidia-smi``
+name/power line, then ``{"ok": true, "device": {...}}`` as the last line.
 """
 
 from __future__ import annotations
@@ -127,7 +141,7 @@ def phase_build():
 
     t0 = time.perf_counter()
     so = _build.build()
-    _build.load()  # binds wrt_trace_closest and wrt_trace_any, or raises
+    _build.load()  # binds every entry, or raises
     print(f"build: {time.perf_counter() - t0:.1f} s -> "
           f"{os.path.relpath(so)}", flush=True)
 
@@ -231,6 +245,121 @@ def _compare_leg(torch, name, args, card, any_hit=False):
                 box_tests=work["box_tests"], slot_tests=work["slot_tests"])
 
 
+def _compare_pairs_leg(torch, name, leg, tables, card, tile):
+    """One closest-hit leg through its pairs entry (K3p for two-level
+    tables, else K2p) and its twin on the same device tensors: t1, c1, c2,
+    c3 and the flag must agree; then ``adjudicate_compact`` on the
+    kernel's candidates, whose faces must equal the K1/K3 route's on the
+    same rays (each exception printed, with its exact t for both faces)."""
+    from webgpu_raytracing_tpu_torch.ops import cluster_cuda as cc
+    from webgpu_raytracing_tpu_torch.ops.adjudicate import adjudicate_compact
+    from webgpu_raytracing_tpu_torch.ops.cluster_trace import exact_face_eval
+
+    args = cc.prepare_tiles(tables=tables, tile=tile, pairs=True, **leg)
+    wrapper, twin = cc.trace_pairs_args(args)
+    n_rays = args["a"].shape[0]
+    if n_rays != leg["o"].shape[0]:
+        fail(f"{name}: the leg is not a whole number of tiles")
+    live = args["t_max"] > 0
+    before = wrapper.launches
+    out_k = wrapper(**args)
+    torch.cuda.synchronize()
+    if wrapper.launches != before + 1:
+        fail(f"{name}: pairs kernel launch was not counted")
+    stats = {}
+    t0 = time.perf_counter()
+    out_w = twin(**args, stats=stats)
+    torch.cuda.synchronize()
+    counted_s = time.perf_counter() - t0
+    t_k, t_w = out_k[0].view(torch.int32), out_w[0].view(torch.int32)
+    differ = t_k != t_w
+    for x, y in zip(out_k[1:], out_w[1:]):
+        differ |= x != y
+    mismatch = int(differ.sum())
+    for i in torch.nonzero(differ).flatten()[:10].tolist():
+        print(f"{name}: ray {i}: kernel (t1, c1, c2, c3, amb) "
+              f"{[float(out_k[0][i])] + [int(x[i]) for x in out_k[1:]]}, "
+              f"twin {[float(out_w[0][i])] + [int(x[i]) for x in out_w[1:]]}",
+              flush=True)
+    both = (out_k[1] == out_w[1]) & (out_k[1] >= 0)
+    max_abs = float((out_k[0][both] - out_w[0][both]).abs().max()) if (
+        bool(both.any())) else 0.0
+    amb_rate = float(out_k[4][live].float().mean())
+
+    fid = tables.clusters.face_id
+    faces = tuple(cc.code_to_face(c, fid) for c in out_k[1:4])
+    tfb = args["t_max"]
+
+    def adjudicate():
+        return adjudicate_compact(leg["o"], leg["d"], tfb, out_k[0], faces,
+                                  out_k[4], tables)
+
+    hit = adjudicate()
+    plain_args = cc.prepare_tiles(tables=tables, tile=tile, **leg)
+    route = cc.trace_closest_args(plain_args)[0]
+    ref_face = cc.code_to_face(route(**plain_args)[1], fid)
+    bad = torch.nonzero(hit.face != ref_face).flatten()
+    ties = 0
+    for n_shown, i in enumerate(bad[:1000].tolist()):
+        o_i, d_i = leg["o"][i : i + 1], leg["d"][i : i + 1]
+        ts = []
+        for f in (int(hit.face[i]), int(ref_face[i])):
+            ok, t, _, _ = exact_face_eval(
+                o_i, d_i, tables.tri[max(f, 0) : max(f, 0) + 1],
+                torch.tensor([f >= 0], device=o_i.device), tfb[i : i + 1])
+            ts.append(float(t[0]) if bool(ok[0]) else None)
+        tie = ts[0] is not None and ts[0] == ts[1]
+        ties += tie
+        if n_shown < 10:
+            print(f"{name}: ray {i}: adjudicated face {int(hit.face[i])} "
+                  f"(exact t {ts[0]}), plain route face {int(ref_face[i])} "
+                  f"(exact t {ts[1]}){', an exact tie' if tie else ''}",
+                  flush=True)
+    ms_k = _time_cuda(torch, lambda: wrapper(**args), 5)
+    ms_w = _time_cuda(torch, lambda: twin(**args), 1, warm=False)
+    ms_adj = _time_cuda(torch, adjudicate, 5)
+    work = cc.walk_stats(stats, fid, any_hit=False, pairs=True)
+    ops_ms = work["ops"] / PEAK_F32 * 1e3
+    bytes_ms = work["bytes"] / PEAK_BYTES * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+    print(f"{name}: {n_rays} rays ({int(live.sum())} live), "
+          f"{int((out_k[1] >= 0).sum())} first candidates, flag rate "
+          f"{amb_rate:.6f}, output mismatches {mismatch}, max abs err "
+          f"{max_abs:g}; adjudicated faces vs the plain route: {bad.numel()} "
+          f"differ ({ties} exact ties among the first 1000); kernel "
+          f"{ms_k:.3f} ms, twin "
+          f"{ms_w:.3f} ms (counting run {counted_s:.1f} s), "
+          f"adjudicate_compact {ms_adj:.3f} ms; work {work['box_tests']} box "
+          f"tests, {work['slot_tests']} slot tests, {work['estimate_terms']} "
+          f"estimate + {work['magnitude_terms']} magnitude terms, "
+          f"{work['ops']} f32 ops, {work['bytes']} bytes -> bound "
+          f"{bound_ms:.4f} ms by {bound_by} ({card})", flush=True)
+    if mismatch > MISMATCH_LIMIT * n_rays:
+        fail(f"{name}: {mismatch} pairs output mismatches > "
+             f"{MISMATCH_LIMIT:g} of the rays")
+    if max_abs != 0.0:
+        fail(f"{name}: kernel and twin t1 differ where c1 agrees")
+    if bad.numel() > MISMATCH_LIMIT * n_rays:
+        fail(f"{name}: {bad.numel()} adjudicated faces differ from the "
+             f"plain route's")
+    return dict(n=n_rays, live=int(live.sum()), mismatch=mismatch,
+                max_abs=max_abs, amb_rate=amb_rate,
+                face_mismatch=int(bad.numel()), exact_ties=ties, ms=ms_k,
+                plain_ms=ms_w, adjudicate_ms=ms_adj, bound_ms=bound_ms,
+                bound_by=bound_by, ops=work["ops"], bytes=work["bytes"],
+                box_tests=work["box_tests"], slot_tests=work["slot_tests"],
+                estimate_terms=work["estimate_terms"],
+                magnitude_terms=work["magnitude_terms"])
+
+
+def compare_pairs_legs(torch, tables, legs, card, tile, label=""):
+    """The primary and bounce legs through the pairs entry → dict."""
+    return {key: _compare_pairs_leg(torch, f"{label}{key} (pairs)", legs[key],
+                                    tables, card, tile)
+            for key in ("primary", "bounce")}
+
+
 def frame0_legs(torch, tables, st, seed, row0=0, rows=None, sky=None):
     """Frame 0's trace legs over image rows [row0, row0 + rows), made
     exactly as Renderer.step / path_trace make them (global pixel indices
@@ -312,17 +441,21 @@ def compare_legs(torch, tables, legs, card, tile, label=""):
 
 
 def phase_kernel_vs_twin(torch, scene, sky, seed, card):
-    """K1 vs twins on frame 0's 1080p legs of the slice scene."""
+    """K1 and K2p vs twins on frame 0's 1080p legs of the slice scene →
+    (closest, any-hit, pairs)."""
     from webgpu_raytracing_tpu_torch.config import RenderSettings
 
     st = RenderSettings(**SLICE)
     tables = scene.tables(torch.device(DEVICE))
     legs = frame0_legs(torch, tables, st, seed, sky=sky)
-    return compare_legs(torch, tables, legs, card, st.trace_tile)
+    closest, anyhit = compare_legs(torch, tables, legs, card, st.trace_tile)
+    pairs = compare_pairs_legs(torch, tables, legs, card, st.trace_tile)
+    return closest, anyhit, pairs
 
 
 WRAPPERS = ("trace_closest_tiles", "trace_any_tiles",
-            "trace_closest_two_level_tiles", "trace_any_two_level_tiles")
+            "trace_closest_two_level_tiles", "trace_any_two_level_tiles",
+            "trace_pairs_tiles", "trace_pairs_two_level_tiles")
 
 
 def _launch_counts():
@@ -414,15 +547,35 @@ def phase_paths(torch, scene, sky, frames, seed, card):
 
     paths = {}
     base = RenderSettings(**SLICE)
-    paths["default"] = drive_path(torch, "default path", scene, base, frames,
-                                  seed, card, (6, 0, 0, 0))[0]
+    paths["default"], r = drive_path(torch, "default path", scene, base,
+                                     frames, seed, card, (6, 0, 0, 0, 0, 0))
+    default_img = r.buffers.image.clone()
+    del r
+    paths["exact"], r = drive_path(
+        torch, "exact-pairs path", scene,
+        base.replace(exact_pairs=True, exact_pairs_bounce=True), frames,
+        seed, card, (0, 0, 0, 0, 6, 0),
+    )
+    img = r.buffers.image
+    del r
+    nan = torch.isnan(default_img)
+    if not torch.equal(torch.isnan(img), nan):
+        fail("exact-pairs path: NaN mask differs from the default path's")
+    rmse = float(((img - default_img)[~nan] ** 2).mean().sqrt())
+    n_diff = int((img != default_img).any(-1).sum())
+    print(f"exact-pairs path vs default path, same seed and frames: RMSE "
+          f"{rmse:.3g}, {n_diff} pixels differ", flush=True)
+    if not rmse < 1e-5:
+        fail(f"exact-pairs path: RMSE {rmse} >= 1e-5 against the default")
+    paths["exact"].update(rmse_vs_default=rmse, pixels_differ=n_diff)
+    del default_img, img
     paths["nee"] = drive_path(
         torch, "NEE path", scene, base.replace(next_event_estimation=True),
-        frames, seed, card, (6, 6, 0, 0), finite=False,
+        frames, seed, card, (6, 6, 0, 0, 0, 0), finite=False,
     )[0]
     env_st = base.replace(environment="equirect", env_importance_sampling=True)
     paths["envis"] = drive_path(torch, "env-IS path", scene, env_st, frames,
-                                seed, card, (6, 6, 0, 0), env_data=sky,
+                                seed, card, (6, 6, 0, 0, 0, 0), env_data=sky,
                                 finite=False)[0]
     lanes = 1920 * 1080
     state = rng.seed_state(
@@ -468,7 +621,8 @@ def phase_direct(torch, frames, seed, card):
                         bounces_depth=1,
                         projection_type=ProjectionType.PERSPECTIVE)
     return drive_path(torch, "direct path (config #1)", analytic_scene(), st,
-                      frames, seed, card, (2, 2, 0, 0), finite=False)[0]
+                      frames, seed, card, (2, 2, 0, 0, 0, 0),
+                      finite=False)[0]
 
 
 def mini_scene():
@@ -561,6 +715,8 @@ def phase_config5_kernels(torch, tables, seed, card):
                        rows=rows)
     closest, anyhit = compare_legs(torch, tables, legs, card, st.trace_tile,
                                    label="config #5 slab ")
+    pairs = compare_pairs_legs(torch, tables, legs, card, st.trace_tile,
+                               label="config #5 slab ")
     routes = {}
     for key in ("primary", "bounce"):
         leg = legs[key]
@@ -600,7 +756,7 @@ def phase_config5_kernels(torch, tables, seed, card):
             fail(f"config #5 {key}: K3 and K1 routes differ on {mismatch} "
                  "faces")
         routes[key] = dict(mismatch=mismatch, **ms)
-    return closest, anyhit, routes
+    return closest, anyhit, pairs, routes
 
 
 def _bits_equal(torch, a, b) -> bool:
@@ -677,7 +833,8 @@ def main() -> int:
     print(f"scene: stress_scene({N_TRIANGLES}) and the {SKY_SHAPE[0]}x"
           f"{SKY_SHAPE[1]} sky distribution built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    closest, anyhit = phase_kernel_vs_twin(torch, scene, sky, a.seed, card)
+    closest, anyhit, pairs = phase_kernel_vs_twin(torch, scene, sky, a.seed,
+                                                  card)
     paths = phase_paths(torch, scene, sky, a.frames, a.seed, card)
     paths["direct"] = phase_direct(torch, a.frames, a.seed, card)
     reference = phase_reference(torch)
@@ -714,11 +871,12 @@ def main() -> int:
     if not (is_two_level(ct) and g == 64 and c == c2 * g):
         fail(f"config #5: tables are not two-level with G = 64 (C {c}, C2 "
              f"{c2}, G {g})")
-    closest5, anyhit5, routes = phase_config5_kernels(torch, tables5, a.seed,
-                                                      card)
+    closest5, anyhit5, pairs5, routes = phase_config5_kernels(
+        torch, tables5, a.seed, card)
     paths["config5"], r5 = drive_path(
         torch, "config #5 frame", scene5, RenderSettings(**CONFIG5),
-        a.config5_frames, a.seed, card, (0, 0, 6 * CONFIG5["frame_slabs"], 0),
+        a.config5_frames, a.seed, card,
+        (0, 0, 6 * CONFIG5["frame_slabs"], 0, 0, 0),
     )
     del scene5
     tables5 = r5.tables
@@ -728,7 +886,12 @@ def main() -> int:
         torch, "config #5 NEE (1080p)", Prebuilt(tables5),
         RenderSettings(width=1920, height=1080, frame_slabs=4,
                        next_event_estimation=True),
-        1, a.seed, card, (0, 0, 24, 24), finite=False,
+        1, a.seed, card, (0, 0, 24, 24, 0, 0), finite=False,
+    )[0]
+    paths["config5_exact"] = drive_path(
+        torch, "config #5 frame, exact pairs", Prebuilt(tables5),
+        RenderSettings(exact_pairs=True, **CONFIG5), 1, a.seed, card,
+        (0, 0, 4 * CONFIG5["frame_slabs"], 0, 0, 2 * CONFIG5["frame_slabs"]),
     )[0]
 
     def by_path(i):
@@ -766,6 +929,14 @@ def main() -> int:
               config5_frame=paths["config5"]),
         entry("trace_any_clustered_two_level", f"{pallas}:1379", 3, anyhit5,
               "nee"),
+        entry("trace_pairs_clustered",
+              f"{pallas}:396 and :436 (pairs=True: _round_pick :236-270, "
+              ":335-373; _amb_flag :376)", 4, pairs, "bounce",
+              exact_path=paths["exact"]),
+        entry("trace_pairs_clustered_two_level",
+              f"{pallas}:1379 (pairs=True: :1406-1410, :1443-1458, "
+              ":1566-1569)", 5, pairs5, "bounce",
+              config5_exact_frame=paths["config5_exact"]),
     ]}), flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all",
           flush=True)

@@ -164,6 +164,59 @@ def test_two_level_kernels_match_twins_on_card(cuda, which):
     )
 
 
+@pytest.mark.parametrize("which", ["single", "g4", "g64"])
+def test_pairs_kernels_match_twins_on_card(cuda, which):
+    """K2p (single-level) and K3p (two-level) against their twins on random
+    rays with inactive lanes, finite t_max, NaN origins and exclusion
+    codes: t1, the three codes and the flag agree bit for bit; after the
+    exact adjudication, the faces equal K1's on the same rays."""
+    from webgpu_raytracing_tpu_torch.models.stress import stress_scene
+
+    if which == "g64":
+        tables = stress_scene(5000).tables(cuda, cluster_size=2)
+    else:
+        scene = scene_from_facesets(
+            [
+                ("sphere", uv_sphere((0, 0, -4), 1.0, lat=10, lon=14)),
+                ("plane", ground_plane(-1.5, 8.0)),
+                ("cube", unit_cube_model()),
+            ],
+            np.ones((1, 3), np.float32) * 0.8,
+            np.zeros((1, 3), np.float32),
+        )
+        kw = dict(cluster_size=16, group_size=4) if which == "g4" else {}
+        tables = scene.tables(cuda, **kw)
+    ct = tables.clusters
+    assert cc.is_two_level(ct) == (which != "single")
+    o, d, tmax, active, excl = _mixed_rays(5000, 37, ct.face_id.numel())
+    if which == "g64":  # look down at the sphere grid
+        o = o * 4.0 + np.array([0.0, 12.0, 0.0], np.float32)
+        d[:, 1] = -np.abs(d[:, 1])
+
+    def t(a, dt=None):
+        return torch.as_tensor(a, dtype=dt, device=cuda)
+
+    ins = (t(o), t(d), t(tmax), tables, t(active), t(excl, torch.int32))
+    args = cc.prepare_tiles(*ins, pairs=True)
+    wrapper, twin = cc.trace_pairs_args(args)
+    assert wrapper is (cc.trace_pairs_tiles if which == "single"
+                       else cc.trace_pairs_two_level_tiles)
+    before = wrapper.launches
+    got = wrapper(**args)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    want = twin(**args)
+    np.testing.assert_array_equal(got[0].cpu().numpy().view(np.int32),
+                                  want[0].cpu().numpy().view(np.int32))
+    for g, w in zip(got[1:], want[1:]):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
+    assert (got[1] >= 0).sum() > 100
+    exact = cc.trace_closest_clustered_cuda(*ins, exact_pairs=True)
+    plain = cc.trace_closest_clustered_cuda(*ins)
+    np.testing.assert_array_equal(exact.face.cpu().numpy(),
+                                  plain.face.cpu().numpy())
+
+
 def _mini_scene():
     return scene_from_facesets(
         [

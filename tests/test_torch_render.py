@@ -162,7 +162,6 @@ def test_checkpoint_moves_across_packages(tmp_path, direction):
 UNSUPPORTED = [
     dict(reprojection_rate=2),
     dict(use_hit_predictor=True),
-    dict(exact_pairs=True),
     dict(debug_bvh=True),
     dict(resolution_scale=0.5),
     dict(geometry_buffer_scale=0.5),

@@ -180,7 +180,6 @@ def check_supported(settings: RenderSettings) -> None:
     unsupported = {
         "reprojection_rate > 0": settings.reprojection_rate > 0,
         "use_hit_predictor": settings.use_hit_predictor,
-        "exact_pairs": settings.exact_pairs,
         "debug_bvh": settings.debug_bvh,
         "resolution_scale != 1": settings.resolution_scale != 1.0,
         "geometry_buffer_scale != 1": settings.geometry_buffer_scale != 1.0,

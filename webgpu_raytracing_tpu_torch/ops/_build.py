@@ -9,7 +9,8 @@ loads at once. The build happens at first use, never at import.
 
 Entry points (``csrc/cluster_trace.cu``): ``wrt_trace_closest`` and
 ``wrt_trace_any`` (single-level, K1), ``wrt_trace_closest_two_level`` and
-``wrt_trace_any_two_level`` (two-level, K3), and ``wrt_error_string``.
+``wrt_trace_any_two_level`` (two-level, K3), ``wrt_trace_pairs`` (K2p) and
+``wrt_trace_pairs_two_level`` (K3p), and ``wrt_error_string``.
 :func:`load` raises if the library lacks any of them.
 
 Flags: ``--fmad=false`` keeps every product rounded before its add (the
@@ -97,6 +98,12 @@ def _entries():
         p, p, i, p,  # box, face_id, slots, tri
         f,  # eps2
     ]
+    pairs_head = [
+        p, p, p, p,  # a, inv_d, t_max, excl
+        p, p, i, p,  # snear, order, n_cols, box
+        p, i, p, f, f,  # face_id, slots, mat_b, eps2, margin
+    ]
+    pairs_out = [p] * 5  # t1, c1, c2, c3, amb
     tail = [i, i, p]  # n_tiles, tile, stream
     return {
         "wrt_trace_closest": (i, head + [p, p] + tail),  # t_out, code_out
@@ -104,6 +111,8 @@ def _entries():
         # group, t_out, code_out
         "wrt_trace_closest_two_level": (i, head + [i, p, p] + tail),
         "wrt_trace_any_two_level": (i, head + [i, p] + tail),  # group, code
+        "wrt_trace_pairs": (i, pairs_head + pairs_out + tail),
+        "wrt_trace_pairs_two_level": (i, pairs_head + [i] + pairs_out + tail),
         "wrt_error_string": (ctypes.c_char_p, [i]),
     }
 

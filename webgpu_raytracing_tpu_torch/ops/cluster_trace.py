@@ -9,14 +9,16 @@ supers nearest entry first, and the kernel slab-tests each super's G
 children itself (``child_box_t`` keeps the JAX package's transposed copy
 of those boxes). This module holds what runs outside the trace kernels
 (ops/cluster_cuda.py): the tables, the per-tile entry distances
-(:func:`tile_nears_fused`, over clusters or over supers) and the exact
-sequential Möller–Trumbore evaluation (:func:`exact_face_eval`).
+(:func:`tile_nears_fused`, over clusters or over supers), the ray matrix
+A (:func:`ray_matrix`) and the exact sequential Möller–Trumbore
+evaluation (:func:`exact_face_eval`, :func:`rederive_uv`).
 
-The bilinear-form matrix ``mat_b`` is kept for table parity with the JAX
-package (its Pallas kernel feeds it to the MXU); the Hopper kernel tests
-triangles with exact sequential f32 arithmetic and does not read it. The
-bf16 pre-split twin ``mat_b2`` exists only for the TPU's matrix unit and
-is not built.
+The bilinear-form matrix ``mat_b`` gives, for a ray row A = [o | o×d | d
+| 1], det, t_num, u_num and v_num of every slot as A·B. The exact-pairs
+kernels (K2p, K3p) read it for their estimates; K1 and K3 test triangles
+with exact sequential f32 arithmetic on ``tri`` instead. The bf16
+pre-split twin ``mat_b2`` exists only for the TPU's matrix unit and is
+not built.
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ import numpy as np
 import torch
 
 from ..config import EPSILON, F32_MAX, MIN_DIST
+from .detmath import det_div
+from .intersect import Hit
 from .strictf import scross, sdot3
 
 _INF = float(F32_MAX)
@@ -128,6 +132,13 @@ def pack_cluster_tables(clusters, partner=None, *, device) -> ClusterTables:
     )
 
 
+def ray_matrix(o: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """A = [o | o×d | d | 1] — (R, 10), the rows of ``mat_b``'s bilinear
+    form (JAX ``ray_matrix``; o×d with strict products)."""
+    ones = torch.ones(o.shape[:-1] + (1,), dtype=o.dtype, device=o.device)
+    return torch.cat([o, scross(o, d), d, ones], dim=-1)
+
+
 def exact_face_eval(o, d, tri, present, t_bound):
     """Exact sequential Möller–Trumbore under the reference's semantics
     (render.ts:359-409; JAX ``_exact_face_eval``): cull, barycentric gates
@@ -150,6 +161,30 @@ def exact_face_eval(o, d, tri, present, t_bound):
     t = t_num / det_safe
     valid = present & ~culled & bary_ok & (t > MIN_DIST) & (t < t_bound)
     return valid, t, u_num / det_safe, v_num / det_safe
+
+
+def rederive_uv(o, d, t, face, tables) -> Hit:
+    """Exact t and barycentrics of the winning triangle, from the face
+    alone (unmasked Möller–Trumbore algebra, correctly rounded divides);
+    misses keep the incoming t."""
+    hit_mask = face >= 0
+    tri = tables.tri[face.clamp(min=0).long()]
+    p0, e1, e2 = tri[:, 0:3], tri[:, 3:6], tri[:, 6:9]
+    hvec = scross(d, e2)
+    det = sdot3(e1, hvec)
+    svec = o - p0
+    det_safe = torch.where(torch.abs(det) > 1e-30, det, torch.ones_like(det))
+    u = det_div(sdot3(svec, hvec), det_safe)
+    qvec = scross(svec, e1)
+    v = det_div(sdot3(d, qvec), det_safe)
+    t_exact = det_div(sdot3(e2, qvec), det_safe)
+    zero = torch.zeros_like(u)
+    return Hit(
+        t=torch.where(hit_mask, t_exact, t),
+        u=torch.where(hit_mask, u, zero),
+        v=torch.where(hit_mask, v, zero),
+        face=face,
+    )
 
 
 def tile_nears_fused(

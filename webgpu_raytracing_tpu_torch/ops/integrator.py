@@ -4,8 +4,9 @@
 
 The whole ray batch advances one path segment at a time with dead lanes
 masked; RNG advances are masked per lane to replicate the SIMT draw order.
-Closest-hit legs go through the cluster kernel's closest-hit entry and
-shadow legs through its any-hit entry (ops/cluster_cuda.py). Here:
+Closest-hit legs go through the cluster kernel's closest-hit entry, or
+its exact-pairs entry and the exact adjudication with ``exact_pairs``,
+and shadow legs through its any-hit entry (ops/cluster_cuda.py). Here:
 emission/albedo accumulation, cosine-weighted bounces, Russian roulette,
 the deferred environment fetch, next-event estimation of the lights
 (``sampleLights`` → ``pointColor``, render.ts:849-869 and 1143-1157, dead
@@ -43,13 +44,18 @@ _FLOAT_SCALE = 1.0 / 65536.0
 _INT_SCALE = 256.0
 
 
-def trace_closest(o, d, t_max, tables, settings, active=None, excl=None):
+def trace_closest(o, d, t_max, tables, settings, active=None, excl=None,
+                  primary=False):
     """Closest-hit trace of one path segment: the cluster kernel for CUDA
     tensors, its plain twin for CPU tensors (ops/cluster_cuda.py). Bounce
     legs are traced unsorted: the JAX package's ray sort is a pure
-    reordering with identical results."""
+    reordering with identical results. ``primary`` marks camera-ray
+    segments: the exact-pairs route (``exact_pairs``) always applies
+    there, and on bounce segments only with ``exact_pairs_bounce``."""
+    exact = settings.exact_pairs and (primary or settings.exact_pairs_bounce)
     return trace_closest_clustered_cuda(
-        o, d, t_max, tables, active, excl_code=excl, tile=settings.trace_tile
+        o, d, t_max, tables, active, excl_code=excl,
+        tile=settings.trace_tile, exact_pairs=exact,
     )
 
 
@@ -215,7 +221,8 @@ def path_trace(
             if seg == 0
             else torch.full((r,), F32_MAX, dtype=torch.float32, device=dev)
         )
-        hit = trace_closest(o, d, t_max, tables, settings, alive, excl)
+        hit = trace_closest(o, d, t_max, tables, settings, alive, excl,
+                            primary=seg == 0)
         if seg == 0:
             first_hit = hit
 
@@ -335,7 +342,7 @@ def trace_direct(o, d, t_max0, state, tables, env_data,
     if isinstance(env_data, EnvDistribution):
         env_data = env_data.img
     r = o.shape[0]
-    hit = trace_closest(o, d, t_max0, tables, settings)
+    hit = trace_closest(o, d, t_max0, tables, settings, primary=True)
     found = hit.face >= 0
     f3 = found.unsqueeze(-1)
     env = sample_environment(env_data, d, settings.environment)
