@@ -1,16 +1,19 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--frames 4] [--config5-frames 2] [--seed 0]
+    python3 chip_smoke.py [--frames 2] [--config5-frames 2] [--seed 0]
 
 Phases (any failure exits non-zero; nothing is caught to carry on):
 
 1. environment: torch/CUDA/nvcc versions, the card's name and power limit;
    fails when no CUDA device is visible. TF32 is switched off.
-2. build: compiles the six entries of the cluster trace kernels
+2. build: compiles the thirteen entries of the cluster trace kernels
    (``wrt_trace_closest``, ``wrt_trace_any``: K1;
    ``wrt_trace_closest_two_level``, ``wrt_trace_any_two_level``: K3;
    ``wrt_trace_pairs``: K2p; ``wrt_trace_pairs_two_level``: K3p;
-   csrc/cluster_trace.cu) from the checkout into build/kernels/.
+   ``wrt_trace_sched``: K5; ``wrt_trace_near_closest`` / ``_any`` /
+   ``_pairs``: K2n; ``wrt_trace_pipelined_closest`` / ``_any`` /
+   ``_pairs``: K2pl; csrc/cluster_trace.cu) from the checkout into
+   build/kernels/.
 3. K1 vs twins: on 1080p ray sets of ``stress_scene(44_556)`` made
    from frame 0 exactly as ``path_trace`` makes them, each CUDA entry and
    its plain-torch twin run on the same device tensors. Closest-hit: the
@@ -28,9 +31,20 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
    exception printed, with whether it is an exact tie; fail above 1e-5);
    the flag rate; kernel, twin and adjudication timed with CUDA events;
    the bound from the twin's pairs work counts.
+   K5 (rounds of 1, 4 and 8 clusters; primary and bounce), K2n, K2pl and
+   K2n's pipelined walk (closest-hit on primary and bounce, any-hit on
+   the two shadow sets, pairs on primary and bounce) vs their twins on
+   the same sets, as above, and vs K1's codes (pairs: K2p's five outputs)
+   on the same rays; and K2n's whole leg against the whole K1 route (the
+   tile entry distances and the sort as plain torch, then K1), both
+   timed. K5 and K2pl return K1's (K2p's) results from K1's inputs, so
+   their bound is K1's (K2p's) on the same leg, and K2n's is the bound of
+   its pipelined walk; what their twins count beyond that (speculative
+   slot and box tests, rounds fetched and not tested) is printed as
+   ``extra_*``.
 4. the 1080p paths through ``Renderer`` (one warm-up frame, then
-   ``--frames`` timed frames; the six launch counts zeroed just before
-   the timed frames and read just after):
+   ``--frames`` timed frames; every launch count zeroed just before the
+   timed frames and read just after):
    default (procedural sky): finite image, 6 closest-hit launches/frame;
    NEE: 6 closest-hit + 6 any-hit launches/frame, no +-inf pixel (the
    y = 0 floor's shading points are NaN by the reference's own offset
@@ -40,6 +54,17 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
    exact pairs (``exact_pairs`` and ``exact_pairs_bounce``): 6 K2p and no
    K1 closest-hit launch per frame; its image against the default path's
    (same seed and frame count): equal NaN masks, RMSE < 1e-5.
+   ``trace_sched=4``: 6 K5 launches and no K1 closest-hit one per frame;
+   ``kernel_near``: 6 K2n launches, and ``tile_nears_fused`` is not
+   called once; ``pipeline_rounds``: 6 K2pl launches; the sorted frame
+   (``sort_bounce_rays`` and ``live_slice``): 6 K1 launches, and one more
+   frame profiled leg by leg (live count, traced width, branch, ms of
+   key, sort, gathers, count read, trace and unsort); each against the
+   default path's image: equal NaN masks, RMSE < 1e-5.
+   NEE with the sort (sliced shadow legs), and NEE with ``exact_pairs``
+   under ``kernel_near``, under ``pipeline_rounds`` and under both (2
+   pairs + 4 closest-hit + 6 any-hit launches of K2n / K2pl / K2n per
+   frame), each against the NEE path's image.
    Every pixel must hold 2 samples per frame.
 5. direct integrator (config #1): the analytic spheres-and-plane scene at
    256x256, ``bounces_depth=1``, perspective: 2 + 2 launches per frame.
@@ -72,7 +97,7 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
       JAX meaning), one warm-up and one timed frame: 16 K3p + 32 K3
       closest-hit launches, finite image.
 
-Prints the per-kernel JSON line (six kernels), then the ``nvidia-smi``
+Prints the per-kernel JSON line (thirteen kernels), then the ``nvidia-smi``
 name/power line, then ``{"ok": true, "device": {...}}`` as the last line.
 """
 
@@ -181,11 +206,39 @@ def sky_equirect(torch, h: int, w: int, dev):
     return procedural_sky(d.reshape(-1, 3)).reshape(h, w, 3)
 
 
-def _compare_leg(torch, name, args, card, any_hit=False):
-    """One leg through its kernel entry (K3 for a two-level ``args``, else
-    K1) and its twin on the same device tensors: codes must agree;
-    closest-hit t must be bit-equal where they do. The twin counts the
-    leg's work, which bounds the kernel."""
+def _bound(name, work, needs=None):
+    """The least time the card could take for a leg → the ``bound_*``,
+    ``ops`` and ``bytes`` entries of its result. ``work`` is what the
+    kernel's twin counted. A kernel that returns another's results from
+    the same inputs by a route with speculative work (K5, K2pl: K1's or
+    K2p's; K2n's pipelined walk: K2n's) is bound by that other leg's
+    counts, ``needs`` (its result); what the twin counted beyond them is
+    reported as ``extra_*``: the kernel's cost, not its function's."""
+    need = work if needs is None else needs
+    extra = {}
+    if needs is not None:
+        extra = {f"extra_{k}": work[k] - needs[k]
+                 for k in ("slot_tests", "box_tests", "ops", "bytes")}
+        if min(extra.values()) < 0:
+            fail(f"{name}: the twin counted less work than the leg that "
+                 f"bounds it: {extra}")
+    ops_ms = need["ops"] / PEAK_F32 * 1e3
+    bytes_ms = need["bytes"] / PEAK_BYTES * 1e3
+    return dict(bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                ops=need["ops"], bytes=need["bytes"],
+                box_tests=work["box_tests"], slot_tests=work["slot_tests"],
+                **extra)
+
+
+def _compare_leg(torch, name, args, card, any_hit=False, ref_code=None,
+                 needs=None):
+    """One leg through the kernel entry that ``args`` is for (its
+    ``variant``) and its twin on the same device tensors: codes must
+    agree; closest-hit t must be bit-equal where they do. The twin counts
+    the leg's work, which bounds the kernel, unless ``needs`` names the
+    leg whose counts do (:func:`_bound`). ``ref_code``: K1's codes on the
+    same rays, which the kernel's must equal."""
     from webgpu_raytracing_tpu_torch.ops import cluster_cuda as cc
 
     wrapper, twin = (cc.trace_any_args if any_hit
@@ -221,41 +274,51 @@ def _compare_leg(torch, name, args, card, any_hit=False):
     ms_k = _time_cuda(torch, lambda: wrapper(**args), 5)
     ms_w = _time_cuda(torch, lambda: twin(**args), 1, warm=False)
     work = cc.walk_stats(stats, args["face_id"], any_hit)
-    ops_ms = work["ops"] / PEAK_F32 * 1e3
-    bytes_ms = work["bytes"] / PEAK_BYTES * 1e3
-    bound_ms = max(ops_ms, bytes_ms)
-    bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+    bound = _bound(name, work, needs)
+    extra = {k: v for k, v in bound.items() if k.startswith("extra_")}
     what = "blocked" if any_hit else "hits"
     print(f"{name}: {n_rays} rays ({live} live), {hits} {what}, code "
           f"mismatches {mismatch}, flag mismatches {flag_mismatch}, max abs "
           f"err {max_abs:g}; kernel {ms_k:.3f} ms, twin {ms_w:.3f} ms "
           f"(counting run {counted_s:.1f} s); work {work['box_tests']} box "
           f"tests, {work['slot_tests']} slot tests, {work['ops']} f32 ops, "
-          f"{work['bytes']} bytes -> bound {bound_ms:.4f} ms by {bound_by} "
+          f"{work['bytes']} bytes"
+          + (f", beyond what the function needs {extra}" if extra else "")
+          + f" -> bound {bound['bound_ms']:.4f} ms by {bound['bound_by']} "
           f"({card})", flush=True)
     if max(mismatch, flag_mismatch) > MISMATCH_LIMIT * n_rays:
         fail(f"{name}: {mismatch} code mismatches > {MISMATCH_LIMIT:g} of "
              "the rays")
     if not any_hit and max_abs != 0.0:
         fail(f"{name}: kernel and twin t differ where faces agree")
+    vs_k1 = None
+    if ref_code is not None:
+        vs_k1 = int((code_k != ref_code).sum())
+        print(f"{name}: codes that differ from K1's on the same rays: "
+              f"{vs_k1}", flush=True)
+        if vs_k1 > MISMATCH_LIMIT * n_rays:
+            fail(f"{name}: {vs_k1} codes differ from K1's")
     return dict(n=n_rays, live=live, hits=hits, mismatch=mismatch,
+                vs_k1=vs_k1, staged_rounds=stats.get("staged_rounds"),
                 flag_mismatch=flag_mismatch, max_abs=max_abs, ms=ms_k,
-                plain_ms=ms_w, bound_ms=bound_ms, bound_by=bound_by,
-                ops=work["ops"], bytes=work["bytes"],
-                box_tests=work["box_tests"], slot_tests=work["slot_tests"])
+                plain_ms=ms_w, **bound)
 
 
-def _compare_pairs_leg(torch, name, leg, tables, card, tile):
+def _compare_pairs_leg(torch, name, leg, tables, card, tile, needs=None,
+                       **prep_kw):
     """One closest-hit leg through its pairs entry (K3p for two-level
-    tables, else K2p) and its twin on the same device tensors: t1, c1, c2,
-    c3 and the flag must agree; then ``adjudicate_compact`` on the
+    tables, K2n or K2pl with ``prep_kw``, else K2p) and its twin on the
+    same device tensors: t1, c1, c2, c3 and the flag must agree (with
+    ``prep_kw`` also with K2p's); then ``adjudicate_compact`` on the
     kernel's candidates, whose faces must equal the K1/K3 route's on the
-    same rays (each exception printed, with its exact t for both faces)."""
+    same rays (each exception printed, with its exact t for both faces).
+    ``needs``: the leg whose counts bound this one (:func:`_bound`)."""
     from webgpu_raytracing_tpu_torch.ops import cluster_cuda as cc
     from webgpu_raytracing_tpu_torch.ops.adjudicate import adjudicate_compact
     from webgpu_raytracing_tpu_torch.ops.cluster_trace import exact_face_eval
 
-    args = cc.prepare_tiles(tables=tables, tile=tile, pairs=True, **leg)
+    args = cc.prepare_tiles(tables=tables, tile=tile, pairs=True, **leg,
+                            **prep_kw)
     wrapper, twin = cc.trace_pairs_args(args)
     n_rays = args["a"].shape[0]
     if n_rays != leg["o"].shape[0]:
@@ -285,6 +348,19 @@ def _compare_pairs_leg(torch, name, leg, tables, card, tile):
     max_abs = float((out_k[0][both] - out_w[0][both]).abs().max()) if (
         bool(both.any())) else 0.0
     amb_rate = float(out_k[4][live].float().mean())
+    vs_k2p = None
+    if prep_kw:
+        ref = cc.trace_pairs_tiles(**cc.prepare_tiles(
+            tables=tables, tile=tile, pairs=True, **leg))
+        off = out_k[0].view(torch.int32) != ref[0].view(torch.int32)
+        for x, y in zip(out_k[1:], ref[1:]):
+            off |= x != y
+        vs_k2p = int(off.sum())
+        del ref, off
+        print(f"{name}: outputs that differ from K2p's on the same rays: "
+              f"{vs_k2p}", flush=True)
+        if vs_k2p > MISMATCH_LIMIT * n_rays:
+            fail(f"{name}: {vs_k2p} outputs differ from K2p's")
 
     fid = tables.clusters.face_id
     faces = tuple(cc.code_to_face(c, fid) for c in out_k[1:4])
@@ -319,10 +395,8 @@ def _compare_pairs_leg(torch, name, leg, tables, card, tile):
     ms_w = _time_cuda(torch, lambda: twin(**args), 1, warm=False)
     ms_adj = _time_cuda(torch, adjudicate, 5)
     work = cc.walk_stats(stats, fid, any_hit=False, pairs=True)
-    ops_ms = work["ops"] / PEAK_F32 * 1e3
-    bytes_ms = work["bytes"] / PEAK_BYTES * 1e3
-    bound_ms = max(ops_ms, bytes_ms)
-    bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+    bound = _bound(name, work, needs)
+    extra = {k: v for k, v in bound.items() if k.startswith("extra_")}
     print(f"{name}: {n_rays} rays ({int(live.sum())} live), "
           f"{int((out_k[1] >= 0).sum())} first candidates, flag rate "
           f"{amb_rate:.6f}, output mismatches {mismatch}, max abs err "
@@ -333,8 +407,10 @@ def _compare_pairs_leg(torch, name, leg, tables, card, tile):
           f"adjudicate_compact {ms_adj:.3f} ms; work {work['box_tests']} box "
           f"tests, {work['slot_tests']} slot tests, {work['estimate_terms']} "
           f"estimate + {work['magnitude_terms']} magnitude terms, "
-          f"{work['ops']} f32 ops, {work['bytes']} bytes -> bound "
-          f"{bound_ms:.4f} ms by {bound_by} ({card})", flush=True)
+          f"{work['ops']} f32 ops, {work['bytes']} bytes"
+          + (f", beyond what the function needs {extra}" if extra else "")
+          + f" -> bound {bound['bound_ms']:.4f} ms by {bound['bound_by']} "
+          f"({card})", flush=True)
     if mismatch > MISMATCH_LIMIT * n_rays:
         fail(f"{name}: {mismatch} pairs output mismatches > "
              f"{MISMATCH_LIMIT:g} of the rays")
@@ -344,20 +420,97 @@ def _compare_pairs_leg(torch, name, leg, tables, card, tile):
         fail(f"{name}: {bad.numel()} adjudicated faces differ from the "
              f"plain route's")
     return dict(n=n_rays, live=int(live.sum()), mismatch=mismatch,
+                vs_k2p=vs_k2p, staged_rounds=stats.get("staged_rounds"),
                 max_abs=max_abs, amb_rate=amb_rate,
                 face_mismatch=int(bad.numel()), exact_ties=ties, ms=ms_k,
-                plain_ms=ms_w, adjudicate_ms=ms_adj, bound_ms=bound_ms,
-                bound_by=bound_by, ops=work["ops"], bytes=work["bytes"],
-                box_tests=work["box_tests"], slot_tests=work["slot_tests"],
+                plain_ms=ms_w, adjudicate_ms=ms_adj, **bound,
                 estimate_terms=work["estimate_terms"],
                 magnitude_terms=work["magnitude_terms"])
 
 
-def compare_pairs_legs(torch, tables, legs, card, tile, label=""):
-    """The primary and bounce legs through the pairs entry → dict."""
+def compare_pairs_legs(torch, tables, legs, card, tile, label="",
+                       needs=None, **prep_kw):
+    """The primary and bounce legs through the pairs entry → dict.
+    ``needs``: the legs whose counts bound these (:func:`_bound`)."""
     return {key: _compare_pairs_leg(torch, f"{label}{key} (pairs)", legs[key],
-                                    tables, card, tile)
+                                    tables, card, tile,
+                                    needs=needs and needs[key], **prep_kw)
             for key in ("primary", "bounce")}
+
+
+LEG_NAMES = {"primary": "primary", "bounce": "bounce", "nee": "nee shadow",
+             "env": "env shadow"}
+SHADOW_LEGS = ("nee", "env")
+
+
+def compare_scheduling_legs(torch, tables, legs, card, tile, k1, k2p):
+    """K5 (rounds of 1, 4 and 8 clusters), K2n, K2pl and K2n's pipelined
+    walk on frame 0's 1080p legs, each against its twin and against K1
+    (pairs: K2p) on the same rays; and K2n's whole leg against the whole
+    K1 route (the tile entry distances and the sort as plain torch, then
+    K1), both timed → dict of the results by kernel. ``k1`` and ``k2p``:
+    K1's and K2p's results on the same legs, whose work counts bound K5
+    and K2pl (:func:`_bound`); K2n's own bound its pipelined walk."""
+    from webgpu_raytracing_tpu_torch.ops import cluster_cuda as cc
+
+    refs = {}
+    for key in legs:
+        args = cc.prepare_tiles(tables=tables, tile=tile, **legs[key])
+        refs[key] = (cc.trace_any_tiles(**args) if key in SHADOW_LEGS
+                     else cc.trace_closest_tiles(**args)[1])
+        del args
+    variants = [(f"K5 rounds of {j}", dict(sched_rounds=j),
+                 ("primary", "bounce"), k1) for j in (1, 4, 8)]
+    variants += [
+        ("K2n", dict(near="kernel"), tuple(legs), None),
+        ("K2pl", dict(pipelined=True), tuple(legs), k1),
+        ("K2n pipelined", dict(near="kernel", pipelined=True), tuple(legs),
+         "K2n"),
+    ]
+    out = {}
+    for label, kw, keys, needs in variants:
+        needs = out[needs] if isinstance(needs, str) else needs
+        out[label] = {}
+        for key in keys:
+            args = cc.prepare_tiles(tables=tables, tile=tile, **legs[key],
+                                    **kw)
+            out[label][key] = _compare_leg(
+                torch, f"{label} {LEG_NAMES[key]}", args, card,
+                key in SHADOW_LEGS, ref_code=refs[key],
+                needs=needs and needs[key])
+            del args
+    del refs
+    for key in ("primary", "bounce"):
+        extra = out["K5 rounds of 1"][key]["extra_ops"]
+        if extra:
+            fail(f"K5 in rounds of 1 counted {extra} operations more than "
+                 f"K1 on the {key} leg")
+    out["K2n pairs"] = compare_pairs_legs(torch, tables, legs, card, tile,
+                                          label="K2n ", near="kernel")
+    out["K2pl pairs"] = compare_pairs_legs(
+        torch, tables, legs, card, tile, label="K2pl ", needs=k2p,
+        pipelined=True)
+    out["K2n pipelined pairs"] = compare_pairs_legs(
+        torch, tables, legs, card, tile, label="K2n pipelined ",
+        needs=out["K2n pairs"], near="kernel", pipelined=True)
+    routes = {}
+    for key in ("primary", "bounce"):
+        def k1_route():
+            args = cc.prepare_tiles(tables=tables, tile=tile, **legs[key])
+            return cc.trace_closest_tiles(**args)
+
+        def k2n_route():
+            args = cc.prepare_tiles(tables=tables, tile=tile, near="kernel",
+                                    **legs[key])
+            return cc.trace_near_closest_tiles(**args)
+
+        routes[key] = dict(k1_route_ms=_time_cuda(torch, k1_route, 3),
+                           k2n_route_ms=_time_cuda(torch, k2n_route, 3))
+        print(f"{key}: whole K1 route (entry distances, sort, K1) "
+              f"{routes[key]['k1_route_ms']:.3f} ms, whole K2n route "
+              f"{routes[key]['k2n_route_ms']:.3f} ms ({card})", flush=True)
+    out["routes"] = routes
+    return out
 
 
 def frame0_legs(torch, tables, st, seed, row0=0, rows=None, sky=None):
@@ -441,8 +594,8 @@ def compare_legs(torch, tables, legs, card, tile, label=""):
 
 
 def phase_kernel_vs_twin(torch, scene, sky, seed, card):
-    """K1 and K2p vs twins on frame 0's 1080p legs of the slice scene →
-    (closest, any-hit, pairs)."""
+    """K1, K2p, K5, K2n and K2pl vs twins on frame 0's 1080p legs of the
+    slice scene → (closest, any-hit, pairs, scheduling kernels)."""
     from webgpu_raytracing_tpu_torch.config import RenderSettings
 
     st = RenderSettings(**SLICE)
@@ -450,12 +603,28 @@ def phase_kernel_vs_twin(torch, scene, sky, seed, card):
     legs = frame0_legs(torch, tables, st, seed, sky=sky)
     closest, anyhit = compare_legs(torch, tables, legs, card, st.trace_tile)
     pairs = compare_pairs_legs(torch, tables, legs, card, st.trace_tile)
-    return closest, anyhit, pairs
+    sched = compare_scheduling_legs(torch, tables, legs, card, st.trace_tile,
+                                    {**closest, **anyhit}, pairs)
+    return closest, anyhit, pairs, sched
 
 
 WRAPPERS = ("trace_closest_tiles", "trace_any_tiles",
             "trace_closest_two_level_tiles", "trace_any_two_level_tiles",
-            "trace_pairs_tiles", "trace_pairs_two_level_tiles")
+            "trace_pairs_tiles", "trace_pairs_two_level_tiles",
+            "trace_sched_tiles", "trace_near_closest_tiles",
+            "trace_near_any_tiles", "trace_near_pairs_tiles",
+            "trace_pipelined_closest_tiles", "trace_pipelined_any_tiles",
+            "trace_pipelined_pairs_tiles")
+
+
+def launches_per_frame(**counts):
+    """Launches per frame in the order of WRAPPERS, from
+    ``<wrapper without trace_ and _tiles>=n`` keywords; the rest 0."""
+    names = [w[len("trace_"):-len("_tiles")] for w in WRAPPERS]
+    unknown = set(counts) - set(names)
+    if unknown:
+        raise KeyError(unknown)
+    return tuple(counts.get(n, 0) for n in names)
 
 
 def _launch_counts():
@@ -512,6 +681,7 @@ def drive_path(torch, name, scene, st, frames, seed, card, per_frame,
     want = (1.0 + st.sample_count) * (frames + 1)
     if not bool((img[..., 3] == want).all()):
         fail(f"{name}: sample counts differ from {want}")
+    per_frame = tuple(per_frame) + (0,) * (len(WRAPPERS) - len(per_frame))
     expect = tuple(n * frames for n in per_frame)
     if launches != expect:
         fail(f"{name}: launches {launches} of {WRAPPERS} in {frames} "
@@ -532,12 +702,163 @@ def drive_path(torch, name, scene, st, frames, seed, card, per_frame,
     print(f"{name}: {frames} frames of {st.width}x{st.height} "
           f"(frame_slabs {st.frame_slabs}), {ms:.1f} ms/frame, "
           f"{mrays:.3f} Mrays/s ({rays / frames:.0f} rays/frame), launches "
-          f"{dict(zip(WRAPPERS, launches))}, NaN pixels {nan_share:.4f}, "
+          f"{ {w: n for w, n in zip(WRAPPERS, launches) if n} }, NaN pixels "
+          f"{nan_share:.4f}, "
           f"peak memory {peak / 2**30:.2f} GiB, Renderer set-up "
           f"{setup_s:.1f} s ({card})", flush=True)
     return dict(launches=launches, ms_per_frame=ms, mrays=mrays,
                 nan_share=nan_share, peak_gib=peak / 2**30,
                 rays_per_frame=rays / frames), r
+
+
+def _same_frame(torch, name, img, ref_img, what):
+    """``img`` against ``ref_img`` (same seed and frame count): equal NaN
+    masks, RMSE < 1e-5 over the other values → (RMSE, pixels that
+    differ)."""
+    nan = torch.isnan(ref_img)
+    if not torch.equal(torch.isnan(img), nan):
+        fail(f"{name}: NaN mask differs from the {what}'s")
+    rmse = float(((img - ref_img)[~nan] ** 2).mean().sqrt())
+    n_diff = int(((img != ref_img) & ~nan).any(-1).sum())
+    print(f"{name} vs {what}, same seed and frames: RMSE {rmse:.3g}, "
+          f"{n_diff} pixels differ", flush=True)
+    if not rmse < 1e-5:
+        fail(f"{name}: RMSE {rmse} >= 1e-5 against the {what}")
+    return dict(rmse_vs_reference=rmse, pixels_differ=n_diff)
+
+
+def profile_sorted_legs(torch, r):
+    """One more frame of Renderer ``r`` with every stage of
+    ``ops/ray_sort.py`` (the functions ``sorted_trace`` calls through its
+    module) timed on the host's clock between device synchronizes → one
+    record per sorted leg: ray count, live count (where it was read),
+    traced width, branch, ms per stage and of the traced leg itself."""
+    from webgpu_raytracing_tpu_torch.ops import integrator, ray_sort
+
+    stages = {"key": "nearest_cluster_key", "sort": "sort_keys",
+              "gather": "permute_rows", "count": "live_count",
+              "unsort": "unsort"}
+    legs, rec = [], {}
+
+    def timed(fn, stage):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            rec[stage + "_ms"] = (time.perf_counter() - t0) * 1e3
+            if stage == "count":
+                rec["live"] = out
+            if stage == "unsort":
+                rec.update(rays=a[0].shape[0], width=a[1][0].shape[0])
+            return out
+        return run
+
+    def leg(*a, **kw):
+        rec.clear()
+        rec["live"] = None
+        out = timed(real["sorted_trace"], "leg")(*a, **kw)
+        rec["trace_ms"] = rec["leg_ms"] - sum(
+            rec.get(k + "_ms", 0.0) for k in stages)
+        rec["branch"] = "sliced" if rec["width"] < rec["rays"] else "full"
+        legs.append(dict(rec))
+        return out
+
+    real = {name: getattr(ray_sort, name) for name in stages.values()}
+    real["sorted_trace"] = integrator.sorted_trace
+    for stage, name in stages.items():
+        setattr(ray_sort, name, timed(real[name], stage))
+    integrator.sorted_trace = leg
+    try:
+        r.step()
+        torch.cuda.synchronize()
+    finally:
+        integrator.sorted_trace = real.pop("sorted_trace")
+        for name, fn in real.items():
+            setattr(ray_sort, name, fn)
+    return legs
+
+
+def phase_scheduling_paths(torch, scene, base, default_img, nee_st, nee_img,
+                           frames, seed, card):
+    """The 1080p paths of the tile-scheduling kernels and the ray sort,
+    each held to the default frame (or the NEE frame) of the same seed and
+    frame count: ``trace_sched=4`` (6 K5 launches per frame, no K1
+    closest-hit one), ``kernel_near`` (6 K2n, and not one call of
+    ``tile_nears_fused``), ``pipeline_rounds`` (6 K2pl), the sorted frame
+    (``sort_bounce_rays`` and ``live_slice``; one more frame is profiled
+    leg by leg), NEE with the sort (sliced shadow legs), and NEE with
+    ``exact_pairs`` under ``kernel_near``, under ``pipeline_rounds`` and
+    under both (the any-hit and pairs entries of K2n, of K2pl and of
+    K2n's pipelined walk)."""
+    from webgpu_raytracing_tpu_torch.ops import cluster_cuda as cc
+
+    paths = {}
+
+    def run(key, name, st, counts, ref_img, what, finite=True):
+        paths[key], r = drive_path(torch, name, scene, st, frames, seed, card,
+                                   launches_per_frame(**counts),
+                                   finite=finite)
+        paths[key].update(_same_frame(torch, name, r.buffers.image, ref_img,
+                                      what))
+        return r
+
+    unsorted = base.replace(sort_bounce_rays=False)
+    run("sched", "trace_sched=4 path", unsorted.replace(trace_sched=4),
+        dict(sched=6), default_img, "default frame")
+    real, calls = cc.tile_nears_fused, [0]
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return real(*a, **kw)
+
+    cc.tile_nears_fused = counted
+    try:
+        run("near", "kernel_near path", unsorted.replace(kernel_near=True),
+            dict(near_closest=6), default_img, "default frame")
+    finally:
+        cc.tile_nears_fused = real
+    print(f"kernel_near path: tile_nears_fused was called {calls[0]} times",
+          flush=True)
+    if calls[0]:
+        fail("kernel_near path: the tile entry distances were also computed "
+             "outside the kernel")
+    paths["near"]["tile_nears_fused_calls"] = calls[0]
+    run("pipelined", "pipeline_rounds path",
+        unsorted.replace(pipeline_rounds=True), dict(pipelined_closest=6),
+        default_img, "default frame")
+    sorted_st = base.replace(sort_bounce_rays=True, live_slice=True)
+    r = run("sorted", "sorted path", sorted_st, dict(closest=6), default_img,
+            "default frame")
+    legs = profile_sorted_legs(torch, r)
+    del r
+    for i, rec in enumerate(legs):
+        ms = {k[:-3]: round(v, 3) for k, v in rec.items() if k.endswith("_ms")}
+        print(f"sorted path, profiled frame, sorted leg {i}: {rec['rays']} "
+              f"rays, live {rec['live']}, traced width {rec['width']} "
+              f"({rec['branch']} branch), ms {ms} ({card})", flush=True)
+    if len(legs) != 4:
+        fail(f"sorted path: {len(legs)} sorted legs in a frame, expected 4")
+    paths["sorted"]["legs"] = legs
+    run("nee_sorted", "NEE path, sorted",
+        nee_st.replace(sort_bounce_rays=True, live_slice=True),
+        dict(closest=6, any=6), nee_img, "NEE frame", finite=False)
+    exact_nee = nee_st.replace(sort_bounce_rays=False, exact_pairs=True)
+    run("near_nee_exact", "kernel_near path, NEE and exact primary legs",
+        exact_nee.replace(kernel_near=True),
+        dict(near_pairs=2, near_closest=4, near_any=6), nee_img, "NEE frame",
+        finite=False)
+    run("pipelined_nee_exact",
+        "pipeline_rounds path, NEE and exact primary legs",
+        exact_nee.replace(pipeline_rounds=True),
+        dict(pipelined_pairs=2, pipelined_closest=4, pipelined_any=6),
+        nee_img, "NEE frame", finite=False)
+    run("near_pipelined_nee_exact",
+        "kernel_near and pipeline_rounds path, NEE and exact primary legs",
+        exact_nee.replace(kernel_near=True, pipeline_rounds=True),
+        dict(near_pairs=2, near_closest=4, near_any=6), nee_img, "NEE frame",
+        finite=False)
+    return paths
 
 
 def phase_paths(torch, scene, sky, frames, seed, card):
@@ -548,7 +869,8 @@ def phase_paths(torch, scene, sky, frames, seed, card):
     paths = {}
     base = RenderSettings(**SLICE)
     paths["default"], r = drive_path(torch, "default path", scene, base,
-                                     frames, seed, card, (6, 0, 0, 0, 0, 0))
+                                     frames, seed, card,
+                                     launches_per_frame(closest=6))
     default_img = r.buffers.image.clone()
     del r
     paths["exact"], r = drive_path(
@@ -558,21 +880,19 @@ def phase_paths(torch, scene, sky, frames, seed, card):
     )
     img = r.buffers.image
     del r
-    nan = torch.isnan(default_img)
-    if not torch.equal(torch.isnan(img), nan):
-        fail("exact-pairs path: NaN mask differs from the default path's")
-    rmse = float(((img - default_img)[~nan] ** 2).mean().sqrt())
-    n_diff = int((img != default_img).any(-1).sum())
-    print(f"exact-pairs path vs default path, same seed and frames: RMSE "
-          f"{rmse:.3g}, {n_diff} pixels differ", flush=True)
-    if not rmse < 1e-5:
-        fail(f"exact-pairs path: RMSE {rmse} >= 1e-5 against the default")
-    paths["exact"].update(rmse_vs_default=rmse, pixels_differ=n_diff)
-    del default_img, img
-    paths["nee"] = drive_path(
-        torch, "NEE path", scene, base.replace(next_event_estimation=True),
-        frames, seed, card, (6, 6, 0, 0, 0, 0), finite=False,
-    )[0]
+    paths["exact"].update(_same_frame(torch, "exact-pairs path", img,
+                                      default_img, "default frame"))
+    del img
+    nee_st = base.replace(next_event_estimation=True)
+    paths["nee"], r = drive_path(
+        torch, "NEE path", scene, nee_st, frames, seed, card,
+        launches_per_frame(closest=6, any=6), finite=False,
+    )
+    nee_img = r.buffers.image.clone()
+    del r
+    paths.update(phase_scheduling_paths(torch, scene, base, default_img,
+                                        nee_st, nee_img, frames, seed, card))
+    del default_img, nee_img
     env_st = base.replace(environment="equirect", env_importance_sampling=True)
     paths["envis"] = drive_path(torch, "env-IS path", scene, env_st, frames,
                                 seed, card, (6, 6, 0, 0, 0, 0), env_data=sky,
@@ -808,7 +1128,7 @@ def phase_config5_slabs_resume(torch, tables, seed, card):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--frames", type=int, default=4)
+    ap.add_argument("--frames", type=int, default=2)
     ap.add_argument("--config5-frames", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
     a = ap.parse_args()
@@ -833,8 +1153,8 @@ def main() -> int:
     print(f"scene: stress_scene({N_TRIANGLES}) and the {SKY_SHAPE[0]}x"
           f"{SKY_SHAPE[1]} sky distribution built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    closest, anyhit, pairs = phase_kernel_vs_twin(torch, scene, sky, a.seed,
-                                                  card)
+    closest, anyhit, pairs, sched = phase_kernel_vs_twin(torch, scene, sky,
+                                                         a.seed, card)
     paths = phase_paths(torch, scene, sky, a.frames, a.seed, card)
     paths["direct"] = phase_direct(torch, a.frames, a.seed, card)
     reference = phase_reference(torch)
@@ -903,16 +1223,27 @@ def main() -> int:
     source = "webgpu_raytracing_tpu_torch/csrc/cluster_trace.cu"
     pallas = "webgpu_raytracing_tpu/ops/cluster_pallas.py"
 
-    def entry(name, replaces, i, legs, main_leg, **extra):
+    def closest_of(legs):
+        return {k: v for k, v in legs.items() if k not in SHADOW_LEGS}
+
+    def anyhit_of(legs):
+        return {k: v for k, v in legs.items() if k in SHADOW_LEGS}
+
+    def entry(name, replaces, i, legs, main_leg, pipelined_walk=None,
+              **extra):
         leg = legs[main_leg]
+        held = list(legs.values())
+        if pipelined_walk is not None:  # the entry's other walk
+            held += list(pipelined_walk.values())
+            extra["pipelined_walk"] = pipelined_walk
         launches = by_path(i)
         if not launches:
             fail(f"{name}: no launch on any path")
         return dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(launches.values()), launches_by_path=launches,
-            max_abs_err=max(x["max_abs"] for x in legs.values()),
-            mismatches=max(x["mismatch"] for x in legs.values()),
+            max_abs_err=max(x["max_abs"] for x in held),
+            mismatches=max(x["mismatch"] for x in held),
             ms=leg["ms"], plain_ms=leg["plain_ms"],
             bound_ms=leg["bound_ms"], bound_by=leg["bound_by"],
             library_ms=None, timed_leg=main_leg, legs=legs, **extra,
@@ -920,7 +1251,9 @@ def main() -> int:
 
     print(json.dumps({"kernels": [
         entry("trace_closest_clustered", f"{pallas}:1141", 0, closest,
-              "bounce", ms_per_frame=frame_ms, mrays_per_s=mrays),
+              "bounce", ms_per_frame=frame_ms, mrays_per_s=mrays,
+              sorted_path=paths["sorted"],
+              nee_sorted_path=paths["nee_sorted"]),
         entry("trace_any_clustered", f"{pallas}:576 and :1243", 1, anyhit,
               "nee", sample_env_ms=paths["envis"]["sample_env_ms"],
               reference_rmse=reference),
@@ -937,6 +1270,35 @@ def main() -> int:
               f"{pallas}:1379 (pairs=True: :1406-1410, :1443-1458, "
               ":1566-1569)", 5, pairs5, "bounce",
               config5_exact_frame=paths["config5_exact"]),
+        entry("trace_sched_clustered",
+              f"{pallas}:841 (_kernel_sched, called at :1932)", 6,
+              sched["K5 rounds of 4"], "bounce",
+              rounds_of_1=sched["K5 rounds of 1"],
+              rounds_of_8=sched["K5 rounds of 8"],
+              sched_path=paths["sched"]),
+        entry("trace_near_closest_clustered",
+              f"{pallas}:436 (_kernel_one_tile in_near=True, :469-490)", 7,
+              closest_of(sched["K2n"]), "bounce", routes=sched["routes"],
+              pipelined_walk=closest_of(sched["K2n pipelined"]),
+              near_path=paths["near"]),
+        entry("trace_near_any_clustered",
+              f"{pallas}:436 (in_near=True, any_hit=True)", 8,
+              anyhit_of(sched["K2n"]), "nee",
+              pipelined_walk=anyhit_of(sched["K2n pipelined"])),
+        entry("trace_near_pairs_clustered",
+              f"{pallas}:436 (in_near=True, pairs=True)", 9,
+              sched["K2n pairs"], "bounce",
+              pipelined_walk=sched["K2n pipelined pairs"]),
+        entry("trace_pipelined_closest_clustered",
+              f"{pallas}:436 (_kernel_one_tile pipelined=True, :600-722; "
+              "the streaming form :731-748)", 10, closest_of(sched["K2pl"]),
+              "bounce", pipelined_path=paths["pipelined"]),
+        entry("trace_pipelined_any_clustered",
+              f"{pallas}:436 (pipelined=True, any_hit=True)", 11,
+              anyhit_of(sched["K2pl"]), "nee"),
+        entry("trace_pipelined_pairs_clustered",
+              f"{pallas}:436 (pipelined=True, pairs=True)", 12,
+              sched["K2pl pairs"], "bounce"),
     ]}), flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all",
           flush=True)

@@ -320,6 +320,7 @@ def test_port_imports_no_jax():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "assert len(names) > 20, names\n"
+        "assert 'webgpu_raytracing_tpu_torch.ops.ray_sort' in names\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m == 'webgpu_raytracing_tpu' or m.startswith(('jax.', 'jaxlib', 'webgpu_raytracing_tpu.')))\n"
         "assert not bad, bad\n"

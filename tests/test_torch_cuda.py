@@ -72,7 +72,7 @@ def test_kernel_matches_twin_on_card(cuda):
     t_k, c_k = cc.trace_closest_tiles(**args)
     torch.cuda.synchronize()
     assert cc.trace_closest_tiles.launches == before + 1
-    t_w, c_w = cc._trace_closest_torch(**args)
+    t_w, c_w = cc.trace_closest_tiles.twin(**args)
     np.testing.assert_array_equal(c_k.cpu().numpy(), c_w.cpu().numpy())
     np.testing.assert_array_equal(
         t_k.cpu().numpy().view(np.int32), t_w.cpu().numpy().view(np.int32)
@@ -84,7 +84,7 @@ def test_kernel_matches_twin_on_card(cuda):
     a_k = cc.trace_any_tiles(**args)
     torch.cuda.synchronize()
     assert cc.trace_any_tiles.launches == before + 1
-    a_w = cc._trace_any_torch(**args)
+    a_w = cc.trace_any_tiles.twin(**args)
     np.testing.assert_array_equal(a_k.cpu().numpy(), a_w.cpu().numpy())
     assert 100 < int((a_k >= 0).sum()) < n - 100
 
@@ -146,8 +146,8 @@ def test_two_level_kernels_match_twins_on_card(cuda, which):
     assert (cc.trace_closest_two_level_tiles.launches,
             cc.trace_any_two_level_tiles.launches) == (before[0] + 1,
                                                        before[1] + 1)
-    t_w, c_w = cc._trace_closest_two_level_torch(**a2)
-    a_w = cc._trace_any_two_level_torch(**a2)
+    t_w, c_w = cc.trace_closest_two_level_tiles.twin(**a2)
+    a_w = cc.trace_any_two_level_tiles.twin(**a2)
     np.testing.assert_array_equal(c_k.cpu().numpy(), c_w.cpu().numpy())
     np.testing.assert_array_equal(
         t_k.cpu().numpy().view(np.int32), t_w.cpu().numpy().view(np.int32)
@@ -215,6 +215,197 @@ def test_pairs_kernels_match_twins_on_card(cuda, which):
     plain = cc.trace_closest_clustered_cuda(*ins)
     np.testing.assert_array_equal(exact.face.cpu().numpy(),
                                   plain.face.cpu().numpy())
+
+
+def _small_scene():
+    return scene_from_facesets(
+        [
+            ("sphere", uv_sphere((0, 0, -4), 1.0, lat=10, lon=14)),
+            ("plane", ground_plane(-1.5, 8.0)),
+            ("cube", unit_cube_model()),
+        ],
+        np.ones((1, 3), np.float32) * 0.8,
+        np.zeros((1, 3), np.float32),
+    )
+
+
+def _padded_clusters(tables, n_clusters):
+    """The tables with empty clusters (inverted boxes, no faces, zero
+    matrices) appended up to ``n_clusters``."""
+    import dataclasses
+
+    ct = tables.clusters
+    extra = n_clusters - ct.box.shape[0]
+    assert extra >= 0 and ct.super_box is None
+    dev = ct.box.device
+    big = torch.finfo(torch.float32).max
+    empty = torch.tensor([big] * 3 + [-big] * 3, device=dev).repeat(extra, 1)
+    return dataclasses.replace(tables, clusters=dataclasses.replace(
+        ct,
+        box=torch.cat([ct.box, empty]),
+        face_id=torch.cat([ct.face_id, torch.full(
+            (extra, ct.face_id.shape[1]), -1, dtype=torch.int32,
+            device=dev)]),
+        mat_b=torch.cat([ct.mat_b, torch.zeros(
+            (extra,) + ct.mat_b.shape[1:], device=dev)]),
+    ))
+
+
+def _assert_same(got, want):
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        g, w = g.cpu().numpy(), w.cpu().numpy()
+        if g.dtype == np.float32:
+            g, w = g.view(np.int32), w.view(np.int32)
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("which", ["s16", "s128", "s2"])
+def test_sched_near_pipelined_kernels_match_twins_on_card(cuda, which):
+    """K5 (rounds of 1, 2, 4 and 8 clusters), K2n and K2pl (closest-hit,
+    any-hit and pairs; K2n also pipelined) against their twins and against
+    K1 / K2p on the same rays, bit for bit: random rays with inactive
+    lanes, finite t_max, NaN origins and exclusion codes. ``s16``: the
+    small scene in clusters of 16; ``s128``: in clusters of 128 (K5's
+    largest staging buffers); ``s2``: a 4,588-face stress scene in 2,294
+    clusters of 2, seen from above."""
+    from webgpu_raytracing_tpu_torch.models.stress import stress_scene
+
+    if which == "s2":
+        tables = stress_scene(5000).tables(cuda, cluster_size=2, group_size=0)
+    else:
+        tables = _small_scene().tables(
+            cuda, cluster_size=16 if which == "s16" else 128, group_size=0)
+    ct = tables.clusters
+    assert not cc.is_two_level(ct)
+    o, d, tmax, active, excl = _mixed_rays(5000, 41, ct.face_id.numel())
+    if which == "s2":
+        o = o * 4.0 + np.array([0.0, 12.0, 0.0], np.float32)
+        d[:, 1] = -np.abs(d[:, 1])
+
+    def t(a, dt=None):
+        return torch.as_tensor(a, dtype=dt, device=cuda)
+
+    ins = (t(o), t(d), t(tmax), tables, t(active), t(excl, torch.int32))
+    k1 = cc.prepare_tiles(*ins)
+    ref_closest = cc.trace_closest_tiles(**k1)
+    ref_any = cc.trace_any_tiles(**k1)
+    k2p = cc.prepare_tiles(*ins, pairs=True)
+    ref_pairs = cc.trace_pairs_tiles(**k2p)
+    assert (ref_closest[1] >= 0).sum() > 100
+
+    def check(selector, args, ref, wrapper):
+        w, twin = selector(args)
+        assert w is wrapper
+        before = w.launches
+        got = w(**args)
+        torch.cuda.synchronize()
+        assert w.launches == before + 1
+        _assert_same(got, twin(**args))
+        _assert_same(got, ref)
+
+    for jblk in cc.SCHED_ROUNDS:
+        check(cc.trace_closest_args, cc.prepare_tiles(*ins, sched_rounds=jblk),
+              ref_closest, cc.trace_sched_tiles)
+    pl = cc.prepare_tiles(*ins, pipelined=True)
+    check(cc.trace_closest_args, pl, ref_closest,
+          cc.trace_pipelined_closest_tiles)
+    check(cc.trace_any_args, pl, ref_any, cc.trace_pipelined_any_tiles)
+    check(cc.trace_pairs_args,
+          cc.prepare_tiles(*ins, pairs=True, pipelined=True), ref_pairs,
+          cc.trace_pipelined_pairs_tiles)
+    for pipelined in (False, True):
+        near = cc.prepare_tiles(*ins, near="kernel", pipelined=pipelined)
+        assert "snear" not in near and "order" not in near
+        check(cc.trace_closest_args, near, ref_closest,
+              cc.trace_near_closest_tiles)
+        check(cc.trace_any_args, near, ref_any, cc.trace_near_any_tiles)
+        check(cc.trace_pairs_args,
+              cc.prepare_tiles(*ins, pairs=True, near="kernel",
+                               pipelined=pipelined),
+              ref_pairs, cc.trace_near_pairs_tiles)
+
+
+def test_kernel_near_cluster_cap_on_card(cuda):
+    """K2n at its cap of NEAR_MAX_CLUSTERS boxes (the scene's clusters
+    and empty ones) equals K1 on the unpadded tables; one box more
+    raises, in ``prepare_tiles`` and in the wrapper."""
+    tables = _small_scene().tables(cuda, cluster_size=16, group_size=0)
+    o, d, tmax, active, excl = _mixed_rays(
+        3000, 43, tables.clusters.face_id.numel())
+
+    def t(a, dt=None):
+        return torch.as_tensor(a, dtype=dt, device=cuda)
+
+    rays = (t(o), t(d), t(tmax))
+    rest = (t(active), t(excl, torch.int32))
+    ref = cc.trace_closest_tiles(**cc.prepare_tiles(*rays, tables, *rest))
+    at_cap = _padded_clusters(tables, cc.NEAR_MAX_CLUSTERS)
+    for pipelined in (False, True):
+        got = cc.trace_near_closest_tiles(**cc.prepare_tiles(
+            *rays, at_cap, *rest, near="kernel", pipelined=pipelined))
+        torch.cuda.synchronize()
+        _assert_same(got, ref)
+    over = _padded_clusters(tables, cc.NEAR_MAX_CLUSTERS + 1)
+    with pytest.raises(ValueError):
+        cc.prepare_tiles(*rays, over, *rest, near="kernel")
+    args = cc.prepare_tiles(*rays, over, *rest)
+    del args["snear"], args["order"]
+    with pytest.raises(ValueError):
+        cc.trace_near_closest_tiles(**args)
+
+
+def test_scheduling_settings_raise_on_two_level_tables_on_card(cuda):
+    tables = _small_scene().tables(cuda, cluster_size=16, group_size=4)
+    assert cc.is_two_level(tables.clusters)
+    o = torch.zeros((128, 3), device=cuda)
+    d = torch.ones((128, 3), device=cuda)
+    tm = torch.full((128,), F32_MAX, device=cuda)
+    for kw in (dict(sched_rounds=4), dict(kernel_near=True),
+               dict(pipelined=True)):
+        with pytest.raises(ValueError):
+            cc.trace_closest_clustered_cuda(o, d, tm, tables, **kw)
+    for kw in (dict(kernel_near=True), dict(pipelined=True)):
+        with pytest.raises(ValueError):
+            cc.trace_any_clustered_cuda(o, d, tm, tables, **kw)
+
+
+def test_scheduling_and_sorted_frames_on_card(cuda):
+    """2-frame NEE renders of the mini scene in clusters of 16: each of
+    trace_sched, kernel_near, pipeline_rounds and the ray sort launches
+    its kernels and equals the default frame bit for bit."""
+    st = RenderSettings(width=32, height=32, bounces_depth=4, sample_count=1,
+                        environment="procedural", next_event_estimation=True,
+                        sort_bounce_rays=False)
+    names = ("trace_closest_tiles", "trace_any_tiles", "trace_sched_tiles",
+             "trace_near_closest_tiles", "trace_near_any_tiles",
+             "trace_pipelined_closest_tiles", "trace_pipelined_any_tiles")
+
+    def run(settings):
+        r = Renderer(_mini_scene(), settings, base_seed=77, device=cuda)
+        r.tables = _mini_scene().tables(cuda, cluster_size=16, group_size=0)
+        before = [getattr(cc, n).launches for n in names]
+        r.step()
+        r.step()
+        torch.cuda.synchronize()
+        return r.buffers.image, [
+            getattr(cc, n).launches - b for n, b in zip(names, before)]
+
+    want, launched = run(st)
+    assert launched == [12, 12, 0, 0, 0, 0, 0]
+    cases = {
+        "trace_sched": (dict(trace_sched=4), [0, 12, 12, 0, 0, 0, 0]),
+        "kernel_near": (dict(kernel_near=True), [0, 0, 0, 12, 12, 0, 0]),
+        "pipeline_rounds": (dict(pipeline_rounds=True),
+                            [0, 0, 0, 0, 0, 12, 12]),
+        "sorted": (dict(sort_bounce_rays=True), [12, 12, 0, 0, 0, 0, 0]),
+    }
+    for name, (kw, expect) in cases.items():
+        got, launched = run(st.replace(**kw))
+        assert launched == expect, (name, launched)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), name
 
 
 def _mini_scene():

@@ -388,13 +388,13 @@ def test_exact_settings_route_the_legs(monkeypatch, exact, bounce, depth,
     legs (the direct integrator's one leg is primary); without
     ``exact_pairs`` the bounce flag does nothing."""
     calls = []
-    walk = cc._walk_pairs_torch
+    walk = cc.trace_pairs_tiles.twin
 
     def spy(*args, **kw):
-        calls.append(args[0].shape[0])
+        calls.append((args[0] if args else kw["a"]).shape[0])
         return walk(*args, **kw)
 
-    monkeypatch.setattr(cc, "_walk_pairs_torch", spy)
+    monkeypatch.setattr(cc.trace_pairs_tiles, "twin", spy)
     st = TSettings(width=8, height=8, bounces_depth=depth, sample_count=1,
                    exact_pairs=exact, exact_pairs_bounce=bounce)
     r = TRenderer(_mini(tscene, ttm), st, base_seed=4, device="cpu")

@@ -98,11 +98,17 @@ def test_render_settings_match_jax():
     jf = {f.name: f for f in dataclasses.fields(jcfg.RenderSettings)}
     tf = {f.name: f for f in dataclasses.fields(tcfg.RenderSettings)}
     assert set(jf) - set(tf) == set(tcfg.OMITTED_FIELDS)
-    assert set(tf) <= set(jf)
+    # kernel_near is an argument of the JAX dispatcher, not a JAX setting:
+    # the one field of the port without a counterpart there
+    assert set(tf) - set(jf) == set(tcfg.PORT_ONLY_FIELDS) == {"kernel_near"}
     jd, td = jcfg.RenderSettings(), tcfg.RenderSettings()
-    for name in tf:
+    assert td.kernel_near is False
+    assert set(tcfg.DEFAULT_DEVIATIONS) <= set(tf) & set(jf)
+    for name in set(tf) & set(jf):
         a, b = getattr(jd, name), getattr(td, name)
-        if isinstance(a, (jcfg.BlitView,)):
+        if name in tcfg.DEFAULT_DEVIATIONS:
+            assert a != b and tcfg.DEFAULT_DEVIATIONS[name], name
+        elif isinstance(a, (jcfg.BlitView,)):
             assert a.value == b.value, name
         else:
             assert a == b, name

@@ -310,8 +310,8 @@ def test_walk_stats_count_the_two_level_cull(scenes):
     a2 = _mixed_args(tt2, None)
     a1 = _mixed_args(tt2, False)
     s2, s1 = {}, {}
-    cc._trace_closest_two_level_torch(**a2, stats=s2)
-    cc._trace_closest_torch(**a1, stats=s1)
+    cc.trace_closest_two_level_tiles.twin(**a2, stats=s2)
+    cc.trace_closest_tiles.twin(**a1, stats=s1)
     w2 = cc.walk_stats(s2, tt2.clusters.face_id, any_hit=False)
     w1 = cc.walk_stats(s1, tt2.clusters.face_id, any_hit=False)
     for w in (w1, w2):

@@ -1,12 +1,17 @@
 """Where a frame of the PyTorch port goes on the GPU.
 
     python3 tools/torch_frame_profile.py [--frames 2] [--width 1920 --height 1080]
+        [--trace-sched J] [--kernel-near] [--pipeline-rounds] [--sort]
 
 Renders the main-path slice (``stress_scene(44_556)``, default path
 settings, procedural sky) on the first CUDA device: one warm-up frame,
 then ``--frames`` frames under ``torch.profiler`` with the frame's layers
 marked as named ranges (raygen, trace prep = tile entry distances + sort,
-kernel, rederive, environment, the rest of the integrator). Prints the
+kernel, rederive, environment, the ray sort = key, sort, gathers, live
+count and unsort of ops/ray_sort.py, the rest of the integrator). The
+flags set ``trace_sched``, ``kernel_near``, ``pipeline_rounds`` and
+``sort_bounce_rays`` (with ``live_slice``), so those frames get the same
+table. Prints the
 GPU span of each layer, the kernels' busy share of the frame's GPU span,
 the top CUDA kernels, and one JSON line with the numbers. The card's name
 and power limit (nvidia-smi) are printed beside them. Fails without a
@@ -25,7 +30,14 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-LAYERS = ("raygen", "trace_prep", "kernel", "rederive", "environment")
+LAYERS = ("raygen", "trace_prep", "kernel", "rederive", "environment",
+          "ray_sort")
+# the stages of sorted_trace that are the sort's own, and the function of
+# ops/ray_sort.py that each is (the traced leg between them has the ranges
+# of its own prep and kernel)
+SORT_STAGES = {"key": "nearest_cluster_key", "sort": "sort_keys",
+               "gather": "permute_rows", "count": "live_count",
+               "unsort": "unsort"}
 
 
 def _wrap(mod, name, label, record_function):
@@ -35,7 +47,6 @@ def _wrap(mod, name, label, record_function):
         with record_function(label):
             return fn(*a, **k)
 
-    wrapped.__dict__.update(fn.__dict__)  # keeps the launch counter
     setattr(mod, name, wrapped)
 
 
@@ -45,6 +56,10 @@ def main() -> int:
     ap.add_argument("--width", type=int, default=1920)
     ap.add_argument("--height", type=int, default=1080)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--trace-sched", type=int, default=0)
+    ap.add_argument("--kernel-near", action="store_true")
+    ap.add_argument("--pipeline-rounds", action="store_true")
+    ap.add_argument("--sort", action="store_true")
     a = ap.parse_args()
 
     import torch
@@ -60,18 +75,26 @@ def main() -> int:
 
     from webgpu_raytracing_tpu_torch.config import RenderSettings
     from webgpu_raytracing_tpu_torch.models.stress import stress_scene
-    from webgpu_raytracing_tpu_torch.ops import cluster_cuda, integrator
+    from webgpu_raytracing_tpu_torch.ops import (
+        cluster_cuda, integrator, ray_sort,
+    )
     from webgpu_raytracing_tpu_torch.renderer import Renderer
     import webgpu_raytracing_tpu_torch.renderer as renderer_mod
 
     _wrap(renderer_mod, "camera_rays", "raygen", record_function)
     _wrap(cluster_cuda, "prepare_tiles", "trace_prep", record_function)
-    _wrap(cluster_cuda, "trace_closest_tiles", "kernel", record_function)
+    # every entry of the hand-written kernels is launched through _run
+    _wrap(cluster_cuda, "_run", "kernel", record_function)
     _wrap(cluster_cuda, "rederive_uv", "rederive", record_function)
     _wrap(integrator, "sample_environment", "environment", record_function)
+    for stage, name in SORT_STAGES.items():
+        _wrap(ray_sort, name, f"ray_sort.{stage}", record_function)
 
     st = RenderSettings(width=a.width, height=a.height, sample_count=1,
-                        bounces_depth=4, environment="procedural")
+                        bounces_depth=4, environment="procedural",
+                        trace_sched=a.trace_sched, kernel_near=a.kernel_near,
+                        pipeline_rounds=a.pipeline_rounds,
+                        sort_bounce_rays=a.sort, live_slice=True)
     r = Renderer(stress_scene(44_556), st, base_seed=a.seed, device="cuda")
     r.step()
     torch.cuda.synchronize()
@@ -93,12 +116,16 @@ def main() -> int:
         k: dev_us(by_name[k]) / 1e3 / a.frames if k in by_name else 0.0
         for k in LAYERS + ("frame",)
     }
+    sort_ranges = tuple(f"ray_sort.{k}" for k in SORT_STAGES)
+    layer_ms["ray_sort"] = sum(
+        dev_us(by_name[k]) for k in sort_ranges if k in by_name
+    ) / 1e3 / a.frames
     # the named ranges also appear as device-side annotations spanning
     # their kernels; only real kernels count as busy time
+    ranges = LAYERS + ("frame",) + sort_ranges
     kernels = collections.Counter()
     for e in events:
-        if ("CUDA" in str(e.device_type)
-                and e.key not in LAYERS + ("frame",)):
+        if "CUDA" in str(e.device_type) and e.key not in ranges:
             kernels[e.key] += dev_us(e)
     busy_ms = sum(kernels.values()) / 1e3 / a.frames
     frame_ms = wall / a.frames * 1e3
@@ -118,7 +145,9 @@ def main() -> int:
         print(f"  {us / 1e3 / a.frames:9.2f}  {name[:110]}")
     print(json.dumps({
         "card": card, "frames": a.frames, "width": a.width,
-        "height": a.height, "frame_ms": frame_ms,
+        "height": a.height, "trace_sched": a.trace_sched,
+        "kernel_near": a.kernel_near, "pipeline_rounds": a.pipeline_rounds,
+        "sort": a.sort, "frame_ms": frame_ms,
         "gpu_span_ms": layer_ms["frame"], "gpu_busy_ms": busy_ms,
         "layers_ms": {k: layer_ms[k] for k in LAYERS}, "other_ms": rest,
         "rays_per_frame": r.last_rays,

@@ -6,21 +6,38 @@ PyTorch runs eagerly, so nothing here is "static" in the jit sense: the
 settings simply select code paths in :mod:`.renderer` and
 :mod:`.ops.integrator`.
 
-Fields of the JAX ``RenderSettings`` left out of this one:
+The tile-scheduling settings select hand-written kernels of
+``csrc/cluster_trace.cu`` (single-level tables only; with two-level tables
+they raise): ``trace_sched`` (0, or 1, 2, 4, 8: K5, closest-hit legs in
+rounds of that many clusters), ``pipeline_rounds`` (K2pl: the next cluster
+is fetched while the current one is tested) and ``kernel_near`` (K2n: the
+tile entry distances and the cluster order are computed inside the kernel).
+``kernel_near`` is an argument of the JAX dispatcher
+(``trace_closest_clustered_pallas``), not a field of its settings; it is a
+field here (PORT_ONLY_FIELDS) so that a frame can run it. All three return
+the default kernels' results and are off by default.
+
+``sort_bounce_rays`` and ``live_slice`` are the JAX fields: bounce and
+shadow legs of segments past the first are traced in nearest-cluster order
+(ops/ray_sort.py), later segments on a leading slice of the sorted rays.
+The sort is a pure reordering with identical results; DEFAULT_DEVIATIONS
+lists the fields whose default here differs from the JAX package's, with
+the reason.
+
+Fields of the JAX ``RenderSettings`` left out of this one (OMITTED_FIELDS):
 
 * the TPU kernel schedule knobs, which change how the Pallas kernel runs
   and never what it returns: ``tiles_per_step``, ``lockstep_tiles``,
-  ``trace_gang``, ``trace_gang_frac``, ``mm_passes``,
-  ``pipeline_rounds``, ``trace_sched``, ``multipass_cap``,
-  ``multipass_passes``, ``binned_sort``, ``binned_any_sort`` and
-  ``approx_div``;
-* the result-neutral ray-sort knobs ``sort_bounce_rays``, ``live_slice``
-  and ``chained_sort``: bounce legs are traced unsorted until the ray sort
-  is ported.
+  ``trace_gang``, ``trace_gang_frac``, ``mm_passes`` and ``approx_div``;
+* the multipass and binned traces, not ported yet: ``multipass_cap``,
+  ``multipass_passes``, ``binned_sort``, ``binned_any_sort``;
+* ``chained_sort``, the result-neutral variant of the ray sort that
+  permutes the whole path state once per segment.
 
 Settings that this package does not implement yet raise
-``NotImplementedError`` (see :func:`check_supported`); none falls back to
-another path.
+``NotImplementedError``, and values a kernel does not take raise
+``ValueError`` (see :func:`check_supported`); none falls back to another
+path.
 """
 
 from __future__ import annotations
@@ -78,18 +95,25 @@ OMITTED_FIELDS = frozenset(
         "trace_gang",
         "trace_gang_frac",
         "mm_passes",
-        "pipeline_rounds",
-        "trace_sched",
         "multipass_cap",
         "multipass_passes",
         "binned_sort",
         "binned_any_sort",
         "approx_div",
-        "sort_bounce_rays",
-        "live_slice",
         "chained_sort",
     }
 )
+# Fields with no counterpart in the JAX RenderSettings (module docstring).
+PORT_ONLY_FIELDS = frozenset({"kernel_near"})
+# Fields whose default differs from the JAX package's → the reason.
+DEFAULT_DEVIATIONS = {
+    "sort_bounce_rays": (
+        "the sort key is a second dense ray-box pass in plain torch per "
+        "sorted leg, which costs more than the sort saves (PERF.md)"
+    ),
+}
+# ``trace_sched``: 0 (K1) or the clusters per round of K5
+TRACE_SCHED_VALUES = (0, 1, 2, 4, 8)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,6 +189,13 @@ class RenderSettings:
     next_event_estimation: bool = False
     environment: str = "procedural"
     env_importance_sampling: bool = False
+    # the tile-scheduling kernels (module docstring); all off by default
+    trace_sched: int = 0
+    pipeline_rounds: bool = False
+    kernel_near: bool = False
+    # the ray sort of bounce and shadow legs (ops/ray_sort.py)
+    sort_bounce_rays: bool = False  # JAX: True (DEFAULT_DEVIATIONS)
+    live_slice: bool = True
 
     @property
     def reproject(self) -> bool:
@@ -176,7 +207,10 @@ class RenderSettings:
 
 def check_supported(settings: RenderSettings) -> None:
     """Raise ``NotImplementedError`` for settings this package does not
-    implement yet (each is a later slice of the port)."""
+    implement yet (each is a later slice of the port), and ``ValueError``
+    for a ``trace_sched`` that K5 does not take. The tile-scheduling
+    settings with two-level tables raise where the tables are known
+    (ops/cluster_cuda.py ``prepare_tiles``)."""
     unsupported = {
         "reprojection_rate > 0": settings.reprojection_rate > 0,
         "use_hit_predictor": settings.use_hit_predictor,
@@ -189,6 +223,11 @@ def check_supported(settings: RenderSettings) -> None:
     if bad:
         raise NotImplementedError(
             "not ported yet: " + ", ".join(bad)
+        )
+    if settings.trace_sched not in TRACE_SCHED_VALUES:
+        raise ValueError(
+            f"trace_sched must be one of {TRACE_SCHED_VALUES}, got "
+            f"{settings.trace_sched}"
         )
 
 

@@ -1,5 +1,6 @@
 // Closest-hit, any-hit and exact-pairs cluster traces for NVIDIA Hopper
-// (sm_90a): single-level (K1, K2p) and two-level (K3, K3p).
+// (sm_90a): single-level (K1, K2p, and the tile-scheduling forms K5, K2n,
+// K2pl) and two-level (K3, K3p).
 //
 // K1 (`trace_kernel<Exact>`) replaces the TPU kernels of
 // webgpu_raytracing_tpu/ops/cluster_pallas.py in non-pairs mode:
@@ -28,9 +29,47 @@
 // three candidates and an ambiguity flag out for the exact adjudication
 // (ops/adjudicate.py).
 //
-// One slab test serves all six entry points, and each level has one walk,
-// templated on the search (`Exact<kAnyHit>` or `Pairs`), so the walks and
-// the arithmetic are written once.
+// The tile-scheduling kernels answer one question in three ways: who orders
+// a tile's clusters, and how many are tested between two looks at the stop
+// bound. All return K1's (pairs: K2p's) results bit for bit.
+//
+// K5 (`wrt_trace_sched`, `trace_staged_kernel<Exact<false>>` not pipelined)
+// replaces `_kernel_sched` (:841, called at :1932; RenderSettings
+// .trace_sched): closest-hit, not pairs, over the order sorted outside, in
+// rounds of jblk = 1, 2, 4 or 8 clusters with ONE look at the bound per
+// round. The block copies the round's triangle rows into shared memory and
+// every thread tests them from there: what K1 reads per cluster through L2
+// broadcasts, K5 reads per round from shared memory, with jblk times fewer
+// barriers than a round per cluster would need. A round runs past the bound
+// on purpose; its extra candidates lose the (t, code) merge. A round that
+// would run past the end of the order is cut short (the TPU kernel clamps
+// and re-tests the last cluster, :912-915, to the same effect).
+//
+// K2n (`wrt_trace_near_{closest,any,pairs}`, `trace_near_kernel`) replaces
+// `_kernel_one_tile` with `in_near=True` (:469-490; the dispatcher's
+// `kernel_near`, RenderSettings.kernel_near here): the block computes the
+// tile's entry distance into every cluster box itself, ranks the entered
+// clusters, and walks them; the plain-torch pass over R x C ray-box pairs
+// and the (tiles, C) sort outside the kernel (ops/cluster_cuda.py
+// prepare_tiles) are not run at all. At most kMaxNearClusters boxes, 12
+// bytes of shared memory each; single-level tables only.
+//
+// K2pl (`wrt_trace_pipelined_{closest,any,pairs}`, `trace_staged_kernel`
+// pipelined; also K2n's walk with its `pipelined` flag) replaces
+// `_kernel_one_tile` with `pipelined=True` (:600-722;
+// RenderSettings.pipeline_rounds), and follows the double-buffered DMA of its
+// streaming form (:731-748): the next cluster is chosen with the bound as it
+// stood before the current round and fetched with cp.async into the other
+// half of a double buffer while the current one is tested. As in the
+// pipelined TPU kernel, a round fetched on a stale bound is applied only if
+// the fresh bound still admits it (`pending_n`, :683), so one fetch per tile
+// may be wasted and no result changes.
+//
+// One slab test serves every entry point, and the walks (each thread on its
+// own from the tables; the block in staged rounds; the two-level one) are
+// templated on the search (`Exact<kAnyHit>` or `Pairs`) and, single-level,
+// on the source of the order, so the walks and the arithmetic are written
+// once.
 //
 // What is NOT carried over: the TPU kernels evaluate Möller–Trumbore as a
 // bilinear-form matmul (ray matrix x cluster matrix B) because the MXU is
@@ -38,7 +77,11 @@
 // f32 MXU mode, batch tiles (lockstep, gang, tiles_per_step) to hide serial
 // round latency, double-buffer each child's B by DMA, and keep the best hit
 // as a packed (t | slot) key whose truncated low bits blur the prune bound
-// and the child order. Here each thread is one ray. K1 and K3 compute exact
+// and the child order; `_kernel_sched` reads its schedule from SMEM scalars
+// to spare the vector-to-scalar drain, and K2n's TPU form re-runs a masked
+// minimum over all C keys per round. Here each thread is one ray, an order
+// is a sorted list (K2n: ranked once, in the block), and a round's bound is
+// a register. K1 and K3 compute exact
 // sequential f32 Möller–Trumbore, the reference's own arithmetic, on the
 // triangle rows `tri`; K2p and K3p compute A·B in f32 on the CUDA cores, one
 // slot at a time; minima and orders are exact floats.
@@ -123,11 +166,15 @@
 // that a symmetric slab test does not reject) keep F32_MAX and are never
 // visited.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kMaxGroup = 128;
+constexpr int kMaxJblk = 8;                 // K5: clusters per block of rounds
+constexpr int kMaxNearClusters = 4096;      // K2n: boxes a tile may rank
+constexpr size_t kMaxSharedBytes = 232448;  // a block's opt-in limit, sm_90
 constexpr unsigned kF32MaxBits = 0x7f7fffffu;
 constexpr unsigned kBoundUlps = 1u << 9;      // (cluster_pallas.py:566)
 constexpr long long kAmbBand = 2 * (1 << 9);  // (cluster_pallas.py:389)
@@ -176,6 +223,26 @@ __device__ __forceinline__ void slab(const float* bx, const Ray& r,
   far_t = min_nan(far_t, max_nan(a, b));
 }
 
+// One 4-byte word global → shared: a plain copy, or a cp.async that the
+// caller commits and waits for.
+__device__ __forceinline__ void copy4(float* dst, const float* src,
+                                      bool async) {
+  if (async)
+    __pipeline_memcpy_async(dst, src, 4);
+  else
+    *dst = *src;
+}
+
+// The structurally nonzero entries of a slot's mat_b columns, flattened in
+// PAIRS_ROWS order (ops/cluster_cuda.py): term k lies in row pairs_row(k) of
+// column block pairs_blk(k).
+__device__ __forceinline__ int pairs_row(int k) {
+  return k < 3 ? 6 + k : k < 7 ? (k == 6 ? 9 : k - 3) : k < 13 ? k - 4 : k - 10;
+}
+__device__ __forceinline__ int pairs_blk(int k) {
+  return k < 3 ? 0 : k < 7 ? 1 : k < 13 ? 2 : 3;
+}
+
 // K1 / K3 inputs and outputs beyond the walk's
 struct ExactIn {
   const float* o;
@@ -204,16 +271,21 @@ struct Exact {
   // stop and skip bound: the best t (any-hit: t_max)
   __device__ __forceinline__ float bound() const { return best; }
 
-  // The occupied slots of cluster `cid`, in slot order. Returns true when
-  // the ray is done (any-hit: its first valid hit, code in best_code).
-  __device__ __forceinline__ bool test(int cid, const In& in, const Walk& w) {
-    const int* fids = w.face_id + (long long)cid * w.slots;
+  static constexpr int kRowWords = 9;  // staged words per slot: a tri row
+
+  // The occupied slots of a cluster, in slot order: ids `fids`, triangle
+  // rows `rows` indexed by face id (the table) or, staged, by slot. Returns
+  // true when the ray is done (any-hit: its first valid hit, code in
+  // best_code).
+  template <bool kStaged>
+  __device__ __forceinline__ bool scan(int cid, const int* fids,
+                                       const float* rows, const Walk& w) {
     for (int s = 0; s < w.slots; ++s) {
       const int f = fids[s];
       if (f < 0) break;  // occupied slots come first
       const int code = cid * w.slots + s;
       if (code == ex) continue;
-      const float* tr = in.tri + 9LL * f;
+      const float* tr = rows + 9LL * (kStaged ? s : f);
       const float p0x = tr[0], p0y = tr[1], p0z = tr[2];
       const float e1x = tr[3], e1y = tr[4], e1z = tr[5];
       const float e2x = tr[6], e2y = tr[7], e2z = tr[8];
@@ -245,6 +317,34 @@ struct Exact {
       }
     }
     return false;
+  }
+
+  // cluster `cid` from the tables
+  __device__ __forceinline__ bool test(int cid, const In& in, const Walk& w) {
+    return scan<false>(cid, w.face_id + (long long)cid * w.slots, in.tri, w);
+  }
+
+  // cluster `cid` from a staged copy (stage)
+  __device__ __forceinline__ bool test_staged(int cid, const int* fids,
+                                              const float* rows, const In&,
+                                              const Walk& w) {
+    return scan<true>(cid, fids, rows, w);
+  }
+
+  // The block copies cluster `cid` into shared memory: its face ids and,
+  // per occupied slot, the triangle row.
+  __device__ __forceinline__ static void stage(int cid, int* fids,
+                                               float* rows, const In& in,
+                                               const Walk& w, bool async) {
+    const int* src = w.face_id + (long long)cid * w.slots;
+    for (int s = threadIdx.x; s < w.slots; s += blockDim.x) {
+      const int f = src[s];
+      fids[s] = f;
+      if (f < 0) continue;
+      const float* tr = in.tri + 9LL * f;
+#pragma unroll
+      for (int q = 0; q < 9; ++q) copy4(rows + 9 * s + q, tr + q, async);
+    }
   }
 
   __device__ __forceinline__ void store(const In& in, long long ray) const {
@@ -295,37 +395,48 @@ struct Pairs {
     return __uint_as_float(min(__float_as_uint(t3) + kBoundUlps, kF32MaxBits));
   }
 
-  __device__ __forceinline__ bool test(int cid, const In& in, const Walk& w) {
-    const int* fids = w.face_id + (long long)cid * w.slots;
+  static constexpr int kRowWords = 19;  // staged words per slot: B's terms
+
+  // The occupied slots of a cluster, in slot order. `rows` is the cluster's
+  // block of mat_b (10 rows of 4 * slots) or, staged, its 19 structurally
+  // nonzero rows of `slots` entries in pairs_row / pairs_blk order.
+  template <bool kStaged>
+  __device__ __forceinline__ bool scan(int cid, const int* fids,
+                                       const float* rows, const In& in,
+                                       const Walk& w) {
     const int n4 = 4 * w.slots;  // a row of B
-    const float* b = in.mat_b + (long long)cid * 10 * n4;
     for (int s = 0; s < w.slots; ++s) {
       if (fids[s] < 0) break;  // occupied slots come first
       const int code = cid * w.slots + s;
       if (code == ex) continue;
-      const float* bd = b + s;            // det:   rows 6, 7, 8
-      const float* bt = bd + w.slots;     // t_num: rows 0, 1, 2, 9
-      const float* bu = bt + w.slots;     // u_num: rows 3..8
-      const float* bv = bu + w.slots;     // v_num: rows 3..8
-      const float det =
-          (av[6] * bd[6 * n4] + av[7] * bd[7 * n4]) + av[8] * bd[8 * n4];
+      // term k of PAIRS_ROWS: det 0..2, t_num 3..6, u_num 7..12, v_num 13..18
+      auto b = [&](int k) -> float {
+        return kStaged ? rows[k * w.slots + s]
+                       : rows[pairs_row(k) * n4 + pairs_blk(k) * w.slots + s];
+      };
+      const float bd0 = b(0), bd1 = b(1), bd2 = b(2);
+      const float det = (av[6] * bd0 + av[7] * bd1) + av[8] * bd2;
       if (!(det >= w.eps2)) continue;
-      const float tn = ((av[0] * bt[0] + av[1] * bt[n4]) + av[2] * bt[2 * n4]) +
-                       av[9] * bt[9 * n4];
-      float u = av[3] * bu[3 * n4], v = av[3] * bv[3 * n4];
-      float mu = aa[3] * fabsf(bu[3 * n4]), mv = aa[3] * fabsf(bv[3 * n4]);
+      const float bt0 = b(3), bt1 = b(4), bt2 = b(5), bt3 = b(6);
+      const float tn =
+          ((av[0] * bt0 + av[1] * bt1) + av[2] * bt2) + av[9] * bt3;
+      float bu = b(7), bv = b(13);
+      float u = av[3] * bu, v = av[3] * bv;
+      float mu = aa[3] * fabsf(bu), mv = aa[3] * fabsf(bv);
 #pragma unroll
       for (int k = 4; k < 9; ++k) {
-        u = u + av[k] * bu[k * n4];
-        v = v + av[k] * bv[k * n4];
-        mu = mu + aa[k] * fabsf(bu[k * n4]);
-        mv = mv + aa[k] * fabsf(bv[k * n4]);
+        bu = b(4 + k);
+        bv = b(10 + k);
+        u = u + av[k] * bu;
+        v = v + av[k] * bv;
+        mu = mu + aa[k] * fabsf(bu);
+        mv = mv + aa[k] * fabsf(bv);
       }
-      const float md = (aa[6] * fabsf(bd[6 * n4]) + aa[7] * fabsf(bd[7 * n4])) +
-                       aa[8] * fabsf(bd[8 * n4]);
-      const float mt = ((aa[0] * fabsf(bt[0]) + aa[1] * fabsf(bt[n4])) +
-                        aa[2] * fabsf(bt[2 * n4])) +
-                       aa[9] * fabsf(bt[9 * n4]);
+      const float md =
+          (aa[6] * fabsf(bd0) + aa[7] * fabsf(bd1)) + aa[8] * fabsf(bd2);
+      const float mt = ((aa[0] * fabsf(bt0) + aa[1] * fabsf(bt1)) +
+                        aa[2] * fabsf(bt2)) +
+                       aa[9] * fabsf(bt3);
       const float m_d = md * in.margin, m_t = mt * in.margin;
       const float m_u = mu * in.margin, m_v = mv * in.margin;
       const float uv = u + v;
@@ -353,6 +464,35 @@ struct Pairs {
     return false;
   }
 
+  __device__ __forceinline__ bool test(int cid, const In& in, const Walk& w) {
+    return scan<false>(cid, w.face_id + (long long)cid * w.slots,
+                       in.mat_b + (long long)cid * 10 * 4 * w.slots, in, w);
+  }
+
+  __device__ __forceinline__ bool test_staged(int cid, const int* fids,
+                                              const float* rows, const In& in,
+                                              const Walk& w) {
+    return scan<true>(cid, fids, rows, in, w);
+  }
+
+  // The block copies cluster `cid` into shared memory: its face ids and the
+  // 19 structurally nonzero rows of its block of mat_b.
+  __device__ __forceinline__ static void stage(int cid, int* fids,
+                                               float* rows, const In& in,
+                                               const Walk& w, bool async) {
+    const int* src = w.face_id + (long long)cid * w.slots;
+    const int n4 = 4 * w.slots;
+    const float* bm = in.mat_b + (long long)cid * 10 * n4;
+    for (int s = threadIdx.x; s < w.slots; s += blockDim.x) {
+      const int f = src[s];
+      fids[s] = f;
+      if (f < 0) continue;
+      for (int k = 0; k < kRowWords; ++k)
+        copy4(rows + k * w.slots + s,
+              bm + pairs_row(k) * n4 + pairs_blk(k) * w.slots + s, async);
+    }
+  }
+
   __device__ __forceinline__ void store(const In& in, long long ray) const {
     in.t_out[ray] = t1;
     in.c1_out[ray] = c1;
@@ -364,6 +504,138 @@ struct Pairs {
   }
 };
 
+// A tile's cluster order: the entry distance and the cluster of each step,
+// ascending. Sorted outside the kernel (rows of snear / order) ...
+struct GlobalOrder {
+  const float* snear;
+  const int* order;
+  int n;
+  __device__ __forceinline__ float near(int k) const { return snear[k]; }
+  __device__ __forceinline__ int cid(int k) const { return order[k]; }
+};
+
+// ... or ranked by the block itself (K2n): `dist` holds every cluster's tile
+// minimum as float bits, `ord` the n clusters some ray of the tile enters.
+struct SharedOrder {
+  const unsigned* dist;
+  const int* ord;
+  int n;
+  __device__ __forceinline__ float near(int k) const {
+    return __uint_as_float(dist[ord[k]]);
+  }
+  __device__ __forceinline__ int cid(int k) const { return ord[k]; }
+};
+
+// The walk of K1, K2p and K2n: each thread on its own, clusters read from
+// the tables.
+template <class Search, class Order>
+__device__ __forceinline__ void walk_plain(Search& s, const Order& ord,
+                                           const typename Search::In& in,
+                                           const Walk& w) {
+  for (int k = 0; k < ord.n; ++k) {
+    // tile distances are minima over the tile's rays and sorted: once one
+    // is not below this ray's bound, no later cluster can improve it
+    if (ord.near(k) >= s.bound()) break;
+    const int cid = ord.cid(k);
+    float near_t, far_t;
+    slab(w.box + 6 * cid, s.r, near_t, far_t);
+    if (!((near_t < far_t) && (far_t > 0.0f) && (near_t < s.bound())))
+      continue;
+    if (s.test(cid, in, w)) break;
+  }
+}
+
+// The walk of K5 and K2pl: the block runs the order in rounds of up to
+// `jblk` clusters, which it first copies into shared memory (`smem`: per
+// cluster the face ids, then Search::kRowWords words per slot; two such
+// buffers when `pipelined`).
+//
+// A thread votes for a round when the round's first entry distance is below
+// its bound, and the block runs the round while any thread votes.
+//
+// Not pipelined (K5): vote, copy, barrier, test. A thread tests the round's
+// clusters only if it voted, against the bound of its vote: the bound is
+// looked at once per round, not once per cluster, so within a round a thread
+// may test clusters that a fresher bound would have skipped. Their
+// candidates lose the (t, code) merge, so the results are K1's.
+//
+// Pipelined (K2pl): the vote for the NEXT round is taken before this round
+// is tested, with the bound as it stands then, and the next round's clusters
+// are fetched with cp.async into the other buffer while this round is
+// tested. So a tile may fetch one round more than K1 would walk. A thread
+// tests a fetched round against its bound as it stands when the round's turn
+// comes, which is K1's rule: a round that was fetched on a stale vote is
+// dropped, not merged. (The pairs search could not merge it: a candidate
+// beyond the bound can still enter the second carried slot.)
+//
+// An any-hit thread that has its hit neither votes nor tests again. Every
+// barrier is reached by the whole block: the loop's exit is the
+// block-uniform vote, and a finished thread stays in the loop.
+template <class Search, class Order>
+__device__ __forceinline__ void walk_staged(Search& s, const Order& ord,
+                                            const typename Search::In& in,
+                                            const Walk& w, int jblk,
+                                            bool pipelined, float* smem) {
+  const int per = w.slots * (1 + Search::kRowWords);  // words per cluster
+  float* buf[2] = {smem, smem + (pipelined ? jblk * per : 0)};
+  auto stage = [&](int j, float* dst) {
+    const int nb = min(jblk, ord.n - j);
+    for (int jj = 0; jj < nb; ++jj)
+      Search::stage(ord.cid(j + jj), (int*)(dst + jj * per),
+                    dst + jj * per + w.slots, in, w, pipelined);
+    if (pipelined) __pipeline_commit();
+  };
+  bool found = false;  // any-hit: done at the first valid hit
+  float rb = s.bound();
+  bool live = ord.n > 0 && !(ord.near(0) >= rb);
+  bool go = __syncthreads_or(live);
+  if (go && pipelined) stage(0, buf[0]);
+  int j = 0, cur = 0;
+  while (go) {
+    const int nb = min(jblk, ord.n - j);
+    const int jn = j + nb;
+    if (pipelined)
+      __pipeline_wait_prior(0);
+    else
+      stage(j, buf[0]);
+    __syncthreads();  // the round's copy is whole; the last round is tested
+    float rb_n = rb;
+    bool live_n = false, go_n = false;
+    if (pipelined) {
+      rb_n = s.bound();
+      live_n = !found && jn < ord.n && !(ord.near(jn) >= rb_n);
+      go_n = __syncthreads_or(live_n);
+      if (go_n) stage(jn, buf[cur ^ 1]);
+    }
+    const float tb = pipelined ? rb_n : rb;  // the bound this round tests by
+    if (live && !found) {
+      const float* base = buf[cur];
+      for (int jj = 0; jj < nb; ++jj) {
+        if (ord.near(j + jj) >= tb) break;
+        const int cid = ord.cid(j + jj);
+        float near_t, far_t;
+        slab(w.box + 6 * cid, s.r, near_t, far_t);
+        if (!((near_t < far_t) && (far_t > 0.0f) && (near_t < tb))) continue;
+        if (s.test_staged(cid, (const int*)(base + jj * per),
+                          base + jj * per + w.slots, in, w)) {
+          found = true;
+          break;
+        }
+      }
+    }
+    if (!pipelined) {
+      rb_n = s.bound();
+      live_n = !found && jn < ord.n && !(ord.near(jn) >= rb_n);
+      go_n = __syncthreads_or(live_n);  // also: this round is tested
+    }
+    j = jn;
+    rb = rb_n;
+    live = live_n;
+    go = go_n;
+    if (pipelined) cur ^= 1;
+  }
+}
+
 // K1 / K2p: one block per tile, one thread per ray, over the tile's cluster
 // order.
 template <class Search>
@@ -371,19 +643,85 @@ __global__ void trace_kernel(typename Search::In in, Walk w) {
   const long long tile = blockIdx.x;
   const long long ray = tile * blockDim.x + threadIdx.x;
   Search s(in, w, ray);
-  const float* srow = w.snear + tile * w.n_cols;
-  const int* orow = w.order + tile * w.n_cols;
-  for (int k = 0; k < w.n_cols; ++k) {
-    // tile distances are minima over the tile's rays and sorted: once one
-    // is not below this ray's bound, no later cluster can improve it
-    if (srow[k] >= s.bound()) break;
-    const int cid = orow[k];
+  walk_plain(s, GlobalOrder{w.snear + tile * w.n_cols,
+                            w.order + tile * w.n_cols, w.n_cols}, in, w);
+  s.store(in, ray);
+}
+
+// K5 / K2pl: as K1, over the same order, in staged rounds (walk_staged).
+template <class Search>
+__global__ void trace_staged_kernel(typename Search::In in, Walk w, int jblk,
+                                    int pipelined) {
+  extern __shared__ float smem[];
+  const long long tile = blockIdx.x;
+  const long long ray = tile * blockDim.x + threadIdx.x;
+  Search s(in, w, ray);
+  walk_staged(s, GlobalOrder{w.snear + tile * w.n_cols,
+                             w.order + tile * w.n_cols, w.n_cols}, in, w,
+              jblk, pipelined != 0, smem);
+  s.store(in, ray);
+}
+
+// K2n: the block computes its tile's entry distance into every cluster box
+// (w.n_cols boxes; w.snear and w.order are not read), ranks the clusters
+// that some ray enters by (distance, cluster), the order a stable ascending
+// sort gives, and walks them as K1 does or, `pipelined`, as K2pl does.
+//
+// Distances (tile_nears_fused, ops/cluster_trace.py): a ray contributes
+// max(near, 0) for a box when near < far, near < t_max and far > 0, else
+// F32_MAX; -0 is made +0 and the minimum is taken on the float's bits, within
+// the warp and then across warps with one shared atomic each. Clusters that
+// no ray enters keep F32_MAX and are left out of the order: no bound exceeds
+// F32_MAX, so no walk would reach them. Shared memory: 12 bytes per cluster
+// (distance, candidate list, order) before the staging buffers.
+template <class Search>
+__global__ void trace_near_kernel(typename Search::In in, Walk w,
+                                  int pipelined) {
+  extern __shared__ float smem[];
+  __shared__ int s_n;
+  const int n_boxes = w.n_cols;
+  unsigned* s_dist = (unsigned*)smem;
+  int* s_cand = (int*)smem + n_boxes;
+  int* s_ord = s_cand + n_boxes;
+  const int tid = threadIdx.x;
+  const long long ray = (long long)blockIdx.x * blockDim.x + tid;
+  Search s(in, w, ray);
+  const float tmax = w.t_max[ray];
+
+  for (int c = tid; c < n_boxes; c += blockDim.x) s_dist[c] = kF32MaxBits;
+  if (tid == 0) s_n = 0;
+  __syncthreads();
+  for (int c = 0; c < n_boxes; ++c) {
     float near_t, far_t;
-    slab(w.box + 6 * cid, s.r, near_t, far_t);
-    if (!((near_t < far_t) && (far_t > 0.0f) && (near_t < s.bound())))
-      continue;
-    if (s.test(cid, in, w)) break;
+    slab(w.box + 6 * c, s.r, near_t, far_t);
+    unsigned v = kF32MaxBits;
+    if ((near_t < far_t) && (near_t < tmax) && (far_t > 0.0f))
+      v = __float_as_uint(fmaxf(near_t, 0.0f) + 0.0f);  // -0 → +0
+    v = __reduce_min_sync(0xffffffffu, v);
+    if ((tid & 31) == 0 && v != kF32MaxBits) atomicMin(&s_dist[c], v);
   }
+  __syncthreads();
+  for (int c = tid; c < n_boxes; c += blockDim.x)
+    if (s_dist[c] != kF32MaxBits) s_cand[atomicAdd(&s_n, 1)] = c;
+  __syncthreads();
+  const int n = s_n;
+  for (int i = tid; i < n; i += blockDim.x) {
+    const int c = s_cand[i];
+    const unsigned mine = s_dist[c];  // non-negative floats order as bits
+    int pos = 0;
+    for (int q = 0; q < n; ++q) {
+      const int cq = s_cand[q];
+      const unsigned other = s_dist[cq];
+      pos += (other < mine) || (other == mine && cq < c);
+    }
+    s_ord[pos] = c;
+  }
+  __syncthreads();
+  const SharedOrder ord{s_dist, s_ord, n};
+  if (pipelined)
+    walk_staged(s, ord, in, w, 1, true, smem + 3 * n_boxes);
+  else
+    walk_plain(s, ord, in, w);
   s.store(in, ray);
 }
 
@@ -477,6 +815,55 @@ int launch(const typename Search::In& in, const Walk& w, int n_tiles,
   return (int)cudaGetLastError();
 }
 
+// Dynamic shared memory of a launch, beside up to kStaticShared bytes of the
+// kernel's own: refuse above the card's limit, opt in above 48 KB.
+constexpr size_t kStaticShared = 1024;
+template <class Kernel>
+int reserve_shared(Kernel kernel, size_t bytes) {
+  if (bytes + kStaticShared > kMaxSharedBytes)
+    return (int)cudaErrorInvalidValue;
+  if (bytes + kStaticShared <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <class Search>
+size_t staged_bytes(const Walk& w, int jblk, bool pipelined) {
+  return (size_t)(pipelined ? 2 : 1) * jblk * w.slots *
+         (1 + Search::kRowWords) * sizeof(float);
+}
+
+// K5 (jblk clusters a round, not pipelined) and K2pl (1, pipelined)
+template <class Search>
+int launch_staged(const typename Search::In& in, const Walk& w, int n_tiles,
+                  int tile, int jblk, int pipelined, void* stream) {
+  if (jblk < 1 || jblk > kMaxJblk) return (int)cudaErrorInvalidValue;
+  const size_t bytes = staged_bytes<Search>(w, jblk, pipelined != 0);
+  const int err = reserve_shared(trace_staged_kernel<Search>, bytes);
+  if (err) return err;
+  if (n_tiles > 0)
+    trace_staged_kernel<Search><<<n_tiles, tile, bytes, (cudaStream_t)stream>>>(
+        in, w, jblk, pipelined);
+  return (int)cudaGetLastError();
+}
+
+// K2n; w.n_cols is the number of cluster boxes
+template <class Search>
+int launch_near(const typename Search::In& in, const Walk& w, int n_tiles,
+                int tile, int pipelined, void* stream) {
+  if (w.n_cols < 1 || w.n_cols > kMaxNearClusters || tile % 32 != 0)
+    return (int)cudaErrorInvalidValue;
+  const size_t bytes =
+      12 * (size_t)w.n_cols +
+      (pipelined ? staged_bytes<Search>(w, 1, true) : (size_t)0);
+  const int err = reserve_shared(trace_near_kernel<Search>, bytes);
+  if (err) return err;
+  if (n_tiles > 0)
+    trace_near_kernel<Search><<<n_tiles, tile, bytes, (cudaStream_t)stream>>>(
+        in, w, pipelined);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int wrt_trace_closest(
@@ -557,6 +944,94 @@ extern "C" int wrt_trace_pairs_two_level(
       Walk{inv_d, t_max, excl, snear, order, n_cols, box, face_id, slots,
            eps2, group},
       n_tiles, tile, stream);
+}
+
+extern "C" int wrt_trace_sched(
+    const float* o, const float* d, const float* inv_d, const float* t_max,
+    const int* excl, const float* snear, const int* order, int n_cols,
+    const float* box, const int* face_id, int slots, const float* tri,
+    float eps2, int jblk, float* t_out, int* code_out, int n_tiles, int tile,
+    void* stream) {
+  return launch_staged<Exact<false>>(
+      ExactIn{o, d, tri, t_out, code_out},
+      Walk{inv_d, t_max, excl, snear, order, n_cols, box, face_id, slots,
+           eps2, 0},
+      n_tiles, tile, jblk, 0, stream);
+}
+
+extern "C" int wrt_trace_pipelined_closest(
+    const float* o, const float* d, const float* inv_d, const float* t_max,
+    const int* excl, const float* snear, const int* order, int n_cols,
+    const float* box, const int* face_id, int slots, const float* tri,
+    float eps2, float* t_out, int* code_out, int n_tiles, int tile,
+    void* stream) {
+  return launch_staged<Exact<false>>(
+      ExactIn{o, d, tri, t_out, code_out},
+      Walk{inv_d, t_max, excl, snear, order, n_cols, box, face_id, slots,
+           eps2, 0},
+      n_tiles, tile, 1, 1, stream);
+}
+
+extern "C" int wrt_trace_pipelined_any(
+    const float* o, const float* d, const float* inv_d, const float* t_max,
+    const int* excl, const float* snear, const int* order, int n_cols,
+    const float* box, const int* face_id, int slots, const float* tri,
+    float eps2, int* code_out, int n_tiles, int tile, void* stream) {
+  return launch_staged<Exact<true>>(
+      ExactIn{o, d, tri, nullptr, code_out},
+      Walk{inv_d, t_max, excl, snear, order, n_cols, box, face_id, slots,
+           eps2, 0},
+      n_tiles, tile, 1, 1, stream);
+}
+
+extern "C" int wrt_trace_pipelined_pairs(
+    const float* a, const float* inv_d, const float* t_max, const int* excl,
+    const float* snear, const int* order, int n_cols, const float* box,
+    const int* face_id, int slots, const float* mat_b, float eps2,
+    float margin, float* t_out, int* c1_out, int* c2_out, int* c3_out,
+    int* amb_out, int n_tiles, int tile, void* stream) {
+  return launch_staged<Pairs>(
+      PairsIn{a, mat_b, margin, t_out, c1_out, c2_out, c3_out, amb_out},
+      Walk{inv_d, t_max, excl, snear, order, n_cols, box, face_id, slots,
+           eps2, 0},
+      n_tiles, tile, 1, 1, stream);
+}
+
+extern "C" int wrt_trace_near_closest(
+    const float* o, const float* d, const float* inv_d, const float* t_max,
+    const int* excl, int n_boxes, const float* box, const int* face_id,
+    int slots, const float* tri, float eps2, int pipelined, float* t_out,
+    int* code_out, int n_tiles, int tile, void* stream) {
+  return launch_near<Exact<false>>(
+      ExactIn{o, d, tri, t_out, code_out},
+      Walk{inv_d, t_max, excl, nullptr, nullptr, n_boxes, box, face_id, slots,
+           eps2, 0},
+      n_tiles, tile, pipelined, stream);
+}
+
+extern "C" int wrt_trace_near_any(
+    const float* o, const float* d, const float* inv_d, const float* t_max,
+    const int* excl, int n_boxes, const float* box, const int* face_id,
+    int slots, const float* tri, float eps2, int pipelined, int* code_out,
+    int n_tiles, int tile, void* stream) {
+  return launch_near<Exact<true>>(
+      ExactIn{o, d, tri, nullptr, code_out},
+      Walk{inv_d, t_max, excl, nullptr, nullptr, n_boxes, box, face_id, slots,
+           eps2, 0},
+      n_tiles, tile, pipelined, stream);
+}
+
+extern "C" int wrt_trace_near_pairs(
+    const float* a, const float* inv_d, const float* t_max, const int* excl,
+    int n_boxes, const float* box, const int* face_id, int slots,
+    const float* mat_b, float eps2, float margin, int pipelined, float* t_out,
+    int* c1_out, int* c2_out, int* c3_out, int* amb_out, int n_tiles,
+    int tile, void* stream) {
+  return launch_near<Pairs>(
+      PairsIn{a, mat_b, margin, t_out, c1_out, c2_out, c3_out, amb_out},
+      Walk{inv_d, t_max, excl, nullptr, nullptr, n_boxes, box, face_id, slots,
+           eps2, 0},
+      n_tiles, tile, pipelined, stream);
 }
 
 extern "C" const char* wrt_error_string(int code) {

@@ -10,7 +10,11 @@ loads at once. The build happens at first use, never at import.
 Entry points (``csrc/cluster_trace.cu``): ``wrt_trace_closest`` and
 ``wrt_trace_any`` (single-level, K1), ``wrt_trace_closest_two_level`` and
 ``wrt_trace_any_two_level`` (two-level, K3), ``wrt_trace_pairs`` (K2p) and
-``wrt_trace_pairs_two_level`` (K3p), and ``wrt_error_string``.
+``wrt_trace_pairs_two_level`` (K3p); ``wrt_trace_sched`` (K5, rounds of
+``jblk`` clusters), ``wrt_trace_near_closest`` / ``_any`` / ``_pairs`` (K2n,
+the tile entry distances inside the kernel) and
+``wrt_trace_pipelined_closest`` / ``_any`` / ``_pairs`` (K2pl, the next
+cluster fetched while the current one is tested); and ``wrt_error_string``.
 :func:`load` raises if the library lacks any of them.
 
 Flags: ``--fmad=false`` keeps every product rounded before its add (the
@@ -105,6 +109,10 @@ def _entries():
     ]
     pairs_out = [p] * 5  # t1, c1, c2, c3, amb
     tail = [i, i, p]  # n_tiles, tile, stream
+    # K2n takes the number of boxes in place of snear, order, n_cols, and
+    # the pipelined flag after its search's inputs
+    near_head = head[:5] + [i] + head[8:] + [i]
+    near_pairs_head = pairs_head[:4] + [i] + pairs_head[7:] + [i]
     return {
         "wrt_trace_closest": (i, head + [p, p] + tail),  # t_out, code_out
         "wrt_trace_any": (i, head + [p] + tail),  # code_out
@@ -113,6 +121,13 @@ def _entries():
         "wrt_trace_any_two_level": (i, head + [i, p] + tail),  # group, code
         "wrt_trace_pairs": (i, pairs_head + pairs_out + tail),
         "wrt_trace_pairs_two_level": (i, pairs_head + [i] + pairs_out + tail),
+        "wrt_trace_sched": (i, head + [i, p, p] + tail),  # jblk, t, code
+        "wrt_trace_pipelined_closest": (i, head + [p, p] + tail),
+        "wrt_trace_pipelined_any": (i, head + [p] + tail),
+        "wrt_trace_pipelined_pairs": (i, pairs_head + pairs_out + tail),
+        "wrt_trace_near_closest": (i, near_head + [p, p] + tail),
+        "wrt_trace_near_any": (i, near_head + [p] + tail),
+        "wrt_trace_near_pairs": (i, near_pairs_head + pairs_out + tail),
         "wrt_error_string": (ctypes.c_char_p, [i]),
     }
 

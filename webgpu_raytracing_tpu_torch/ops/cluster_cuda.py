@@ -20,11 +20,25 @@ order, or -1. The pairs entries (``exact_pairs``) rank candidates on the
 bilinear-form estimates A·B (``mat_b``) and return three candidate codes
 and an ambiguity flag per ray, which :mod:`.adjudicate` settles exactly.
 
-The six wrappers (:func:`trace_closest_tiles`, :func:`trace_any_tiles`,
-:func:`trace_pairs_tiles` and their ``_two_level`` forms) launch their
-kernel entry for CUDA tensors, counting each launch in their own
-``launches``, and run the plain twin for CPU tensors only; any other
-device raises. There is no fallback from one to the other.
+The tile-scheduling kernels return the same results another way (JAX
+``sched_rounds``, ``kernel_near``, ``pipeline_rounds``): K5 runs K1's
+order in rounds of several clusters staged in shared memory, looking at
+the stop bound once per round; K2n computes the tile entry distances and
+the order inside the kernel, so that the plain-torch pass and the sort
+above are not run at all; K2pl fetches the next cluster while the current
+one is tested.
+
+The wrappers (:func:`trace_closest_tiles`, :func:`trace_any_tiles`,
+:func:`trace_pairs_tiles` and their ``_two_level`` forms;
+:func:`trace_sched_tiles`; ``trace_near_{closest,any,pairs}_tiles``;
+``trace_pipelined_{closest,any,pairs}_tiles``; all made by one factory
+from the launcher, the twin and the keywords that tell the entries apart)
+launch their kernel entry for CUDA tensors, counting each launch in their
+own ``launches``, and run the plain twin (their ``twin``) for CPU tensors
+only; any other device raises. There is no
+fallback from one to the other, and what a kernel does not take (two-level
+tables for the scheduling kernels, more boxes than K2n ranks, rounds K5
+does not run) raises.
 """
 
 from __future__ import annotations
@@ -33,7 +47,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..config import F32_MAX
+from ..config import F32_MAX, TRACE_SCHED_VALUES
 from .adjudicate import adjudicate_compact
 from .cluster_trace import (
     EPS2,
@@ -314,43 +328,87 @@ def _walk_setup(o, face_id, chunk, stats):
     return chunk
 
 
-def _walk(o, inv_d, snear, order, box, tile, bound, test, pending, stats):
-    """The single-level walk of K1 and K2p, vectorized over the rays
-    still walking. Step k takes every live ray's k-th cluster of its
-    tile's order; a ray leaves the walk at the first entry whose tile
-    distance is not below ``bound(rays)`` (or once ``pending(rays)`` is
-    false), skips a cluster its own slab test rejects or enters no nearer
-    than its bound, and otherwise tests the cluster: ``test(rays, cids)``."""
+def _walk(o, inv_d, snear, order, box, tile, bound, test, pending, stats,
+          jblk: int = 1, pipelined: bool = False):
+    """The single-level walk of K1, K2p, K2n, K5 and K2pl, vectorized over
+    the rays still walking. The order is run in rounds of ``jblk``
+    clusters. A ray votes for a round when the tile distance of the
+    round's first entry is below its bound, ``bound(rays)``, and leaves
+    the walk at the first round it does not vote for (or once
+    ``pending(rays)`` is false). Within a round it takes the entries whose
+    tile distance is below the bound of its vote, skips a cluster its own
+    slab test rejects or enters no nearer than that bound, and otherwise
+    tests the cluster: ``test(rays, cids)``.
+
+    With ``jblk`` 1 that is K1's walk: the bound is looked at before every
+    cluster. K5 (``jblk`` > 1) looks once per round, so a ray may test
+    clusters that a fresher bound would have skipped; their candidates
+    lose the (t, code) merge, so the results are K1's, and ``stats``
+    counts the extra tests. K2pl (``pipelined``) fetches each round on a
+    vote taken one round early and tests it by the bound as it stands at
+    the round's turn: the tests are K1's, and ``stats`` counts the rounds
+    fetched (``staged_rounds``) and marks their clusters as read. Those
+    extra tests and fetches are what the two kernels spend, not what
+    their function needs: K5 and K2pl return K1's results from K1's
+    inputs, so the least work is what the ``jblk`` 1, not pipelined walk
+    counts on the same rays, and a bound is taken from that."""
     dev = o.device
+    n_cols = snear.shape[1]
     tile_of = torch.arange(o.shape[0], device=dev) // tile
     live = torch.arange(o.shape[0], device=dev)
-    for k in range(snear.shape[1]):
+    for j in range(0, n_cols, jblk):
+        nb = min(jblk, n_cols - j)
         if stats is not None:
-            _count(stats, "table_steps", torch.unique(tile_of[live]).numel())
-        live = live[~(snear[tile_of[live], k] >= bound(live))]
+            _count(stats, "table_steps",
+                   nb * torch.unique(tile_of[live]).numel())
+        rb = bound(live)
+        if pipelined and stats is not None:
+            # this round was fetched by the tiles that voted for it one
+            # round ago; the vote for the next round is taken now
+            for jv in ((0, nb) if j == 0 else (nb,)):
+                if j + jv >= n_cols:
+                    continue
+                tiles = torch.unique(
+                    tile_of[live[~(snear[tile_of[live], j + jv] >= rb)]])
+                _count(stats, "staged_rounds", tiles.numel())
+                stats["clusters_tested"][
+                    order[tiles, j + jv : j + jv + jblk].long()] = True
+        keep = ~(snear[tile_of[live], j] >= rb)
+        live, rb = live[keep], rb[keep]
         if live.numel() == 0:
             break
-        cid = order[tile_of[live], k].long()
-        near, far = _slab(box[cid], o[live], inv_d[live])
-        if stats is not None:
-            _count(stats, "box_tests", live.numel())
-            stats["boxes_read"][cid] = True
-        consider = (near < far) & (far > 0.0) & (near < bound(live))
-        test(live[consider], cid[consider])
+        rays = live
+        for k in range(j, j + nb):
+            if k > j:
+                keep = ~(snear[tile_of[rays], k] >= rb)
+                rays, rb = rays[keep], rb[keep]
+                if rays.numel() == 0:
+                    break
+            cid = order[tile_of[rays], k].long()
+            near, far = _slab(box[cid], o[rays], inv_d[rays])
+            if stats is not None:
+                _count(stats, "box_tests", rays.numel())
+                stats["boxes_read"][cid] = True
+            consider = (near < far) & (far > 0.0) & (near < rb)
+            test(rays[consider], cid[consider])
+            if pending is not None and k + 1 < j + nb:
+                keep = pending(rays)
+                rays, rb = rays[keep], rb[keep]
         if pending is not None:
             live = live[pending(live)]
 
 
 def _walk_torch(
     o, d, inv_d, t_max, excl, snear, order, box, face_id, tri, tile,
-    any_hit: bool, chunk: Optional[int] = None, stats: Optional[dict] = None,
+    any_hit: bool, jblk: int = 1, pipelined: bool = False,
+    chunk: Optional[int] = None, stats: Optional[dict] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain-torch twin of K1 (both entries): :func:`_walk` with the best
-    t (any-hit: t_max, until the ray has a hit) as its bound and the exact
-    slot test, in chunks of ``chunk`` rays (default 2**18 on a GPU, 2**15
-    elsewhere). Returns (best t, code); any-hit leaves best t at t_max.
-    ``stats`` (a dict) accumulates the work this walk does (see
-    :func:`walk_stats`)."""
+    """Plain-torch twin of K1 (both entries), of K5 (``jblk``) and of
+    K2pl (``pipelined``): :func:`_walk` with the best t (any-hit: t_max,
+    until the ray has a hit) as its bound and the exact slot test, in
+    chunks of ``chunk`` rays (default 2**18 on a GPU, 2**15 elsewhere).
+    Returns (best t, code); any-hit leaves best t at t_max. ``stats`` (a
+    dict) accumulates the work this walk does (see :func:`walk_stats`)."""
     chunk = _walk_setup(o, face_id, chunk, stats)
     best = t_max.clone()
     best_code = torch.full((o.shape[0],), -1, dtype=torch.int32,
@@ -361,15 +419,18 @@ def _walk_torch(
                        any_hit, chunk, stats)
 
     _walk(o, inv_d, snear, order, box, tile, lambda r: best[r], test,
-          (lambda r: best_code[r] < 0) if any_hit else None, stats)
+          (lambda r: best_code[r] < 0) if any_hit else None, stats, jblk,
+          pipelined)
     return best, best_code
 
 
 def _walk_pairs_torch(
     a, inv_d, t_max, excl, snear, order, box, face_id, mat_b, tile,
-    chunk: Optional[int] = None, stats: Optional[dict] = None,
+    pipelined: bool = False, chunk: Optional[int] = None,
+    stats: Optional[dict] = None,
 ):
-    """Plain-torch twin of K2p: K1's walk (:func:`_walk`) with the pairs
+    """Plain-torch twin of K2p and, ``pipelined``, of K2pl's pairs entry:
+    K1's walk (:func:`_walk`) with the pairs
     slot test (:func:`_test_clusters_pairs`) and the stop and skip bound
     anchored on the ROBUST best t3, widened by BOUND_ULPS ulps
     (cluster_pallas.py:552-566, :583-590): a bound on t1 would let a
@@ -390,7 +451,7 @@ def _walk_pairs_torch(
                              stats)
 
     _walk(a[:, 0:3], inv_d, snear, order, box, tile, st.bound, test, None,
-          stats)
+          stats, 1, pipelined)
     return st.outputs()
 
 
@@ -535,7 +596,12 @@ def walk_stats(stats: dict, face_id: torch.Tensor, any_hit: bool,
     A, inv_d, t_max, excl → t1, three codes, the flag), the table entries
     (tile distance and order) the tiles stepped through, each box read,
     and the face ids of each cluster tested with, per occupied slot, the
-    triangle row (pairs: the 19 B entries of its columns)."""
+    triangle row (pairs: the 19 B entries of its columns). A K2n twin
+    adds the tile entry distances' slab tests (``near_box_tests``, every
+    ray against every box) and reads every box but no table entry. The
+    counts of a K5 or K2pl twin include the speculative tests and fetches
+    (see :func:`_walk`): they say what the kernel did, and the bound of
+    its function is the K1 (K2p) twin's counts on the same rays."""
     tested = stats["clusters_tested"]
     n_faces = int((face_id[tested] >= 0).sum())
     slot_tests = stats.get("slot_tests", 0)
@@ -554,9 +620,10 @@ def walk_stats(stats: dict, face_id: torch.Tensor, any_hit: bool,
         + 4 * face_id.shape[1] * int(tested.sum())
         + face_bytes * n_faces
     )
+    box_tests = stats.get("box_tests", 0) + stats.get("near_box_tests", 0)
     out = dict(
-        ops=BOX_TEST_OPS * stats.get("box_tests", 0) + slot_ops,
-        bytes=n_bytes, box_tests=stats.get("box_tests", 0),
+        ops=BOX_TEST_OPS * box_tests + slot_ops,
+        bytes=n_bytes, box_tests=box_tests,
         slot_tests=slot_tests, clusters_tested=int(tested.sum()),
         faces_tested=n_faces,
     )
@@ -567,26 +634,47 @@ def walk_stats(stats: dict, face_id: torch.Tensor, any_hit: bool,
     return out
 
 
-def _trace_closest_torch(*args, **kw) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain twin of K1's closest-hit entry → (best t, code)."""
-    return _walk_torch(*args, any_hit=False, **kw)
+def _near_order(o, inv_d, t_max, box, tile, stats):
+    """K2n's first half as plain torch: each tile's entry distance into
+    every box and the stable ascending order → (snear, order)."""
+    snear, order = torch.sort(
+        tile_nears_fused(o, inv_d, t_max, box, tile), dim=1, stable=True
+    )
+    if stats is not None:
+        _count(stats, "near_box_tests", o.shape[0] * box.shape[0])
+    return snear, order.to(torch.int32)
 
 
-def _trace_any_torch(*args, **kw) -> torch.Tensor:
-    """Plain twin of K1's any-hit entry → code of the first valid hit in
-    walk order, or -1."""
-    return _walk_torch(*args, any_hit=True, **kw)[1]
+def _near_stats(stats) -> None:
+    """K2n reads every box once and no table entry."""
+    if stats is not None:
+        stats["boxes_read"][:] = True
+        stats["table_steps"] = 0
 
 
-def _trace_closest_two_level_torch(*args, **kw):
-    """Plain twin of K3's closest-hit entry → (best t, code)."""
-    return _walk_two_level_torch(*args, any_hit=False, **kw)
+def _trace_near_torch(o, d, inv_d, t_max, excl, box, face_id, tri, tile,
+                      any_hit: bool, pipelined: bool = False, stats=None,
+                      **kw):
+    """Plain twin of K2n's closest-hit and any-hit entries → (best t,
+    code): the tile entry distances, the stable sort and K1's walk
+    (K2pl's when ``pipelined``)."""
+    snear, order = _near_order(o, inv_d, t_max, box, tile, stats)
+    out = _walk_torch(o, d, inv_d, t_max, excl, snear, order, box, face_id,
+                      tri, tile, any_hit=any_hit, pipelined=pipelined,
+                      stats=stats, **kw)
+    _near_stats(stats)
+    return out
 
 
-def _trace_any_two_level_torch(*args, **kw) -> torch.Tensor:
-    """Plain twin of K3's any-hit entry → code of the first valid hit in
-    walk order, or -1."""
-    return _walk_two_level_torch(*args, any_hit=True, **kw)[1]
+def _trace_near_pairs_torch(a, inv_d, t_max, excl, box, face_id, mat_b,
+                            tile, pipelined: bool = False, stats=None, **kw):
+    """Plain twin of K2n's pairs entry → (t1, c1, c2, c3, amb)."""
+    snear, order = _near_order(a[:, 0:3], inv_d, t_max, box, tile, stats)
+    out = _walk_pairs_torch(a, inv_d, t_max, excl, snear, order, box,
+                            face_id, mat_b, tile, pipelined=pipelined,
+                            stats=stats, **kw)
+    _near_stats(stats)
+    return out
 
 
 def _check_cuda(tensors: dict) -> torch.device:
@@ -604,13 +692,32 @@ def _check_cuda(tensors: dict) -> torch.device:
     return dev
 
 
+# K5's rounds (JAX ``sched_rounds``); the dynamic shared memory a block may
+# ask for on sm_90 (232,448 bytes less 1 KB kept for the kernels' static
+# variables); the most boxes K2n ranks in a block (12 bytes each).
+SCHED_ROUNDS = TRACE_SCHED_VALUES[1:]
+SHARED_LIMIT = 232448 - 1024
+NEAR_MAX_CLUSTERS = 4096
+
+
+def staged_bytes(slots: int, row_words: int, jblk: int,
+                 pipelined: bool) -> int:
+    """Shared memory of a staged walk (K5, K2pl): per cluster of a round
+    the face ids and ``row_words`` words per slot (9: a triangle row; 19:
+    the pairs terms), two buffers when ``pipelined``."""
+    return (2 if pipelined else 1) * jblk * slots * (1 + row_words) * 4
+
+
 def _check_walk(r, inv_d, t_max, excl, snear, order, box, face_id, tile,
-                group):
-    """Shapes every walk takes → (n_tiles, n_cols)."""
-    n_tiles, n_cols = snear.shape
+                group, row_words, jblk=0, pipelined=False):
+    """Shapes every walk takes, and the shared memory the staged and
+    in-kernel-order walks need → (n_tiles, n_cols). ``snear`` None: K2n,
+    whose columns are the boxes."""
+    near = snear is None
+    n_tiles, n_cols = (r // tile, box.shape[0]) if near else snear.shape
     if (
         r != n_tiles * tile or inv_d.shape != (r, 3) or t_max.shape != (r,)
-        or excl.shape != (r,) or order.shape != snear.shape
+        or excl.shape != (r,) or (not near and order.shape != snear.shape)
         or box.shape != (face_id.shape[0], 6) or not 0 < tile <= 1024
     ):
         raise ValueError("cluster trace kernel: inconsistent shapes")
@@ -623,12 +730,39 @@ def _check_walk(r, inv_d, t_max, excl, snear, order, box, face_id, tile,
             f"{n_cols} supers of {group}, or G = {group} exceeds "
             f"min(tile, 128), or tile {tile} is not a multiple of 32"
         )
+    if group and (near or jblk or pipelined):
+        raise ValueError(
+            "the two-level kernels take their order from outside and have "
+            "no rounds of several clusters and no pipelined form"
+        )
+    if jblk and (jblk not in SCHED_ROUNDS or near or pipelined):
+        raise ValueError(
+            f"K5 runs rounds of {SCHED_ROUNDS} clusters over an order "
+            f"sorted outside, not pipelined; got jblk = {jblk}"
+        )
+    shared = 0
+    if near:
+        if n_cols > NEAR_MAX_CLUSTERS or tile % 32:
+            raise ValueError(
+                f"K2n ranks at most {NEAR_MAX_CLUSTERS} cluster boxes in a "
+                f"block whose tile is a multiple of 32; got {n_cols} boxes, "
+                f"tile {tile}"
+            )
+        shared = 12 * n_cols
+    if jblk or pipelined:
+        shared += staged_bytes(face_id.shape[1], row_words, max(jblk, 1),
+                               pipelined)
+    if shared > SHARED_LIMIT:
+        raise ValueError(
+            f"cluster trace kernel: {shared} bytes of shared memory exceed "
+            f"the block's {SHARED_LIMIT}"
+        )
     return n_tiles, n_cols
 
 
-def _run(lib, entry, wrapper, dev, args) -> None:
-    """Launch ``entry`` on the current stream of ``dev``, raise on a
-    launch error, count the launch on ``wrapper``."""
+def _run(lib, entry, dev, args) -> None:
+    """Launch ``entry`` on the current stream of ``dev``; raise on a
+    launch error."""
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = entry(*args, stream)
@@ -637,196 +771,262 @@ def _run(lib, entry, wrapper, dev, args) -> None:
             "cluster trace kernel launch failed: "
             + lib.wrt_error_string(err).decode()
         )
-    wrapper.launches += 1
+
+
+def _entry(kind, snear, group, jblk, pipelined):
+    """Which entry of the library these arguments select → (its name
+    after ``wrt_trace_``, the arguments it takes after the tables)."""
+    if snear is None:
+        return f"near_{kind}", (int(pipelined),)
+    if group:
+        return f"{kind}_two_level", (group,)
+    if jblk:
+        return "sched", (jblk,)
+    return (f"pipelined_{kind}" if pipelined else kind), ()
+
+
+def _order_args(snear, order, n_cols):
+    """The order a kernel walks: sorted outside, or (K2n) only the number
+    of boxes."""
+    if snear is None:
+        return (n_cols,)
+    return (snear.data_ptr(), order.data_ptr(), n_cols)
 
 
 def _launch_kernel(o, d, inv_d, t_max, excl, snear, order, box, face_id,
-                   tri, tile, any_hit: bool = False, group: int = 0):
-    """Check the arguments and launch a kernel entry: K1 (``group`` 0) or
-    K3 (``group`` = G), closest-hit (→ (t, code)) or any-hit (→ code).
-    Counts the launch on its wrapper."""
+                   tri, tile, any_hit: bool = False, group: int = 0,
+                   jblk: int = 0, pipelined: bool = False):
+    """Check the arguments and launch an exact-search entry, closest-hit
+    (→ (t, code)) or any-hit (→ code): K1; K3 (``group`` = G); K5
+    (``jblk`` clusters a round, closest-hit only); K2pl (``pipelined``);
+    K2n (``snear`` and ``order`` None, with or without ``pipelined``)."""
     from ._build import load
 
-    dev = _check_cuda(dict(
+    tensors = dict(
         o=(o, torch.float32), d=(d, torch.float32),
         inv_d=(inv_d, torch.float32), t_max=(t_max, torch.float32),
-        excl=(excl, torch.int32), snear=(snear, torch.float32),
-        order=(order, torch.int32), box=(box, torch.float32),
+        excl=(excl, torch.int32), box=(box, torch.float32),
         face_id=(face_id, torch.int32), tri=(tri, torch.float32),
-    ))
+    )
+    if snear is not None:
+        tensors.update(snear=(snear, torch.float32),
+                       order=(order, torch.int32))
+    dev = _check_cuda(tensors)
     r = o.shape[0]
     if o.shape != (r, 3) or d.shape != (r, 3) or tri.shape[1:] != (9,):
         raise ValueError("cluster trace kernel: inconsistent shapes")
+    if jblk and any_hit:
+        raise ValueError("K5 has a closest-hit entry only")
     n_tiles, n_cols = _check_walk(r, inv_d, t_max, excl, snear, order, box,
-                                  face_id, tile, group)
+                                  face_id, tile, group, 9, jblk, pipelined)
     lib = load()
     code_out = torch.empty((r,), dtype=torch.int32, device=dev)
     t_out = None if any_hit else torch.empty(
         (r,), dtype=torch.float32, device=dev
     )
+    name, tail = _entry("any" if any_hit else "closest", snear, group, jblk,
+                        pipelined)
     head = (
         o.data_ptr(), d.data_ptr(), inv_d.data_ptr(), t_max.data_ptr(),
-        excl.data_ptr(), snear.data_ptr(), order.data_ptr(), n_cols,
+        excl.data_ptr(), *_order_args(snear, order, n_cols),
         box.data_ptr(), face_id.data_ptr(), face_id.shape[1],
-        tri.data_ptr(), EPS2,
+        tri.data_ptr(), EPS2, *tail,
     )
     outs = (code_out.data_ptr(),) if any_hit else (
         t_out.data_ptr(), code_out.data_ptr()
     )
-    if group:
-        entry = (
-            lib.wrt_trace_any_two_level if any_hit
-            else lib.wrt_trace_closest_two_level
-        )
-        wrapper = (
-            trace_any_two_level_tiles if any_hit
-            else trace_closest_two_level_tiles
-        )
-        head = head + (group,)
-    else:
-        entry = lib.wrt_trace_any if any_hit else lib.wrt_trace_closest
-        wrapper = trace_any_tiles if any_hit else trace_closest_tiles
-    _run(lib, entry, wrapper, dev, head + outs + (n_tiles, tile))
+    _run(lib, getattr(lib, "wrt_trace_" + name), dev,
+         head + outs + (n_tiles, tile))
     return code_out if any_hit else (t_out, code_out)
 
 
 def _launch_pairs(a, inv_d, t_max, excl, snear, order, box, face_id, mat_b,
-                  tile, group: int = 0):
-    """Check the arguments and launch a pairs entry: K2p (``group`` 0) or
-    K3p (``group`` = G) → (t1, c1, c2, c3, amb). Counts the launch on its
-    wrapper."""
+                  tile, group: int = 0, pipelined: bool = False):
+    """Check the arguments and launch a pairs entry → (t1, c1, c2, c3,
+    amb): K2p; K3p (``group`` = G); K2pl (``pipelined``); K2n (``snear``
+    and ``order`` None, with or without ``pipelined``)."""
     from ._build import load
 
-    dev = _check_cuda(dict(
+    tensors = dict(
         a=(a, torch.float32), inv_d=(inv_d, torch.float32),
         t_max=(t_max, torch.float32), excl=(excl, torch.int32),
-        snear=(snear, torch.float32), order=(order, torch.int32),
         box=(box, torch.float32), face_id=(face_id, torch.int32),
         mat_b=(mat_b, torch.float32),
-    ))
+    )
+    if snear is not None:
+        tensors.update(snear=(snear, torch.float32),
+                       order=(order, torch.int32))
+    dev = _check_cuda(tensors)
     r = a.shape[0]
     c, s = face_id.shape
     if a.shape != (r, 10) or mat_b.shape != (c, 10, 4 * s):
         raise ValueError("pairs trace kernel: inconsistent shapes")
     n_tiles, n_cols = _check_walk(r, inv_d, t_max, excl, snear, order, box,
-                                  face_id, tile, group)
+                                  face_id, tile, group, 19, 0, pipelined)
     lib = load()
     t_out = torch.empty((r,), dtype=torch.float32, device=dev)
     codes = [torch.empty((r,), dtype=torch.int32, device=dev)
              for _ in range(4)]  # c1, c2, c3, amb
+    name, tail = _entry("pairs", snear, group, 0, pipelined)
     head = (
         a.data_ptr(), inv_d.data_ptr(), t_max.data_ptr(), excl.data_ptr(),
-        snear.data_ptr(), order.data_ptr(), n_cols, box.data_ptr(),
-        face_id.data_ptr(), s, mat_b.data_ptr(), EPS2, MARGIN,
+        *_order_args(snear, order, n_cols), box.data_ptr(),
+        face_id.data_ptr(), s, mat_b.data_ptr(), EPS2, MARGIN, *tail,
     )
     outs = (t_out.data_ptr(),) + tuple(x.data_ptr() for x in codes)
-    if group:
-        entry = lib.wrt_trace_pairs_two_level
-        wrapper = trace_pairs_two_level_tiles
-        head = head + (group,)
-    else:
-        entry, wrapper = lib.wrt_trace_pairs, trace_pairs_tiles
-    _run(lib, entry, wrapper, dev, head + outs + (n_tiles, tile))
+    _run(lib, getattr(lib, "wrt_trace_" + name), dev,
+         head + outs + (n_tiles, tile))
     return (t_out, *codes)
 
 
-def _dispatch(twin, launch, args, group: int = 0, **kw):
-    dev = args[0].device
-    if dev.type == "cuda":
-        return launch(*args, group=group, **kw)
-    if dev.type == "cpu":
-        return twin(*args, group) if group else twin(*args)
-    raise ValueError(f"no cluster trace for device {dev}")
+def _launch_near(o, d, inv_d, t_max, excl, box, face_id, tri, tile, **kw):
+    return _launch_kernel(o, d, inv_d, t_max, excl, None, None, box,
+                          face_id, tri, tile, **kw)
 
 
-def trace_closest_tiles(o, d, inv_d, t_max, excl, snear, order, box,
-                        face_id, tri, tile):
-    """K1: per-ray closest hit over each tile's sorted cluster order →
-    (best t, code). CUDA tensors launch the kernel (and count the launch
-    in ``trace_closest_tiles.launches``); CPU tensors run the plain twin."""
-    return _dispatch(_trace_closest_torch, _launch_kernel, (
-        o, d, inv_d, t_max, excl, snear, order, box, face_id, tri, tile))
+def _launch_near_pairs(a, inv_d, t_max, excl, box, face_id, mat_b, tile,
+                       **kw):
+    return _launch_pairs(a, inv_d, t_max, excl, None, None, box, face_id,
+                         mat_b, tile, **kw)
 
 
-trace_closest_tiles.launches = 0
+def _wrapper(name, twin, launch, doc, **fixed):
+    """A kernel's wrapper. It takes the arguments of ``launch`` and of
+    ``twin`` (the same names, so a :func:`prepare_tiles` dict fits both)
+    less the keywords ``fixed``, which say what the entry is (``any_hit``,
+    ``pipelined``). CUDA tensors launch the kernel and add one to
+    ``wrapper.launches``; CPU tensors run ``wrapper.twin``, the plain
+    version (an any-hit one returns the codes alone); any other device
+    raises."""
+    def plain(*args, **kw):
+        out = twin(*args, **fixed, **kw)
+        return out[1] if fixed.get("any_hit") else out
+
+    def wrapper(*args, **kw):
+        dev = (args[0] if args else next(iter(kw.values()))).device
+        if dev.type == "cuda":
+            out = launch(*args, **fixed, **kw)
+            wrapper.launches += 1
+            return out
+        if dev.type == "cpu":
+            return wrapper.twin(*args, **kw)
+        raise ValueError(f"no cluster trace for device {dev}")
+
+    wrapper.__name__ = wrapper.__qualname__ = name
+    wrapper.__doc__ = (
+        f"{doc} CUDA tensors launch the kernel (counted in "
+        f"``{name}.launches``); CPU tensors run the plain twin "
+        f"(``{name}.twin``)."
+    )
+    wrapper.launches = 0
+    wrapper.twin = plain
+    return wrapper
 
 
-def trace_any_tiles(o, d, inv_d, t_max, excl, snear, order, box, face_id,
-                    tri, tile):
-    """K1: per-ray any-hit over each tile's sorted cluster order → code of
-    the first valid hit with t < t_max in walk order, or -1. CUDA tensors
-    launch the kernel (and count the launch in
-    ``trace_any_tiles.launches``); CPU tensors run the plain twin."""
-    return _dispatch(_trace_any_torch, _launch_kernel, (
-        o, d, inv_d, t_max, excl, snear, order, box, face_id, tri, tile,
-    ), any_hit=True)
+_RAYS = "(o, d, inv_d, t_max, excl"
+_PAIRS_OUT = (
+    "(t1, c1, c2, c3, amb): the two nearest margin-valid candidates (t1 is "
+    "the first one's estimated t, or t_max), the nearest robust one and the "
+    "ambiguity flag (:func:`_walk_pairs_torch`)."
+)
+trace_closest_tiles = _wrapper(
+    "trace_closest_tiles", _walk_torch, _launch_kernel,
+    f"K1 {_RAYS}, snear, order, box, face_id, tri, tile): per-ray closest "
+    "hit over each tile's sorted cluster order → (best t, code).",
+    any_hit=False)
+trace_any_tiles = _wrapper(
+    "trace_any_tiles", _walk_torch, _launch_kernel,
+    f"K1 {_RAYS}, snear, order, box, face_id, tri, tile): per-ray any-hit "
+    "over each tile's sorted cluster order → code of the first valid hit "
+    "with t < t_max in walk order, or -1.", any_hit=True)
+trace_pairs_tiles = _wrapper(
+    "trace_pairs_tiles", _walk_pairs_torch, _launch_pairs,
+    "K2p (a, inv_d, t_max, excl, snear, order, box, face_id, mat_b, tile): "
+    "the exact-pairs trace over each tile's sorted cluster order → "
+    + _PAIRS_OUT)
+trace_closest_two_level_tiles = _wrapper(
+    "trace_closest_two_level_tiles", _walk_two_level_torch, _launch_kernel,
+    f"K3 {_RAYS}, snear, order, box, face_id, tri, tile, group): per-ray "
+    "closest hit over each tile's sorted SUPER order, the G children of "
+    "each super culled and ordered in the kernel → (best t, code).",
+    any_hit=False)
+trace_any_two_level_tiles = _wrapper(
+    "trace_any_two_level_tiles", _walk_two_level_torch, _launch_kernel,
+    f"K3 {_RAYS}, snear, order, box, face_id, tri, tile, group): per-ray "
+    "any-hit over each tile's sorted super order → code of the first valid "
+    "hit with t < t_max in walk order, or -1.", any_hit=True)
+trace_pairs_two_level_tiles = _wrapper(
+    "trace_pairs_two_level_tiles", _walk_pairs_two_level_torch,
+    _launch_pairs,
+    "K3p (a, inv_d, t_max, excl, snear, order, box, face_id, mat_b, tile, "
+    "group): the exact-pairs trace over each tile's sorted super order → "
+    "(t1, c1, c2, c3, amb), as K2p.")
+trace_sched_tiles = _wrapper(
+    "trace_sched_tiles", _walk_torch, _launch_kernel,
+    f"K5 {_RAYS}, snear, order, box, face_id, tri, tile, jblk): K1's "
+    "closest hit over the same sorted order, run in rounds of ``jblk`` "
+    "clusters (1, 2, 4 or 8) staged in shared memory, the bound looked at "
+    "once per round → (best t, code), equal to K1's.", any_hit=False)
+trace_pipelined_closest_tiles = _wrapper(
+    "trace_pipelined_closest_tiles", _walk_torch, _launch_kernel,
+    f"K2pl {_RAYS}, snear, order, box, face_id, tri, tile): K1's closest "
+    "hit with the next cluster fetched into shared memory while the "
+    "current one is tested, each round voted one round ahead → (best t, "
+    "code), equal to K1's.", any_hit=False, pipelined=True)
+trace_pipelined_any_tiles = _wrapper(
+    "trace_pipelined_any_tiles", _walk_torch, _launch_kernel,
+    f"K2pl {_RAYS}, snear, order, box, face_id, tri, tile), any-hit → code "
+    "of the first valid hit with t < t_max in walk order, or -1, equal to "
+    "K1's.", any_hit=True, pipelined=True)
+trace_pipelined_pairs_tiles = _wrapper(
+    "trace_pipelined_pairs_tiles", _walk_pairs_torch, _launch_pairs,
+    "K2pl (a, inv_d, t_max, excl, snear, order, box, face_id, mat_b, "
+    "tile), pairs → (t1, c1, c2, c3, amb), equal to K2p's.", pipelined=True)
+trace_near_closest_tiles = _wrapper(
+    "trace_near_closest_tiles", _trace_near_torch, _launch_near,
+    f"K2n {_RAYS}, box, face_id, tri, tile, pipelined=False): the tile's "
+    "entry distance into every cluster box and the order they give, "
+    "computed inside the kernel, then K1's walk (K2pl's when "
+    "``pipelined``) → (best t, code), equal to K1's after "
+    ":func:`.cluster_trace.tile_nears_fused` and the stable sort. At most "
+    "NEAR_MAX_CLUSTERS boxes.", any_hit=False)
+trace_near_any_tiles = _wrapper(
+    "trace_near_any_tiles", _trace_near_torch, _launch_near,
+    f"K2n {_RAYS}, box, face_id, tri, tile, pipelined=False), any-hit → "
+    "code of the first valid hit with t < t_max in walk order, or -1; the "
+    "order is exactly the stable sort's, so the codes are K1's.",
+    any_hit=True)
+trace_near_pairs_tiles = _wrapper(
+    "trace_near_pairs_tiles", _trace_near_pairs_torch, _launch_near_pairs,
+    "K2n (a, inv_d, t_max, excl, box, face_id, mat_b, tile, "
+    "pipelined=False), pairs → (t1, c1, c2, c3, amb), equal to K2p's.")
+
+# variant of a prepare_tiles dict → its (closest-hit, any-hit, pairs)
+# wrappers; K5 has a closest-hit entry only
+WRAPPERS = {
+    "single": (trace_closest_tiles, trace_any_tiles, trace_pairs_tiles),
+    "two_level": (trace_closest_two_level_tiles, trace_any_two_level_tiles,
+                  trace_pairs_two_level_tiles),
+    "sched": (trace_sched_tiles, None, None),
+    "pipelined": (trace_pipelined_closest_tiles, trace_pipelined_any_tiles,
+                  trace_pipelined_pairs_tiles),
+    "near": (trace_near_closest_tiles, trace_near_any_tiles,
+             trace_near_pairs_tiles),
+}
 
 
-trace_any_tiles.launches = 0
+class TileArgs(dict):
+    """What :func:`prepare_tiles` returns: the keyword arguments of a
+    wrapper, and in ``variant`` (a key of WRAPPERS) which kernel they are
+    for."""
 
-
-def trace_pairs_tiles(a, inv_d, t_max, excl, snear, order, box, face_id,
-                      mat_b, tile):
-    """K2p: the exact-pairs trace over each tile's sorted cluster order →
-    (t1, c1, c2, c3, amb): the two nearest margin-valid candidates (t1 is
-    the first one's estimated t, or t_max), the nearest robust one and
-    the ambiguity flag (:func:`_walk_pairs_torch`). CUDA tensors launch
-    the kernel (counted in ``trace_pairs_tiles.launches``); CPU tensors
-    run the plain twin."""
-    return _dispatch(_walk_pairs_torch, _launch_pairs, (
-        a, inv_d, t_max, excl, snear, order, box, face_id, mat_b, tile))
-
-
-trace_pairs_tiles.launches = 0
-
-
-def trace_closest_two_level_tiles(o, d, inv_d, t_max, excl, snear, order,
-                                  box, face_id, tri, tile, group):
-    """K3: per-ray closest hit over each tile's sorted SUPER order, the G
-    children of each super culled and ordered in the kernel → (best t,
-    code). CUDA tensors launch the kernel (counted in
-    ``trace_closest_two_level_tiles.launches``); CPU tensors run the
-    plain twin."""
-    return _dispatch(_trace_closest_two_level_torch, _launch_kernel, (
-        o, d, inv_d, t_max, excl, snear, order, box, face_id, tri, tile,
-    ), group=group)
-
-
-trace_closest_two_level_tiles.launches = 0
-
-
-def trace_any_two_level_tiles(o, d, inv_d, t_max, excl, snear, order, box,
-                              face_id, tri, tile, group):
-    """K3: per-ray any-hit over each tile's sorted super order → code of
-    the first valid hit with t < t_max in walk order, or -1. CUDA tensors
-    launch the kernel (counted in
-    ``trace_any_two_level_tiles.launches``); CPU tensors run the plain
-    twin."""
-    return _dispatch(_trace_any_two_level_torch, _launch_kernel, (
-        o, d, inv_d, t_max, excl, snear, order, box, face_id, tri, tile,
-    ), group=group, any_hit=True)
-
-
-trace_any_two_level_tiles.launches = 0
-
-
-def trace_pairs_two_level_tiles(a, inv_d, t_max, excl, snear, order, box,
-                                face_id, mat_b, tile, group):
-    """K3p: the exact-pairs trace over each tile's sorted super order →
-    (t1, c1, c2, c3, amb), as K2p. CUDA tensors launch the kernel
-    (counted in ``trace_pairs_two_level_tiles.launches``); CPU tensors run
-    the plain twin."""
-    return _dispatch(_walk_pairs_two_level_torch, _launch_pairs, (
-        a, inv_d, t_max, excl, snear, order, box, face_id, mat_b, tile,
-    ), group=group)
-
-
-trace_pairs_two_level_tiles.launches = 0
+    variant = "single"
 
 
 def prepare_tiles(o, d, t_max, tables, active=None, excl_code=None,
                   tile: int = 128, two_level: Optional[bool] = None,
-                  pairs: bool = False):
+                  pairs: bool = False, near: str = "outside",
+                  sched_rounds: int = 0, pipelined: bool = False):
     """Everything a kernel takes, as plain torch: rays padded to whole
     tiles (pad lanes inactive), inactive t_max zeroed, safe reciprocal
     directions, exclusion codes (-1 = none) and each tile's box order
@@ -835,12 +1035,41 @@ def prepare_tiles(o, d, t_max, tables, active=None, excl_code=None,
     the tables), and the dict then carries ``group`` = G for the
     two-level wrappers; else the clusters. With ``pairs`` the dict holds
     the ray matrix ``a`` and ``mat_b`` for the pairs wrappers in place of
-    o, d and ``tri``. Returns a dict of the kernel's arguments."""
+    o, d and ``tri``. Returns a :class:`TileArgs`: the keyword arguments
+    of the wrapper that its ``variant`` names (:func:`trace_closest_args`
+    and its kin look it up).
+
+    ``near="kernel"`` leaves the entry distances and the sort to K2n: the
+    dict has no ``snear`` and ``order``, and carries ``pipelined``, K2n's
+    choice of walk. ``sched_rounds`` (1, 2, 4, 8) adds ``jblk`` for K5;
+    ``pipelined`` alone selects K2pl. All three are single-level only, and
+    K5 takes neither of the other two; anything else raises."""
     ct = tables.clusters
     if two_level is None:
         two_level = is_two_level(ct)
     elif two_level and ct.super_box is None:
         raise ValueError("two_level=True needs two-level cluster tables")
+    if near not in ("outside", "kernel"):
+        raise ValueError(f"near must be 'outside' or 'kernel', got {near!r}")
+    in_near = near == "kernel"
+    if two_level and (in_near or sched_rounds or pipelined):
+        raise ValueError(
+            "kernel_near, trace_sched and pipeline_rounds are single-level "
+            "kernels; these tables are two-level"
+        )
+    if sched_rounds and (
+        sched_rounds not in SCHED_ROUNDS or in_near or pipelined or pairs
+    ):
+        raise ValueError(
+            f"trace_sched runs rounds of {SCHED_ROUNDS} clusters, closest-"
+            "hit and not pairs, over an order sorted outside, not "
+            f"pipelined; got {sched_rounds}"
+        )
+    if in_near and ct.box.shape[0] > NEAR_MAX_CLUSTERS:
+        raise ValueError(
+            f"kernel_near ranks at most {NEAR_MAX_CLUSTERS} clusters in a "
+            f"block; the tables have {ct.box.shape[0]}"
+        )
     r0 = o.shape[0]
     dev = o.device
     if active is None:
@@ -859,52 +1088,63 @@ def prepare_tiles(o, d, t_max, tables, active=None, excl_code=None,
         )
     t_max = torch.where(active, t_max, torch.zeros_like(t_max))
     inv_d = safe_inv_dir(d)
-    near_boxes = ct.super_box if two_level else ct.box
-    near_tc = tile_nears_fused(o, inv_d, t_max, near_boxes, tile)
-    snear, order = torch.sort(near_tc, dim=1, stable=True)
     rays = (
         dict(a=ray_matrix(o, d).contiguous()) if pairs
         else dict(o=o.contiguous(), d=d.contiguous())
     )
-    args = dict(
+    args = TileArgs(
         **rays, inv_d=inv_d.contiguous(), t_max=t_max.contiguous(),
         excl=excl_code.to(torch.int32).contiguous(),
-        snear=snear.contiguous(), order=order.to(torch.int32).contiguous(),
-        box=ct.box.contiguous(), face_id=ct.face_id.contiguous(),
     )
+    if not in_near:
+        near_boxes = ct.super_box if two_level else ct.box
+        near_tc = tile_nears_fused(o, inv_d, t_max, near_boxes, tile)
+        snear, order = torch.sort(near_tc, dim=1, stable=True)
+        args.update(snear=snear.contiguous(),
+                    order=order.to(torch.int32).contiguous())
+    args.update(box=ct.box.contiguous(), face_id=ct.face_id.contiguous())
     if pairs:
         args["mat_b"] = ct.mat_b.contiguous()
     else:
         args["tri"] = tables.tri.contiguous()
     args["tile"] = tile
     if two_level:
+        args.variant = "two_level"
         args["group"] = ct.group
+    elif in_near:
+        args.variant = "near"
+        args["pipelined"] = bool(pipelined)
+    elif sched_rounds:
+        args.variant = "sched"
+        args["jblk"] = sched_rounds
+    elif pipelined:
+        args.variant = "pipelined"
     return args
 
 
+def _select(args, kind: int):
+    wrapper = WRAPPERS[args.variant][kind]
+    if wrapper is None:
+        raise ValueError(f"the {args.variant} kernel has no such entry")
+    return wrapper, wrapper.twin
+
+
 def trace_closest_args(args):
-    """(wrapper, its plain twin) for the closest-hit entry that takes a
-    :func:`prepare_tiles` dict: K3 when it carries ``group``, else K1."""
-    if "group" in args:
-        return trace_closest_two_level_tiles, _trace_closest_two_level_torch
-    return trace_closest_tiles, _trace_closest_torch
+    """(wrapper, its plain twin) of the closest-hit entry that a
+    :func:`prepare_tiles` dict is for."""
+    return _select(args, 0)
 
 
 def trace_any_args(args):
-    """(wrapper, its plain twin) for the any-hit entry that takes a
-    :func:`prepare_tiles` dict: K3 when it carries ``group``, else K1."""
-    if "group" in args:
-        return trace_any_two_level_tiles, _trace_any_two_level_torch
-    return trace_any_tiles, _trace_any_torch
+    """(wrapper, its plain twin) of the any-hit entry that a
+    :func:`prepare_tiles` dict is for."""
+    return _select(args, 1)
 
 
 def trace_pairs_args(args):
-    """(wrapper, its plain twin) for the pairs entry that takes a
-    :func:`prepare_tiles` dict made with ``pairs=True``: K3p when it
-    carries ``group``, else K2p."""
-    if "group" in args:
-        return trace_pairs_two_level_tiles, _walk_pairs_two_level_torch
-    return trace_pairs_tiles, _walk_pairs_torch
+    """(wrapper, its plain twin) of the pairs entry that a
+    :func:`prepare_tiles` dict made with ``pairs=True`` is for."""
+    return _select(args, 2)
 
 
 def trace_closest_clustered_cuda(
@@ -916,7 +1156,11 @@ def trace_closest_clustered_cuda(
     excl_code: Optional[torch.Tensor] = None,
     tile: int = 128,
     exact_pairs: bool = False,
-) -> Hit:
+    sched_rounds: int = 0,
+    kernel_near: bool = False,
+    pipelined: bool = False,
+    raw: bool = False,
+):
     """Closest hit per ray → Hit(t, u, v, face), through K3 for two-level
     tables and K1 otherwise. Inactive rays return face -1 and t 0, misses
     return their t_max; the face id is the contract and t, u, v are
@@ -925,17 +1169,43 @@ def trace_closest_clustered_cuda(
     ``exact_pairs`` takes the pairs route instead (JAX ``exact_pairs``):
     K3p or K2p, the three carried codes to faces, then
     :func:`.adjudicate.adjudicate_compact` against the padded,
-    activity-masked t_max, as the JAX package passes it."""
+    activity-masked t_max, as the JAX package passes it.
+
+    The tile-scheduling kernels, routed as the JAX dispatcher routes
+    them: ``kernel_near`` takes K2n (the entry distances and the order
+    inside the kernel; ``prepare_tiles`` then skips both); else
+    ``sched_rounds`` > 0 takes K5, closest-hit and not pairs only (a pairs
+    leg keeps K2p); ``pipelined`` takes K2pl, or K2n's pipelined walk,
+    and is not read by K5. With two-level tables all three raise.
+
+    ``raw`` returns what the sorted trace unsorts, before anything is
+    re-derived: (best t, face), or with ``exact_pairs`` (t1, face1,
+    face2, face3, amb)."""
     r0 = o.shape[0]
-    args = prepare_tiles(o, d, t_max, tables, active, excl_code, tile,
-                         pairs=exact_pairs)
+    if sched_rounds and (
+        sched_rounds not in SCHED_ROUNDS or is_two_level(tables.clusters)
+    ):
+        raise ValueError(
+            f"trace_sched must be 0 or one of {SCHED_ROUNDS}, on "
+            f"single-level tables; got {sched_rounds}"
+        )
+    jblk = 0 if (kernel_near or exact_pairs) else sched_rounds
+    args = prepare_tiles(
+        o, d, t_max, tables, active, excl_code, tile, pairs=exact_pairs,
+        near="kernel" if kernel_near else "outside", sched_rounds=jblk,
+        pipelined=pipelined and not jblk,
+    )
     fid = tables.clusters.face_id
     if exact_pairs:
         t1, c1, c2, c3, amb = trace_pairs_args(args)[0](**args)
         faces = tuple(code_to_face(c[:r0], fid) for c in (c1, c2, c3))
+        if raw:
+            return (t1[:r0], *faces, amb[:r0])
         return adjudicate_compact(o, d, args["t_max"][:r0], t1[:r0], faces,
                                   amb[:r0], tables)
     best_t, code = trace_closest_args(args)[0](**args)
+    if raw:
+        return best_t[:r0], code_to_face(code[:r0], fid)
     return rederive_uv(o, d, best_t[:r0], code_to_face(code[:r0], fid),
                        tables)
 
@@ -948,12 +1218,18 @@ def trace_any_clustered_cuda(
     active: Optional[torch.Tensor] = None,
     excl_code: Optional[torch.Tensor] = None,
     tile: int = 128,
+    kernel_near: bool = False,
+    pipelined: bool = False,
 ) -> torch.Tensor:
     """Shadow-ray query → (R,) bool, True where some triangle blocks the
     ray with 0 < t < t_max, through K3 for two-level tables and K1
-    otherwise. Inactive rays and NaN origins are unblocked.
-    ``prepare_tiles`` feeds t_max into the tile distances, so short rays
-    prune boxes there."""
+    otherwise; ``kernel_near`` takes K2n and ``pipelined`` K2pl (K5 has
+    no any-hit entry). Inactive rays and NaN origins are unblocked.
+    ``prepare_tiles`` (or K2n) feeds t_max into the tile distances, so
+    short rays prune boxes there."""
     r0 = o.shape[0]
-    args = prepare_tiles(o, d, t_max, tables, active, excl_code, tile)
+    args = prepare_tiles(
+        o, d, t_max, tables, active, excl_code, tile,
+        near="kernel" if kernel_near else "outside", pipelined=pipelined,
+    )
     return trace_any_args(args)[0](**args)[:r0] >= 0

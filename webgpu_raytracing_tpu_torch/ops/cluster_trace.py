@@ -63,6 +63,12 @@ class ClusterTables:
     def group(self) -> int:
         return 0 if self.super_box is None else self.child_box_t.shape[2]
 
+    @property
+    def sort_box(self) -> torch.Tensor:
+        """Boxes of the ray sort's coherence key (ops/ray_sort.py): the
+        supers when present, else the clusters."""
+        return self.box if self.super_box is None else self.super_box
+
     def to(self, device) -> "ClusterTables":
         return ClusterTables(
             **{

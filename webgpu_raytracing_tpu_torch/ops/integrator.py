@@ -14,9 +14,9 @@ code in the reference and live here as in the JAX package), environment
 importance sampling with MIS (ops/env_sample.py), and the direct-lighting
 integrator :func:`trace_direct` (BASELINE config #1).
 
-Every leg is traced unsorted: the JAX package's ray sort is a pure
-reordering with identical results, and its sort key would be a second
-dense slab-test pass per leg on the card.
+With ``sort_bounce_rays`` the bounce and shadow legs of every segment
+past the first go through the ray sort (ops/ray_sort.py), a pure
+reordering with identical results.
 """
 
 from __future__ import annotations
@@ -27,7 +27,9 @@ import torch
 
 from ..config import F32_MAX, INV_PI, RenderSettings, ShadingType
 from . import detmath, rng
+from .adjudicate import adjudicate_compact
 from .cluster_cuda import trace_any_clustered_cuda, trace_closest_clustered_cuda
+from .cluster_trace import rederive_uv
 from .env_sample import (
     EnvDistribution,
     balance_weight,
@@ -37,6 +39,7 @@ from .env_sample import (
 )
 from .envmap import sample_environment
 from .intersect import Hit
+from .ray_sort import sorted_trace
 from .strictf import scross, sdot3
 
 _ORIGIN = 1.0 / 32.0
@@ -44,29 +47,90 @@ _FLOAT_SCALE = 1.0 / 65536.0
 _INT_SCALE = 256.0
 
 
+def _kernel_settings(settings) -> dict:
+    """The tile-scheduling settings as the dispatchers take them."""
+    return dict(tile=settings.trace_tile, kernel_near=settings.kernel_near,
+                pipelined=settings.pipeline_rounds)
+
+
 def trace_closest(o, d, t_max, tables, settings, active=None, excl=None,
-                  primary=False):
-    """Closest-hit trace of one path segment: the cluster kernel for CUDA
-    tensors, its plain twin for CPU tensors (ops/cluster_cuda.py). Bounce
-    legs are traced unsorted: the JAX package's ray sort is a pure
-    reordering with identical results. ``primary`` marks camera-ray
-    segments: the exact-pairs route (``exact_pairs``) always applies
-    there, and on bounce segments only with ``exact_pairs_bounce``."""
+                  primary=False, sort=False, seg=0):
+    """Closest-hit trace of one path segment: the cluster kernels for CUDA
+    tensors, their plain twins for CPU tensors (ops/cluster_cuda.py;
+    ``trace_sched``, ``kernel_near`` and ``pipeline_rounds`` pick the
+    kernel). ``primary`` marks camera-ray segments: the exact-pairs route
+    (``exact_pairs``) always applies there, and on bounce segments only
+    with ``exact_pairs_bounce``.
+
+    ``sort`` (bounce segments) routes the leg through the ray sort
+    (ops/ray_sort.py) when ``sort_bounce_rays`` is set, as the JAX
+    ``_trace_closest`` does: only (t, face) are unsorted and t, u, v are
+    re-derived in the original order; with ``live_slice`` segment 1
+    traces the leading 0.75 of the sorted rays and later segments 0.5,
+    the rest being known misses; an exact leg unsorts its three candidate
+    faces and the flag and adjudicates in the original order."""
     exact = settings.exact_pairs and (primary or settings.exact_pairs_bounce)
-    return trace_closest_clustered_cuda(
-        o, d, t_max, tables, active, excl_code=excl,
-        tile=settings.trace_tile, exact_pairs=exact,
-    )
+    kw = dict(sched_rounds=settings.trace_sched, **_kernel_settings(settings))
+    if not (sort and settings.sort_bounce_rays):
+        return trace_closest_clustered_cuda(
+            o, d, t_max, tables, active, excl_code=excl, exact_pairs=exact,
+            **kw,
+        )
+
+    def tf(o_, d_, tm_, tb_, act_, ex_=None):
+        out = trace_closest_clustered_cuda(
+            o_, d_, tm_, tb_, act_, excl_code=ex_, exact_pairs=exact,
+            raw=True, **kw,
+        )
+        return out[1:] if exact else out
+
+    if exact:
+        f1, f2, f3, amb = sorted_trace(tf, o, d, t_max, tables, active,
+                                       extra=excl)
+        tm_eff = t_max if active is None else torch.where(
+            active, t_max, torch.zeros_like(t_max)
+        )
+        return adjudicate_compact(o, d, tm_eff, tm_eff, (f1, f2, f3), amb,
+                                  tables)
+    ls = None
+    if settings.live_slice and seg > 0:
+        ls = 0.75 if seg == 1 else 0.5
+
+    def miss_tail(tm_tail):
+        return tm_tail, torch.full_like(tm_tail, -1, dtype=torch.int32)
+
+    t, face = sorted_trace(tf, o, d, t_max, tables, active, extra=excl,
+                           live_slice=ls, tail=miss_tail)
+    return rederive_uv(o, d, t, face, tables)
 
 
-def trace_any(o, d, t_max, tables, settings, active=None, excl=None):
-    """Shadow-ray trace → (R,) bool blocked: the kernel's any-hit entry
-    for CUDA tensors, its plain twin for CPU tensors. Rays leaving a
+def trace_any(o, d, t_max, tables, settings, active=None, excl=None,
+              sort=False, seg=0):
+    """Shadow-ray trace → (R,) bool blocked: the kernels' any-hit entries
+    for CUDA tensors, their plain twins for CPU tensors. Rays leaving a
     two-sided face exclude its duplicate by code, as the Pallas path
-    does."""
-    return trace_any_clustered_cuda(
-        o, d, t_max, tables, active, excl_code=excl, tile=settings.trace_tile
-    )
+    does. ``sort`` as in :func:`trace_closest` (JAX ``_trace_any``): with
+    ``live_slice`` segment 1 traces the leading 0.375 of the sorted rays
+    and later segments 0.25; the rest is unblocked."""
+    kw = _kernel_settings(settings)
+    if not (sort and settings.sort_bounce_rays):
+        return trace_any_clustered_cuda(
+            o, d, t_max, tables, active, excl_code=excl, **kw
+        )
+
+    def fn(o_, d_, tm_, tb_, act_, ex_=None):
+        return trace_any_clustered_cuda(o_, d_, tm_, tb_, act_,
+                                        excl_code=ex_, **kw)
+
+    ls = None
+    if settings.live_slice and seg > 0:
+        ls = 0.375 if seg == 1 else 0.25
+
+    def clear_tail(tm_tail):
+        return torch.zeros_like(tm_tail, dtype=torch.bool)
+
+    return sorted_trace(fn, o, d, t_max, tables, active, extra=excl,
+                        live_slice=ls, tail=clear_tail)
 
 
 def offset_ray(p: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
@@ -148,7 +212,7 @@ def light_ray(point, ls: LightSample):
 
 
 def direct_light(point, normal, state, tables, settings: RenderSettings,
-                 active=None, excl=None):
+                 active=None, excl=None, sort=False, seg=0):
     """pointColor (render.ts:1143-1157): ``samples_per_point`` light
     samples, each with a shadow ray; emission × cosine / r² × (1/pdf).
 
@@ -162,7 +226,8 @@ def direct_light(point, normal, state, tables, settings: RenderSettings,
         ls, state = sample_lights(state, tables, settings)
         dirn, t_max, d_sq = light_ray(point, ls)
         shadowed = trace_any(
-            point, dirn, t_max, tables, settings, active, excl
+            point, dirn, t_max, tables, settings, active, excl, sort=sort,
+            seg=seg,
         )
         vis = torch.where(shadowed, 0.0, 1.0)
         cosine = torch.clamp(sdot3(dirn, normal), min=0.0)
@@ -221,8 +286,9 @@ def path_trace(
             if seg == 0
             else torch.full((r,), F32_MAX, dtype=torch.float32, device=dev)
         )
+        sort_here = seg > 0
         hit = trace_closest(o, d, t_max, tables, settings, alive, excl,
-                            primary=seg == 0)
+                            primary=seg == 0, sort=sort_here, seg=seg)
         if seg == 0:
             first_hit = hit
 
@@ -255,7 +321,8 @@ def path_trace(
 
         if settings.next_event_estimation:
             nee, state = direct_light(
-                new_o, n, state, tables, settings, active=h, excl=excl
+                new_o, n, state, tables, settings, active=h, excl=excl,
+                sort=sort_here, seg=seg,
             )
             color = torch.where(h3, color + nee * throughput, color)
             rays = rays + h.to(torch.float32).sum() * float(
@@ -275,7 +342,7 @@ def path_trace(
             blocked = trace_any(
                 new_o, ed,
                 torch.full((r,), F32_MAX, dtype=torch.float32, device=dev),
-                tables, settings, h & facing, excl,
+                tables, settings, h & facing, excl, sort=sort_here, seg=seg,
             )
             vis = h & facing & ~blocked
             w_env = balance_weight(epdf, bsdf_pdf(ed, n))
