@@ -6,8 +6,8 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
 
 1. environment: torch/CUDA/nvcc versions, the card's name and power limit;
    fails when no CUDA device is visible. TF32 is switched off.
-2. build: compiles the thirteen entries of the cluster trace kernels
-   (``wrt_trace_closest``, ``wrt_trace_any``: K1;
+2. build: compiles the fourteen entries of the cluster trace kernels
+   (``wrt_trace_closest``, ``wrt_trace_any``: K1; ``wrt_trace_binned``: K4;
    ``wrt_trace_closest_two_level``, ``wrt_trace_any_two_level``: K3;
    ``wrt_trace_pairs``: K2p; ``wrt_trace_pairs_two_level``: K3p;
    ``wrt_trace_sched``: K5; ``wrt_trace_near_closest`` / ``_any`` /
@@ -42,6 +42,19 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
    its pipelined walk; what their twins count beyond that (speculative
    slot and box tests, rounds fetched and not tested) is printed as
    ``extra_*``.
+   K4 vs its twin on the bounce leg and the two shadow legs, each sorted
+   by nearest cluster with its block schedules as ``binned_trace`` makes
+   them, as above (bound from the twin's counts); K1 capped at 4 clusters
+   with its stop, and K1 and K2n (closest-hit with ``t_start`` and the
+   carried code on the capped pass's survivors; any-hit with ``t_start``
+   on K4's survivors) vs their twins. Then the whole binned leg
+   (``binned_trace`` on the bounce rays, ``binned_trace_any`` on the
+   shadow rays) against ``sorted_trace`` and the unsorted K1 route on the
+   same rays: faces (blocked flags) identical, any exception printed with
+   whether it is an exact tie; ms per stage (top-3 key, sort, gathers, K4,
+   mid pass, drain, unsort), the device-to-host reads counted, and the
+   survivor share after pass 1 and after the mid pass; and
+   ``sorted_trace_multipass`` (cap 4) the same way.
 4. the 1080p paths through ``Renderer`` (one warm-up frame, then
    ``--frames`` timed frames; every launch count zeroed just before the
    timed frames and read just after):
@@ -65,6 +78,12 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
    under ``kernel_near``, under ``pipeline_rounds`` and under both (2
    pairs + 4 closest-hit + 6 any-hit launches of K2n / K2pl / K2n per
    frame), each against the NEE path's image.
+   The per-ray-scheduled traces, all with ``sort_bounce_rays``:
+   ``binned_sort`` (8 K4 + 6 K1 launches per frame: two K4 passes and one
+   drain per sorted leg); NEE with ``binned_any_sort`` (4 K4, 6 + 6 K1);
+   ``multipass_cap=4`` (10 K1: two passes per sorted leg); ``binned_sort``
+   under ``kernel_near`` (8 K4 + 6 K2n); each against the default or NEE
+   frame: equal NaN masks, RMSE < 1e-5.
    Every pixel must hold 2 samples per frame.
 5. direct integrator (config #1): the analytic spheres-and-plane scene at
    256x256, ``bounces_depth=1``, perspective: 2 + 2 launches per frame.
@@ -97,7 +116,7 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
       JAX meaning), one warm-up and one timed frame: 16 K3p + 32 K3
       closest-hit launches, finite image.
 
-Prints the per-kernel JSON line (thirteen kernels), then the ``nvidia-smi``
+Prints the per-kernel JSON line (fourteen kernels), then the ``nvidia-smi``
 name/power line, then ``{"ok": true, "device": {...}}`` as the last line.
 """
 
@@ -232,17 +251,21 @@ def _bound(name, work, needs=None):
 
 
 def _compare_leg(torch, name, args, card, any_hit=False, ref_code=None,
-                 needs=None):
+                 needs=None, wrapper=None):
     """One leg through the kernel entry that ``args`` is for (its
     ``variant``) and its twin on the same device tensors: codes must
     agree; closest-hit t must be bit-equal where they do. The twin counts
     the leg's work, which bounds the kernel, unless ``needs`` names the
     leg whose counts do (:func:`_bound`). ``ref_code``: K1's codes on the
-    same rays, which the kernel's must equal."""
+    same rays, which the kernel's must equal. ``wrapper``: the kernel,
+    where ``args`` is no ``prepare_tiles`` dict (K4). A capped leg
+    (``return_stop``) also returns its stop, which must be equal too."""
     from webgpu_raytracing_tpu_torch.ops import cluster_cuda as cc
 
-    wrapper, twin = (cc.trace_any_args if any_hit
-                     else cc.trace_closest_args)(args)
+    if wrapper is None:
+        wrapper = (cc.trace_any_args if any_hit
+                   else cc.trace_closest_args)(args)[0]
+    twin = wrapper.twin
     n_rays = args["o"].shape[0]
     live = int((args["t_max"] > 0).sum())
     before = wrapper.launches
@@ -256,6 +279,10 @@ def _compare_leg(torch, name, args, card, any_hit=False, ref_code=None,
     torch.cuda.synchronize()
     counted_s = time.perf_counter() - t0
     code_k, code_w = (out_k, out_w) if any_hit else (out_k[1], out_w[1])
+    if not any_hit and len(out_k) == 3 and not torch.equal(out_k[2],
+                                                          out_w[2]):
+        fail(f"{name}: kernel and twin stops differ on "
+             f"{int((out_k[2] != out_w[2]).sum())} rays")
     bad = torch.nonzero(code_k != code_w).flatten()
     mismatch = int(bad.numel())
     flag_mismatch = int(((code_k >= 0) != (code_w >= 0)).sum())
@@ -595,7 +622,8 @@ def compare_legs(torch, tables, legs, card, tile, label=""):
 
 def phase_kernel_vs_twin(torch, scene, sky, seed, card):
     """K1, K2p, K5, K2n and K2pl vs twins on frame 0's 1080p legs of the
-    slice scene → (closest, any-hit, pairs, scheduling kernels)."""
+    slice scene → (closest, any-hit, pairs, scheduling kernels, K4, the
+    hooked drain entries, the whole per-ray-scheduled legs)."""
     from webgpu_raytracing_tpu_torch.config import RenderSettings
 
     st = RenderSettings(**SLICE)
@@ -605,7 +633,295 @@ def phase_kernel_vs_twin(torch, scene, sky, seed, card):
     pairs = compare_pairs_legs(torch, tables, legs, card, st.trace_tile)
     sched = compare_scheduling_legs(torch, tables, legs, card, st.trace_tile,
                                     {**closest, **anyhit}, pairs)
-    return closest, anyhit, pairs, sched
+    k4, hooked = compare_binned_legs(torch, tables, legs, card, st.trace_tile)
+    binned = profile_binned_legs(torch, tables, legs, card, st.trace_tile)
+    return closest, anyhit, pairs, sched, k4, hooked, binned
+
+
+def _fold(torch, leg):
+    """A leg's rays with ``active`` folded into t_max → (o, d, t_max,
+    exclusion codes or None)."""
+    tm = leg["t_max"]
+    if leg.get("active") is not None:
+        tm = torch.where(leg["active"], tm, torch.zeros_like(tm))
+    return leg["o"], leg["d"], tm, leg.get("excl_code")
+
+
+def compare_binned_legs(torch, tables, legs, card, tile):
+    """K4 and the hooked drain entries vs their twins on frame 0's legs →
+    (K4 results by leg, hooked-entry results by name).
+
+    K4: the bounce leg and the two shadow legs, each sorted by nearest
+    cluster with its block schedules, as ``binned_trace`` makes them. The
+    hooks: K1 capped at 4 clusters (with its stop) on the unsorted bounce
+    leg; on that pass's survivors K1 and K2n with ``t_start`` and the
+    carried code; on K4's shadow survivors the any-hit entries of K1 and
+    K2n with ``t_start``."""
+    from webgpu_raytracing_tpu_torch.ops import cluster_cuda as cc
+    from webgpu_raytracing_tpu_torch.ops import ray_sort as rs
+
+    boxes = tables.clusters.box
+    c = boxes.shape[0]
+    kmask, miss_th = rs._key_masks(c)
+    k4, hooked = {}, {}
+    for key in ("bounce",) + SHADOW_LEGS:
+        o, d, tm, ex = _fold(torch, legs[key])
+        if o.shape[0] % tile:
+            fail(f"K4 {key}: the leg is not a whole number of blocks")
+        k1, k2 = rs.nearest_cluster_keys2(o, d, tm, boxes)
+        cid_s, perm = rs.sort_keys(rs._cid_of(k1, c))
+        o_s, d_s, tm_s, k2_s, ex_s = rs.permute_rows(perm, (o, d, tm, k2, ex))
+        del k1, k2, perm
+        sched, flag = rs._block_schedules(cid_s, o.shape[0] // tile, tile, c)
+        args = cc.binned_args(o_s, d_s, tm_s, tables, sched, ex_s, tile=tile)
+        k4[key] = _compare_leg(torch, f"K4 {LEG_NAMES[key]}", args, card,
+                               wrapper=cc.trace_binned_tiles)
+        scheduled = int((sched >= 0).sum())
+        k4[key].update(blocks=sched.shape[0], clusters_scheduled=scheduled,
+                       unscheduled_rays=int((~flag & (tm_s > 0)).sum()))
+        print(f"K4 {LEG_NAMES[key]}: {sched.shape[0]} blocks, {scheduled} "
+              f"scheduled clusters ({scheduled / sched.shape[0]:.4f} per "
+              f"block), {k4[key]['unscheduled_rays']} live rays whose "
+              "nearest cluster made no schedule", flush=True)
+        if key not in SHADOW_LEGS:
+            continue
+        # K4's shadow survivors through the any-hit drains with t_start
+        hit = cc.trace_binned_tiles(**args)[1] >= 0
+        entered2 = (k2_s & ~kmask) < miss_th
+        surv = (tm_s > 0) & ~hit & torch.where(
+            flag, entered2, cid_s < c)
+        ts = torch.where(flag & entered2, (k2_s & ~kmask).view(torch.float32),
+                         torch.zeros_like(tm_s))
+        tm3 = torch.where(surv, tm_s, torch.zeros_like(tm_s))
+        del args, hit, entered2
+        for label, kw in (("K1", {}), ("K2n", dict(near="kernel"))):
+            name = f"{label} any-hit with t_start, {LEG_NAMES[key]} survivors"
+            hooked[name] = _compare_leg(
+                torch, name, cc.prepare_tiles(o_s, d_s, tm3, tables, None,
+                                              ex_s, tile, t_start=ts, **kw),
+                card, any_hit=True)
+            hooked[name]["survivors"] = int(surv.sum())
+    o, d, tm, ex = _fold(torch, legs["bounce"])
+    name = "K1 capped at 4 clusters, bounce"
+    capped = cc.prepare_tiles(o, d, tm, tables, None, ex, tile, cap=4,
+                              return_stop=True)
+    hooked[name] = _compare_leg(torch, name, capped, card)
+    t1, c1, stop = cc.trace_closest_tiles(**capped)
+    del capped
+    surv = t1.view(torch.int32) > stop
+    hooked[name]["survivors"] = int(surv.sum())
+    print(f"{name}: {int(surv.sum())} of {int((tm > 0).sum())} live rays "
+          "survive the capped pass", flush=True)
+    tm2 = torch.where(surv, t1, torch.zeros_like(t1))
+    for label, kw in (("K1", {}), ("K2n", dict(near="kernel"))):
+        name = f"{label} with t_start and start_code, bounce survivors"
+        hooked[name] = _compare_leg(
+            torch, name, cc.prepare_tiles(
+                o, d, tm2, tables, None, ex, tile,
+                t_start=stop.view(torch.float32), start_code=c1, **kw), card)
+    return k4, hooked
+
+
+def _face_exceptions(torch, name, leg, tables, face, ref_face, what):
+    """Rays on which ``face`` differs from ``ref_face``, each printed with
+    the exact t of both faces and whether they tie → (count, exact ties).
+    Fails on a difference that is no exact tie, or on more than
+    MISMATCH_LIMIT of the rays."""
+    from webgpu_raytracing_tpu_torch.ops.cluster_trace import exact_face_eval
+
+    bad = torch.nonzero(face != ref_face).flatten()
+    ties = 0
+    inf = torch.tensor([float("inf")], device=face.device)
+    for i in bad[:1000].tolist():
+        ts = []
+        for f in (int(face[i]), int(ref_face[i])):
+            ok, t, _, _ = exact_face_eval(
+                leg["o"][i : i + 1], leg["d"][i : i + 1],
+                tables.tri[max(f, 0) : max(f, 0) + 1],
+                torch.tensor([f >= 0], device=face.device), inf)
+            ts.append(float(t[0]) if bool(ok[0]) else None)
+        tie = ts[0] is not None and ts[0] == ts[1]
+        ties += tie
+        print(f"{name}: ray {i}: face {int(face[i])} (exact t {ts[0]}), "
+              f"{what} face {int(ref_face[i])} (exact t {ts[1]})"
+              f"{', an exact tie' if tie else ''}", flush=True)
+    if ties != min(int(bad.numel()), 1000):
+        fail(f"{name}: faces differ from the {what}'s where t does not tie")
+    if bad.numel() > MISMATCH_LIMIT * face.numel():
+        fail(f"{name}: {bad.numel()} faces differ from the {what}'s")
+    return int(bad.numel()), ties
+
+
+BINNED_STAGES = ("nearest_cluster_keys2", "nearest_cluster_key", "sort_keys",
+                 "permute_rows", "trace_binned_pass", "_mid_pass",
+                 "_recompact_final_pass", "survivor_count", "unsort")
+
+
+def _staged(torch, run, drain):
+    """``run(drain)`` with every stage of ``ops/ray_sort.py`` it goes
+    through, and the drain it is given, timed on the host's clock between
+    device synchronizes → (its result, the events in the order they
+    ended: (stage, nesting depth, ms, the count a read returned))."""
+    from webgpu_raytracing_tpu_torch.ops import ray_sort as rs
+
+    events, depth = [], [0]
+
+    def timed(stage, fn):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            depth[0] += 1
+            try:
+                out = fn(*a, **kw)
+            finally:
+                depth[0] -= 1
+            torch.cuda.synchronize()
+            events.append((stage, depth[0],
+                           (time.perf_counter() - t0) * 1e3,
+                           out if stage == "survivor_count" else None))
+            return out
+        return call
+
+    real = {stage: getattr(rs, stage) for stage in BINNED_STAGES}
+    for stage, fn in real.items():
+        setattr(rs, stage, timed(stage, fn))
+    try:
+        out = timed("leg", run)(timed("drain", drain))
+    finally:
+        for stage, fn in real.items():
+            setattr(rs, stage, fn)
+    return out, events
+
+
+def _stage_summary(events):
+    """Events → ms of the leg, ms by top-level stage in order (a stage
+    that another one calls is counted inside that one; the drain kernel's
+    own call, prep and launch, is listed as ``drain``), and the counts
+    read from the device."""
+    top = {}
+    for stage, depth, ms, _ in events:
+        if depth == 1 or stage == "drain":
+            n = sum(k.split("#")[0] == stage for k in top)
+            top[f"{stage}#{n + 1}"] = round(ms, 3)
+    reads = [count for stage, _, _, count in events
+             if stage == "survivor_count"]
+    leg_ms = next(ms for stage, _, ms, _ in events if stage == "leg")
+    return leg_ms, top, reads
+
+
+def profile_binned_legs(torch, tables, legs, card, tile):
+    """The whole per-ray-scheduled legs on frame 0's rays, staged
+    (:func:`_staged`): ``binned_trace`` and ``sorted_trace_multipass`` (cap
+    4) on the bounce rays against ``sorted_trace`` and the unsorted K1
+    route (faces identical but for printed exact ties), and
+    ``binned_trace_any`` on the two shadow sets against the sorted and
+    unsorted any-hit routes (blocked flags identical) → dict by leg."""
+    from webgpu_raytracing_tpu_torch.ops import cluster_cuda as cc
+    from webgpu_raytracing_tpu_torch.ops import ray_sort as rs
+
+    fid = tables.clusters.face_id
+    out = {}
+
+    def drain(o, d, tm, tb, act, excl_code=None, **hooks):
+        return cc.trace_closest_clustered_cuda(
+            o, d, tm, tb, act, excl_code=excl_code, tile=tile, raw="code",
+            **hooks)
+
+    def drain_any(o, d, tm, tb, act, excl_code=None, t_start=None):
+        return cc.trace_any_clustered_cuda(
+            o, d, tm, tb, act, excl_code=excl_code, tile=tile,
+            t_start=t_start)
+
+    def plain(o, d, tm, tb, act, ex=None):
+        return cc.trace_closest_clustered_cuda(o, d, tm, tb, act,
+                                               excl_code=ex, tile=tile,
+                                               raw=True)
+
+    def plain_any(o, d, tm, tb, act, ex=None):
+        return cc.trace_any_clustered_cuda(o, d, tm, tb, act, excl_code=ex,
+                                           tile=tile)
+
+    def report(name, events, n_rays, live, extra):
+        leg_ms, top, reads = _stage_summary(events)
+        shares = [round(x / live, 4) for x in reads]
+        print(f"{name}: {n_rays} rays ({live} live), {leg_ms:.1f} ms; "
+              f"top-level stages in order, ms: {top}; {len(reads)} "
+              f"device-to-host reads of a count: {reads} (of the live rays: "
+              f"{shares}); {extra} ({card})", flush=True)
+        return dict(ms=leg_ms, stages=top, reads=reads,
+                    survivor_share_of_live=shares, n=n_rays, live=live)
+
+    leg = legs["bounce"]
+    o, d, tm, ex = _fold(torch, leg)
+    live = int((tm > 0).sum())
+    ref_t, ref_face = plain(o, d, tm, tables, None, ex)
+    s_t, s_face = rs.sorted_trace(plain, o, d, tm, tables, extra=ex)
+    sorted_ms = _time_cuda(
+        torch, lambda: rs.sorted_trace(plain, o, d, tm, tables, extra=ex), 2)
+    unsorted_ms = _time_cuda(
+        torch, lambda: plain(o, d, tm, tables, None, ex), 2)
+    n_sorted, _ = _face_exceptions(torch, "sorted_trace, bounce", leg,
+                                   tables, s_face, ref_face,
+                                   "unsorted K1 route")
+    traces = {
+        "binned_trace": lambda fn: rs.binned_trace(
+            fn, o, d, tm, tables, extra=ex, tile=tile),
+        "sorted_trace_multipass": lambda fn: rs.sorted_trace_multipass(
+            fn, o, d, tm, tables, extra=ex, cap=4),
+    }
+    for label, run in traces.items():
+        run(drain)  # warm-up
+        before = cc.trace_binned_tiles.launches
+        (t, face), events = _staged(torch, run, drain)
+        k4_launches = cc.trace_binned_tiles.launches - before
+        n_bad, ties = _face_exceptions(torch, f"{label}, bounce", leg, tables,
+                                       face, ref_face, "unsorted K1 route")
+        same_t = torch.equal(t[face == ref_face].view(torch.int32),
+                             ref_t[face == ref_face].view(torch.int32))
+        if not same_t:
+            fail(f"{label}: t differs from the unsorted route's where the "
+                 "faces agree")
+        out[label] = report(
+            f"{label}, bounce", events, o.shape[0], live,
+            f"{k4_launches} K4 launches; faces that differ from the unsorted "
+            f"K1 route's: {n_bad} ({ties} exact ties), from sorted_trace's: "
+            f"{int((face != s_face).sum())} (sorted_trace's own: {n_sorted}); "
+            f"sorted_trace {sorted_ms:.1f} ms, unsorted K1 route "
+            f"{unsorted_ms:.1f} ms on the same rays")
+        out[label].update(k4_launches=k4_launches, face_mismatch=n_bad,
+                          exact_ties=ties, sorted_trace_ms=sorted_ms,
+                          unsorted_route_ms=unsorted_ms)
+    for key in SHADOW_LEGS:
+        o, d, tm, ex = _fold(torch, legs[key])
+        live = int((tm > 0).sum())
+        ref = plain_any(o, d, tm, tables, None, ex)
+        if not torch.equal(rs.sorted_trace(plain_any, o, d, tm, tables,
+                                           extra=ex), ref):
+            fail(f"sorted any-hit trace, {key}: blocked set differs from the "
+                 "unsorted route's")
+        sorted_ms = _time_cuda(torch, lambda: rs.sorted_trace(
+            plain_any, o, d, tm, tables, extra=ex), 2)
+        unsorted_ms = _time_cuda(
+            torch, lambda: plain_any(o, d, tm, tables, None, ex), 2)
+        for mid in (False, True):
+            def run(fn):
+                return rs.binned_trace_any(fn, o, d, tm, tables, extra=ex,
+                                           tile=tile, mid=mid)
+
+            run(drain_any)  # warm-up
+            blocked, events = _staged(torch, run, drain_any)
+            n_bad = int((blocked != ref).sum())
+            label = f"binned_trace_any{' with mid pass' if mid else ''}"
+            out[f"{label}, {key}"] = report(
+                f"{label}, {LEG_NAMES[key]}", events, o.shape[0], live,
+                f"{int(ref.sum())} blocked; flags that differ from the "
+                f"unsorted route's: {n_bad}; sorted any-hit trace "
+                f"{sorted_ms:.1f} ms, unsorted K1 route {unsorted_ms:.1f} ms "
+                "on the same rays")
+            if n_bad:
+                fail(f"{label}, {key}: {n_bad} blocked flags differ from the "
+                     "unsorted route's")
+    return out
 
 
 WRAPPERS = ("trace_closest_tiles", "trace_any_tiles",
@@ -614,7 +930,7 @@ WRAPPERS = ("trace_closest_tiles", "trace_any_tiles",
             "trace_sched_tiles", "trace_near_closest_tiles",
             "trace_near_any_tiles", "trace_near_pairs_tiles",
             "trace_pipelined_closest_tiles", "trace_pipelined_any_tiles",
-            "trace_pipelined_pairs_tiles")
+            "trace_pipelined_pairs_tiles", "trace_binned_tiles")
 
 
 def launches_per_frame(**counts):
@@ -858,6 +1174,20 @@ def phase_scheduling_paths(torch, scene, base, default_img, nee_st, nee_img,
         exact_nee.replace(kernel_near=True, pipeline_rounds=True),
         dict(near_pairs=2, near_closest=4, near_any=6), nee_img, "NEE frame",
         finite=False)
+    # the per-ray-scheduled traces: per sorted leg (4 a frame) two K4
+    # passes and one drain; any-hit one K4 pass and one drain; multipass
+    # a capped and a final pass
+    run("binned", "binned_sort path", sorted_st.replace(binned_sort=True),
+        dict(closest=6, binned=8), default_img, "default frame")
+    run("binned_any_nee", "NEE path, sorted, binned_any_sort",
+        nee_st.replace(sort_bounce_rays=True, binned_any_sort=True),
+        dict(closest=6, any=6, binned=4), nee_img, "NEE frame", finite=False)
+    run("multipass", "multipass_cap=4 path",
+        sorted_st.replace(multipass_cap=4), dict(closest=10), default_img,
+        "default frame")
+    run("binned_near", "binned_sort path under kernel_near",
+        sorted_st.replace(binned_sort=True, kernel_near=True),
+        dict(near_closest=6, binned=8), default_img, "default frame")
     return paths
 
 
@@ -1153,8 +1483,8 @@ def main() -> int:
     print(f"scene: stress_scene({N_TRIANGLES}) and the {SKY_SHAPE[0]}x"
           f"{SKY_SHAPE[1]} sky distribution built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    closest, anyhit, pairs, sched = phase_kernel_vs_twin(torch, scene, sky,
-                                                         a.seed, card)
+    closest, anyhit, pairs, sched, k4, hooked, binned_legs = (
+        phase_kernel_vs_twin(torch, scene, sky, a.seed, card))
     paths = phase_paths(torch, scene, sky, a.frames, a.seed, card)
     paths["direct"] = phase_direct(torch, a.frames, a.seed, card)
     reference = phase_reference(torch)
@@ -1299,6 +1629,12 @@ def main() -> int:
         entry("trace_pipelined_pairs_clustered",
               f"{pallas}:436 (pipelined=True, pairs=True)", 12,
               sched["K2pl pairs"], "bounce"),
+        entry("trace_binned_pass",
+              f"{pallas}:953 (_kernel_binned, called from trace_binned_pass "
+              "at :1106)", 13, k4, "bounce", hooked_drain_entries=hooked,
+              whole_legs=binned_legs,
+              paths={k: paths[k] for k in ("binned", "binned_any_nee",
+                                           "multipass", "binned_near")}),
     ]}), flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all",
           flush=True)

@@ -408,6 +408,126 @@ def test_scheduling_and_sorted_frames_on_card(cuda):
         assert torch.equal(got.view(torch.int32), want.view(torch.int32)), name
 
 
+@pytest.mark.parametrize("which", ["s16", "s128", "s2"])
+def test_binned_pass_and_drain_hooks_match_twins_on_card(cuda, which):
+    """K4 and the hooked drain entries against their twins, bit for bit,
+    on the rays of test_sched_near_pipelined_kernels_match_twins_on_card:
+    K4 on the stream sorted by nearest cluster, from (t_max, -1) and from
+    a carried (t, code); K1 capped at 1, 2 and 5 clusters with its stop;
+    K1, K2pl and K2n (both walks) with ``t_start`` and ``start_code``; the
+    any-hit entries of K1 and K2n with ``t_start``. Then the binned and
+    multipass traces on the card against the plain K1 route."""
+    from webgpu_raytracing_tpu_torch.models.stress import stress_scene
+    from webgpu_raytracing_tpu_torch.ops import ray_sort
+
+    if which == "s2":
+        tables = stress_scene(5000).tables(cuda, cluster_size=2, group_size=0)
+    else:
+        tables = _small_scene().tables(
+            cuda, cluster_size=16 if which == "s16" else 128, group_size=0)
+    ct = tables.clusters
+    o, d, tmax, active, excl = _mixed_rays(5120, 47, ct.face_id.numel())
+    if which == "s2":
+        o = o * 4.0 + np.array([0.0, 12.0, 0.0], np.float32)
+        d[:, 1] = -np.abs(d[:, 1])
+
+    def t(a, dt=None):
+        return torch.as_tensor(a, dtype=dt, device=cuda)
+
+    o, d, tmax, active, excl = (t(o), t(d), t(tmax), t(active),
+                                t(excl, torch.int32))
+    tm = torch.where(active, tmax, torch.zeros_like(tmax))
+
+    def check(wrapper, args):
+        before = wrapper.launches
+        got = wrapper(**args)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1
+        _assert_same(got, wrapper.twin(**args))
+        return got
+
+    # K4 on the sorted stream, then again from what it carried out
+    c = ct.box.shape[0]
+    k1, k2 = ray_sort.nearest_cluster_keys2(o, d, tm, ct.box)
+    cid_s, perm = ray_sort.sort_keys(ray_sort._cid_of(k1, c))
+    sched, flag = ray_sort._block_schedules(cid_s, 5120 // 128, 128, c)
+    assert int((sched[:, 1] >= 0).sum()) > 0, sched
+    o_s, d_s, tm_s, ex_s = ray_sort.permute_rows(perm, (o, d, tm, excl))
+    t1, c1 = check(cc.trace_binned_tiles,
+                   cc.binned_args(o_s, d_s, tm_s, tables, sched, ex_s))
+    assert int((c1 >= 0).sum()) > 10
+    # the two entries in two passes, the second from what the first carried
+    # (and an empty first entry): the one pass's result
+    none = torch.full_like(sched[:, :1], -1)
+    ta, ca = check(cc.trace_binned_tiles, cc.binned_args(
+        o_s, d_s, tm_s, tables, torch.cat([none, sched[:, 1:]], 1), ex_s))
+    assert int((ca >= 0).sum()) <= int((c1 >= 0).sum())
+    _assert_same(check(cc.trace_binned_tiles, cc.binned_args(
+        o_s, d_s, ta, tables, torch.cat([sched[:, :1], none], 1), ex_s,
+        start_code=ca)), (t1, c1))
+
+    # capped K1 and its stop: every ray the cap changed is a survivor
+    rays = (o, d, tmax, tables, active, excl)
+    full = cc.trace_closest_tiles(**cc.prepare_tiles(*rays))
+    survivors = []
+    for cap in (1, 2, 5):
+        tc, cc_, stop = check(cc.trace_closest_tiles, cc.prepare_tiles(
+            *rays, cap=cap, return_stop=True))
+        surv = tc.view(torch.int32) > stop
+        assert not bool(((cc_ != full[1]) & ~surv).any())
+        survivors.append(int(surv.sum()))
+    assert survivors[-1] <= survivors[0] < 5120 and survivors[0] > 0
+
+    # t_start and start_code on every entry that takes them: the second
+    # pass after a walk capped at 2 completes the uncapped result
+    tc, cc_, stop = cc.trace_closest_tiles(**cc.prepare_tiles(
+        *rays, cap=2, return_stop=True))
+    surv = tc.view(torch.int32) > stop
+    tm2 = torch.where(surv, tc, torch.zeros_like(tc))
+    hooks = dict(t_start=stop.view(torch.float32), start_code=cc_)
+    for wrapper, kw in (
+        (cc.trace_closest_tiles, {}),
+        (cc.trace_pipelined_closest_tiles, dict(pipelined=True)),
+        (cc.trace_near_closest_tiles, dict(near="kernel")),
+        (cc.trace_near_closest_tiles, dict(near="kernel", pipelined=True)),
+    ):
+        args = cc.prepare_tiles(o, d, tm2, tables, None, excl, **hooks, **kw)
+        assert cc.trace_closest_args(args)[0] is wrapper
+        t3, c3 = check(wrapper, args)
+        _assert_same(torch.where(surv, c3, cc_), full[1])
+        _assert_same(torch.where(surv, t3, tc), full[0])
+    ref_any = cc.trace_any_tiles(**cc.prepare_tiles(*rays)) >= 0
+    ts_any = torch.where(flag, (k2[perm] & ~ray_sort._key_masks(c)[0])
+                         .view(torch.float32), torch.zeros_like(tm_s))
+    for wrapper, kw in ((cc.trace_any_tiles, {}),
+                        (cc.trace_near_any_tiles, dict(near="kernel"))):
+        args = cc.prepare_tiles(o_s, d_s, tm_s, tables, None, ex_s,
+                                t_start=ts_any, **kw)
+        a3 = check(wrapper, args)
+        _assert_same(((a3 >= 0) | (c1 >= 0))[torch.argsort(perm)], ref_any)
+
+    # the whole traces on the card
+    def drain(o_, d_, tm_, tb_, act_, excl_code=None, **h):
+        return cc.trace_closest_clustered_cuda(
+            o_, d_, tm_, tb_, act_, excl_code=excl_code, raw="code", **h)
+
+    def drain_any(o_, d_, tm_, tb_, act_, excl_code=None, t_start=None):
+        return cc.trace_any_clustered_cuda(
+            o_, d_, tm_, tb_, act_, excl_code=excl_code, t_start=t_start)
+
+    want = (full[0][:5120], cc.code_to_face(full[1][:5120], ct.face_id))
+    before = cc.trace_binned_tiles.launches
+    _assert_same(ray_sort.binned_trace(drain, *rays[:3], tables, active,
+                                       extra=excl), want)
+    assert cc.trace_binned_tiles.launches == before + 2
+    _assert_same(ray_sort.sorted_trace_multipass(
+        drain, *rays[:3], tables, active, extra=excl, cap=2), want)
+    for mid in (False, True):
+        _assert_same(ray_sort.binned_trace_any(
+            drain_any, *rays[:3], tables, active, extra=excl, mid=mid),
+            ref_any)
+
+
 def _mini_scene():
     return scene_from_facesets(
         [

@@ -103,6 +103,14 @@ def test_render_settings_match_jax():
     assert set(tf) - set(jf) == set(tcfg.PORT_ONLY_FIELDS) == {"kernel_near"}
     jd, td = jcfg.RenderSettings(), tcfg.RenderSettings()
     assert td.kernel_near is False
+    # the binned and multipass traces: the JAX fields, all off as there
+    ported = ("binned_sort", "binned_any_sort", "multipass_cap",
+              "multipass_passes")
+    assert set(ported) <= set(tf) & set(jf)
+    assert not set(ported) & (set(tcfg.OMITTED_FIELDS)
+                              | set(tcfg.DEFAULT_DEVIATIONS))
+    assert (td.binned_sort, td.binned_any_sort, td.multipass_cap,
+            td.multipass_passes) == (False, False, 0, 2)
     assert set(tcfg.DEFAULT_DEVIATIONS) <= set(tf) & set(jf)
     for name in set(tf) & set(jf):
         a, b = getattr(jd, name), getattr(td, name)

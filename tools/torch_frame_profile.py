@@ -2,6 +2,7 @@
 
     python3 tools/torch_frame_profile.py [--frames 2] [--width 1920 --height 1080]
         [--trace-sched J] [--kernel-near] [--pipeline-rounds] [--sort]
+        [--binned] [--multipass-cap N]
 
 Renders the main-path slice (``stress_scene(44_556)``, default path
 settings, procedural sky) on the first CUDA device: one warm-up frame,
@@ -11,7 +12,10 @@ kernel, rederive, environment, the ray sort = key, sort, gathers, live
 count and unsort of ops/ray_sort.py, the rest of the integrator). The
 flags set ``trace_sched``, ``kernel_near``, ``pipeline_rounds`` and
 ``sort_bounce_rays`` (with ``live_slice``), so those frames get the same
-table. Prints the
+table; ``--binned`` and ``--multipass-cap`` (both imply ``--sort``) set
+``binned_sort`` and ``multipass_cap``, whose keys, sorts, gathers, count
+reads and unsorts fall into the ray sort's range and whose K4 launches
+into the kernel's. Prints the
 GPU span of each layer, the kernels' busy share of the frame's GPU span,
 the top CUDA kernels, and one JSON line with the numbers. The card's name
 and power limit (nvidia-smi) are printed beside them. Fails without a
@@ -35,9 +39,10 @@ LAYERS = ("raygen", "trace_prep", "kernel", "rederive", "environment",
 # the stages of sorted_trace that are the sort's own, and the function of
 # ops/ray_sort.py that each is (the traced leg between them has the ranges
 # of its own prep and kernel)
-SORT_STAGES = {"key": "nearest_cluster_key", "sort": "sort_keys",
+SORT_STAGES = {"key": "nearest_cluster_key", "key_top_n":
+               "nearest_cluster_keys2", "sort": "sort_keys",
                "gather": "permute_rows", "count": "live_count",
-               "unsort": "unsort"}
+               "survivor_count": "survivor_count", "unsort": "unsort"}
 
 
 def _wrap(mod, name, label, record_function):
@@ -60,7 +65,10 @@ def main() -> int:
     ap.add_argument("--kernel-near", action="store_true")
     ap.add_argument("--pipeline-rounds", action="store_true")
     ap.add_argument("--sort", action="store_true")
+    ap.add_argument("--binned", action="store_true")
+    ap.add_argument("--multipass-cap", type=int, default=0)
     a = ap.parse_args()
+    a.sort = a.sort or a.binned or a.multipass_cap > 0
 
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -94,7 +102,8 @@ def main() -> int:
                         bounces_depth=4, environment="procedural",
                         trace_sched=a.trace_sched, kernel_near=a.kernel_near,
                         pipeline_rounds=a.pipeline_rounds,
-                        sort_bounce_rays=a.sort, live_slice=True)
+                        sort_bounce_rays=a.sort, live_slice=True,
+                        binned_sort=a.binned, multipass_cap=a.multipass_cap)
     r = Renderer(stress_scene(44_556), st, base_seed=a.seed, device="cuda")
     r.step()
     torch.cuda.synchronize()
@@ -147,7 +156,8 @@ def main() -> int:
         "card": card, "frames": a.frames, "width": a.width,
         "height": a.height, "trace_sched": a.trace_sched,
         "kernel_near": a.kernel_near, "pipeline_rounds": a.pipeline_rounds,
-        "sort": a.sort, "frame_ms": frame_ms,
+        "sort": a.sort, "binned": a.binned,
+        "multipass_cap": a.multipass_cap, "frame_ms": frame_ms,
         "gpu_span_ms": layer_ms["frame"], "gpu_busy_ms": busy_ms,
         "layers_ms": {k: layer_ms[k] for k in LAYERS}, "other_ms": rest,
         "rays_per_frame": r.last_rays,

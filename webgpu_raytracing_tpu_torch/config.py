@@ -24,13 +24,25 @@ The sort is a pure reordering with identical results; DEFAULT_DEVIATIONS
 lists the fields whose default here differs from the JAX package's, with
 the reason.
 
+``binned_sort``, ``binned_any_sort``, ``multipass_cap`` and
+``multipass_passes`` are the JAX fields too, with its defaults (all off):
+on sorted legs of single-level tables, the per-ray-scheduled traces of
+ops/ray_sort.py. ``binned_sort``: closest-hit legs run each ray's nearest
+cluster, then the second nearest, through K4 (``wrt_trace_binned``) and
+only the survivors through the drain kernel; shadow legs too, and those
+alone with ``binned_any_sort``. ``multipass_cap`` > 0: closest-hit legs run
+at most that many clusters per tile, and the survivors are regrouped and
+traced again, ``multipass_passes`` passes in all. Each returns the plain
+sorted trace's results; on two-level tables, on exact-pairs legs, and for
+``multipass_cap`` with a kernel that takes no cap (``trace_sched``,
+``kernel_near``, ``pipeline_rounds``) the plain sorted trace runs instead,
+as in the JAX package.
+
 Fields of the JAX ``RenderSettings`` left out of this one (OMITTED_FIELDS):
 
 * the TPU kernel schedule knobs, which change how the Pallas kernel runs
   and never what it returns: ``tiles_per_step``, ``lockstep_tiles``,
   ``trace_gang``, ``trace_gang_frac``, ``mm_passes`` and ``approx_div``;
-* the multipass and binned traces, not ported yet: ``multipass_cap``,
-  ``multipass_passes``, ``binned_sort``, ``binned_any_sort``;
 * ``chained_sort``, the result-neutral variant of the ray sort that
   permutes the whole path state once per segment.
 
@@ -95,10 +107,6 @@ OMITTED_FIELDS = frozenset(
         "trace_gang",
         "trace_gang_frac",
         "mm_passes",
-        "multipass_cap",
-        "multipass_passes",
-        "binned_sort",
-        "binned_any_sort",
         "approx_div",
         "chained_sort",
     }
@@ -196,6 +204,11 @@ class RenderSettings:
     # the ray sort of bounce and shadow legs (ops/ray_sort.py)
     sort_bounce_rays: bool = False  # JAX: True (DEFAULT_DEVIATIONS)
     live_slice: bool = True
+    # the per-ray-scheduled sorted traces (module docstring); all off
+    multipass_cap: int = 0
+    multipass_passes: int = 2
+    binned_sort: bool = False
+    binned_any_sort: bool = False
 
     @property
     def reproject(self) -> bool:
@@ -228,6 +241,11 @@ def check_supported(settings: RenderSettings) -> None:
         raise ValueError(
             f"trace_sched must be one of {TRACE_SCHED_VALUES}, got "
             f"{settings.trace_sched}"
+        )
+    if settings.multipass_cap < 0 or settings.multipass_passes < 2:
+        raise ValueError(
+            "multipass_cap must be >= 0 and multipass_passes >= 2, got "
+            f"{settings.multipass_cap} and {settings.multipass_passes}"
         )
 
 

@@ -1,6 +1,6 @@
 // Closest-hit, any-hit and exact-pairs cluster traces for NVIDIA Hopper
 // (sm_90a): single-level (K1, K2p, and the tile-scheduling forms K5, K2n,
-// K2pl) and two-level (K3, K3p).
+// K2pl) and two-level (K3, K3p); and the binned pass K4.
 //
 // K1 (`trace_kernel<Exact>`) replaces the TPU kernels of
 // webgpu_raytracing_tpu/ops/cluster_pallas.py in non-pairs mode:
@@ -64,6 +64,34 @@
 // pipelined TPU kernel, a round fetched on a stale bound is applied only if
 // the fresh bound still admits it (`pending_n`, :683), so one fetch per tile
 // may be wasted and no result changes.
+//
+// K4 (`wrt_trace_binned`, `trace_binned_kernel`) replaces `_kernel_binned`
+// (:953, called from `trace_binned_pass` at :1106; RenderSettings.binned_sort
+// and .binned_any_sort): one block per 128-ray block of a ray stream sorted
+// by each ray's nearest cluster. The block reads its two schedule entries
+// (s0, s1; -1 = skip) and every thread tests s0's slots, then s1's on top of
+// the best it carries, by K1's own gate and slot test (`walk_plain` over a
+// two-entry order with no entry distances, so the walk never stops early).
+// No loop over a shortlist, no bound from the tile: the rays that need more
+// than these two clusters are the caller's survivors (ops/ray_sort.py).
+// What is not carried over from the TPU kernel: its blocks_per_step grid
+// folding, the bf16 split of the matmul, and the packed (t | slot) key that
+// rides its output refs between the two rounds. A K4 leg reads each ray once
+// (52 bytes in and out) and tests one or two clusters per ray, so at the
+// slice's shapes its bound is the slot tests' f32 operations.
+//
+// The drain hooks (JAX `t_start`, `cap`, `return_stop` of
+// `trace_closest_clustered_pallas`, :1613-1645, and the carried best of the
+// multipass and binned traces): `Walk::cap` > 0 makes K1 walk only the first
+// `cap` entries of each tile's order, and `Walk::stop_out` receives, per ray,
+// the bits of the first entry distance its tile did not walk (0x7FFFFFFF when
+// the order is exhausted or the next entry is the F32_MAX sentinel): a ray
+// whose best t is not above it is finished. `Walk::t_start` (K2n only; for
+// an order sorted outside the mask is applied there) leaves a ray's entry
+// into a box out of the tile minimum when it lies below the ray's t_start.
+// `Walk::code0` starts a closest-hit search from (t_max, code0) instead of
+// (t_max, -1): a later pass that carries an earlier pass's best (t, code) in
+// keeps K1's tie rule, the lower code at equal t.
 //
 // One slab test serves every entry point, and the walks (each thread on its
 // own from the tables; the block in staged rounds; the two-level one) are
@@ -204,6 +232,11 @@ struct Walk {
   int slots;
   float eps2;
   int group;           // two-level: G children per super; 0: single-level
+  // the drain hooks (header); all absent when zero
+  const float* t_start;  // (R,) K2n: entries below it are left out
+  const int* code0;      // (R,) closest-hit: the code carried in beside t_max
+  int cap;               // K1: walk at most this many entries of the order
+  int* stop_out;         // (R,) K1: bits of the first entry not walked
 };
 
 // Slab test of one ray against one box (min.xyz, max.xyz) → (near, far),
@@ -266,7 +299,8 @@ struct Exact {
       : r{in.o[3 * ray],      in.o[3 * ray + 1],      in.o[3 * ray + 2],
           in.d[3 * ray],      in.d[3 * ray + 1],      in.d[3 * ray + 2],
           w.inv_d[3 * ray],   w.inv_d[3 * ray + 1],   w.inv_d[3 * ray + 2]},
-        ex(w.excl[ray]), best(w.t_max[ray]), best_code(-1) {}
+        ex(w.excl[ray]), best(w.t_max[ray]),
+        best_code(!kAnyHit && w.code0 ? w.code0[ray] : -1) {}
 
   // stop and skip bound: the best t (any-hit: t_max)
   __device__ __forceinline__ float bound() const { return best; }
@@ -526,7 +560,15 @@ struct SharedOrder {
   __device__ __forceinline__ int cid(int k) const { return ord[k]; }
 };
 
-// The walk of K1, K2p and K2n: each thread on its own, clusters read from
+// ... or (K4) the block's two schedule entries, with no entry distances: -1
+// is below every bound, so the walk never stops on one.
+struct SchedOrder {
+  int c0, c1, n;
+  __device__ __forceinline__ float near(int) const { return -1.0f; }
+  __device__ __forceinline__ int cid(int k) const { return k == 0 ? c0 : c1; }
+};
+
+// The walk of K1, K2p, K2n and K4: each thread on its own, clusters read from
 // the tables.
 template <class Search, class Order>
 __device__ __forceinline__ void walk_plain(Search& s, const Order& ord,
@@ -643,8 +685,33 @@ __global__ void trace_kernel(typename Search::In in, Walk w) {
   const long long tile = blockIdx.x;
   const long long ray = tile * blockDim.x + threadIdx.x;
   Search s(in, w, ray);
-  walk_plain(s, GlobalOrder{w.snear + tile * w.n_cols,
-                            w.order + tile * w.n_cols, w.n_cols}, in, w);
+  const float* srow = w.snear + tile * w.n_cols;
+  const int n = (w.cap > 0 && w.cap < w.n_cols) ? w.cap : w.n_cols;
+  walk_plain(s, GlobalOrder{srow, w.order + tile * w.n_cols, n}, in, w);
+  s.store(in, ray);
+  if (w.stop_out) {
+    // the first entry distance the tile did not walk (-0 made +0), as bits
+    int stop = 0x7fffffff;
+    if (n < w.n_cols && srow[n] < __uint_as_float(kF32MaxBits))
+      stop = __float_as_int(srow[n] + 0.0f);
+    w.stop_out[ray] = stop;
+  }
+}
+
+// K4: one block per 128-ray block of the sorted stream, one thread per ray,
+// over the block's schedule entries (s0, s1), -1 entries left out.
+template <class Search>
+__global__ void trace_binned_kernel(typename Search::In in, Walk w,
+                                    const int* sched) {
+  const long long blk = blockIdx.x;
+  const long long ray = blk * blockDim.x + threadIdx.x;
+  Search s(in, w, ray);
+  int s0 = sched[2 * blk], s1 = sched[2 * blk + 1];
+  if (s0 < 0) {
+    s0 = s1;
+    s1 = -1;
+  }
+  walk_plain(s, SchedOrder{s0, s1, (s0 >= 0) + (s1 >= 0)}, in, w);
   s.store(in, ray);
 }
 
@@ -672,7 +739,8 @@ __global__ void trace_staged_kernel(typename Search::In in, Walk w, int jblk,
 // F32_MAX; -0 is made +0 and the minimum is taken on the float's bits, within
 // the warp and then across warps with one shared atomic each. Clusters that
 // no ray enters keep F32_MAX and are left out of the order: no bound exceeds
-// F32_MAX, so no walk would reach them. Shared memory: 12 bytes per cluster
+// F32_MAX, so no walk would reach them. With `Walk::t_start` a ray's entry
+// below its own t_start is left out of the minimum. Shared memory: 12 bytes per cluster
 // (distance, candidate list, order) before the staging buffers.
 template <class Search>
 __global__ void trace_near_kernel(typename Search::In in, Walk w,
@@ -687,6 +755,8 @@ __global__ void trace_near_kernel(typename Search::In in, Walk w,
   const long long ray = (long long)blockIdx.x * blockDim.x + tid;
   Search s(in, w, ray);
   const float tmax = w.t_max[ray];
+  const bool masked = w.t_start != nullptr;  // block-uniform
+  const float ts = masked ? w.t_start[ray] : 0.0f;
 
   for (int c = tid; c < n_boxes; c += blockDim.x) s_dist[c] = kF32MaxBits;
   if (tid == 0) s_n = 0;
@@ -695,8 +765,11 @@ __global__ void trace_near_kernel(typename Search::In in, Walk w,
     float near_t, far_t;
     slab(w.box + 6 * c, s.r, near_t, far_t);
     unsigned v = kF32MaxBits;
-    if ((near_t < far_t) && (near_t < tmax) && (far_t > 0.0f))
-      v = __float_as_uint(fmaxf(near_t, 0.0f) + 0.0f);  // -0 → +0
+    if ((near_t < far_t) && (near_t < tmax) && (far_t > 0.0f)) {
+      const float entry = fmaxf(near_t, 0.0f) + 0.0f;  // -0 → +0
+      // t_start: an entry below it was run by an earlier pass (NaN: all)
+      if (!masked || entry >= ts) v = __float_as_uint(entry);
+    }
     v = __reduce_min_sync(0xffffffffu, v);
     if ((tid & 31) == 0 && v != kF32MaxBits) atomicMin(&s_dist[c], v);
   }
@@ -870,13 +943,30 @@ extern "C" int wrt_trace_closest(
     const float* o, const float* d, const float* inv_d, const float* t_max,
     const int* excl, const float* snear, const int* order, int n_cols,
     const float* box, const int* face_id, int slots, const float* tri,
-    float eps2, float* t_out, int* code_out, int n_tiles, int tile,
-    void* stream) {
+    float eps2, const int* code0, int cap, int* stop_out, float* t_out,
+    int* code_out, int n_tiles, int tile, void* stream) {
+  if (cap < 0) return (int)cudaErrorInvalidValue;
   return launch<Exact<false>>(
       ExactIn{o, d, tri, t_out, code_out},
       Walk{inv_d, t_max, excl, snear, order, n_cols, box, face_id, slots,
-           eps2, 0},
+           eps2, 0, nullptr, code0, cap, stop_out},
       n_tiles, tile, stream);
+}
+
+// K4: `sched` is (n_blocks, 2) cluster ids, -1 = skip
+extern "C" int wrt_trace_binned(
+    const float* o, const float* d, const float* inv_d, const float* t_max,
+    const int* excl, const int* sched, const float* box, const int* face_id,
+    int slots, const float* tri, float eps2, const int* code0, float* t_out,
+    int* code_out, int n_blocks, int tile, void* stream) {
+  if (n_blocks > 0)
+    trace_binned_kernel<Exact<false>>
+        <<<n_blocks, tile, 0, (cudaStream_t)stream>>>(
+            ExactIn{o, d, tri, t_out, code_out},
+            Walk{inv_d, t_max, excl, nullptr, nullptr, 0, box, face_id, slots,
+                 eps2, 0, nullptr, code0, 0, nullptr},
+            sched);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int wrt_trace_any(
@@ -963,12 +1053,12 @@ extern "C" int wrt_trace_pipelined_closest(
     const float* o, const float* d, const float* inv_d, const float* t_max,
     const int* excl, const float* snear, const int* order, int n_cols,
     const float* box, const int* face_id, int slots, const float* tri,
-    float eps2, float* t_out, int* code_out, int n_tiles, int tile,
-    void* stream) {
+    float eps2, const int* code0, float* t_out, int* code_out, int n_tiles,
+    int tile, void* stream) {
   return launch_staged<Exact<false>>(
       ExactIn{o, d, tri, t_out, code_out},
       Walk{inv_d, t_max, excl, snear, order, n_cols, box, face_id, slots,
-           eps2, 0},
+           eps2, 0, nullptr, code0, 0, nullptr},
       n_tiles, tile, 1, 1, stream);
 }
 
@@ -1000,24 +1090,26 @@ extern "C" int wrt_trace_pipelined_pairs(
 extern "C" int wrt_trace_near_closest(
     const float* o, const float* d, const float* inv_d, const float* t_max,
     const int* excl, int n_boxes, const float* box, const int* face_id,
-    int slots, const float* tri, float eps2, int pipelined, float* t_out,
-    int* code_out, int n_tiles, int tile, void* stream) {
+    int slots, const float* tri, float eps2, int pipelined,
+    const float* t_start, const int* code0, float* t_out, int* code_out,
+    int n_tiles, int tile, void* stream) {
   return launch_near<Exact<false>>(
       ExactIn{o, d, tri, t_out, code_out},
       Walk{inv_d, t_max, excl, nullptr, nullptr, n_boxes, box, face_id, slots,
-           eps2, 0},
+           eps2, 0, t_start, code0, 0, nullptr},
       n_tiles, tile, pipelined, stream);
 }
 
 extern "C" int wrt_trace_near_any(
     const float* o, const float* d, const float* inv_d, const float* t_max,
     const int* excl, int n_boxes, const float* box, const int* face_id,
-    int slots, const float* tri, float eps2, int pipelined, int* code_out,
-    int n_tiles, int tile, void* stream) {
+    int slots, const float* tri, float eps2, int pipelined,
+    const float* t_start, int* code_out, int n_tiles, int tile,
+    void* stream) {
   return launch_near<Exact<true>>(
       ExactIn{o, d, tri, nullptr, code_out},
       Walk{inv_d, t_max, excl, nullptr, nullptr, n_boxes, box, face_id, slots,
-           eps2, 0},
+           eps2, 0, t_start, nullptr, 0, nullptr},
       n_tiles, tile, pipelined, stream);
 }
 

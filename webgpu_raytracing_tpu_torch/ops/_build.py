@@ -14,7 +14,11 @@ Entry points (``csrc/cluster_trace.cu``): ``wrt_trace_closest`` and
 ``jblk`` clusters), ``wrt_trace_near_closest`` / ``_any`` / ``_pairs`` (K2n,
 the tile entry distances inside the kernel) and
 ``wrt_trace_pipelined_closest`` / ``_any`` / ``_pairs`` (K2pl, the next
-cluster fetched while the current one is tested); and ``wrt_error_string``.
+cluster fetched while the current one is tested); ``wrt_trace_binned`` (K4,
+the two scheduled clusters of each block of a sorted ray stream); and
+``wrt_error_string``. The closest-hit entries of K1, K2pl and K2n and K4
+take the code carried in beside t_max (or null), K1's also the cap and the
+stop output, K2n's closest-hit and any-hit entries the per-ray ``t_start``.
 :func:`load` raises if the library lacks any of them.
 
 Flags: ``--fmad=false`` keeps every product rounded before its add (the
@@ -112,9 +116,14 @@ def _entries():
     # K2n takes the number of boxes in place of snear, order, n_cols, and
     # the pipelined flag after its search's inputs
     near_head = head[:5] + [i] + head[8:] + [i]
+    # K4 takes the block schedules in place of snear, order, n_cols
+    binned_head = head[:5] + [p] + head[8:]
     near_pairs_head = pairs_head[:4] + [i] + pairs_head[7:] + [i]
     return {
-        "wrt_trace_closest": (i, head + [p, p] + tail),  # t_out, code_out
+        # code0, cap, stop_out, t_out, code_out
+        "wrt_trace_closest": (i, head + [p, i, p, p, p] + tail),
+        # code0, t_out, code_out
+        "wrt_trace_binned": (i, binned_head + [p, p, p] + tail),
         "wrt_trace_any": (i, head + [p] + tail),  # code_out
         # group, t_out, code_out
         "wrt_trace_closest_two_level": (i, head + [i, p, p] + tail),
@@ -122,11 +131,13 @@ def _entries():
         "wrt_trace_pairs": (i, pairs_head + pairs_out + tail),
         "wrt_trace_pairs_two_level": (i, pairs_head + [i] + pairs_out + tail),
         "wrt_trace_sched": (i, head + [i, p, p] + tail),  # jblk, t, code
-        "wrt_trace_pipelined_closest": (i, head + [p, p] + tail),
+        # code0, t_out, code_out
+        "wrt_trace_pipelined_closest": (i, head + [p, p, p] + tail),
         "wrt_trace_pipelined_any": (i, head + [p] + tail),
         "wrt_trace_pipelined_pairs": (i, pairs_head + pairs_out + tail),
-        "wrt_trace_near_closest": (i, near_head + [p, p] + tail),
-        "wrt_trace_near_any": (i, near_head + [p] + tail),
+        # t_start, code0, t_out, code_out
+        "wrt_trace_near_closest": (i, near_head + [p, p, p, p] + tail),
+        "wrt_trace_near_any": (i, near_head + [p, p] + tail),  # t_start, code
         "wrt_trace_near_pairs": (i, near_pairs_head + pairs_out + tail),
         "wrt_error_string": (ctypes.c_char_p, [i]),
     }

@@ -28,10 +28,22 @@ the order inside the kernel, so that the plain-torch pass and the sort
 above are not run at all; K2pl fetches the next cluster while the current
 one is tested.
 
+K4 (:func:`trace_binned_tiles`, :func:`trace_binned_pass`; JAX
+``trace_binned_pass``) is the pass of the binned traces (ops/ray_sort.py):
+each 128-ray block of a ray stream sorted by nearest cluster tests the two
+clusters of its schedule, with K1's gate and slot test and no order at
+all. The drain kernels take the hooks of those traces and of the multipass
+trace (JAX ``t_start``, ``cap``, ``return_stop``): ``t_start`` leaves the
+boxes a ray entered nearer than that out of its tile's order, ``cap`` ends
+every tile's walk after that many clusters and reports where it stopped,
+and ``start_code`` carries an earlier pass's best code in beside its best
+t (given as t_max), so that a later pass keeps K1's tie rule.
+
 The wrappers (:func:`trace_closest_tiles`, :func:`trace_any_tiles`,
 :func:`trace_pairs_tiles` and their ``_two_level`` forms;
 :func:`trace_sched_tiles`; ``trace_near_{closest,any,pairs}_tiles``;
-``trace_pipelined_{closest,any,pairs}_tiles``; all made by one factory
+``trace_pipelined_{closest,any,pairs}_tiles``; :func:`trace_binned_tiles`;
+all made by one factory
 from the launcher, the twin and the keywords that tell the entries apart)
 launch their kernel entry for CUDA tensors, counting each launch in their
 own ``launches``, and run the plain twin (their ``twin``) for CPU tensors
@@ -61,6 +73,8 @@ from .strictf import scross, sdot3
 
 _INF = float(F32_MAX)
 _F32_MAX_BITS = 0x7F7FFFFF
+# the stop of a tile that walked its whole order: no best t lies above it
+STOP_DRAINED = 0x7FFFFFFF
 
 # Pairs mode (cluster_pallas.py): the validity margin, relative to the
 # magnitude |A|·|B|; the stop-rule widening in ulps of the robust best t
@@ -329,7 +343,7 @@ def _walk_setup(o, face_id, chunk, stats):
 
 
 def _walk(o, inv_d, snear, order, box, tile, bound, test, pending, stats,
-          jblk: int = 1, pipelined: bool = False):
+          jblk: int = 1, pipelined: bool = False, cap: int = 0):
     """The single-level walk of K1, K2p, K2n, K5 and K2pl, vectorized over
     the rays still walking. The order is run in rounds of ``jblk``
     clusters. A ray votes for a round when the tile distance of the
@@ -351,9 +365,14 @@ def _walk(o, inv_d, snear, order, box, tile, bound, test, pending, stats,
     extra tests and fetches are what the two kernels spend, not what
     their function needs: K5 and K2pl return K1's results from K1's
     inputs, so the least work is what the ``jblk`` 1, not pipelined walk
-    counts on the same rays, and a bound is taken from that."""
+    counts on the same rays, and a bound is taken from that.
+
+    ``cap`` > 0 (K1 only) walks the first ``cap`` entries of each tile's
+    order and no more (:func:`_tile_stop` says where that leaves a ray)."""
     dev = o.device
     n_cols = snear.shape[1]
+    if cap:
+        n_cols = min(n_cols, cap)
     tile_of = torch.arange(o.shape[0], device=dev) // tile
     live = torch.arange(o.shape[0], device=dev)
     for j in range(0, n_cols, jblk):
@@ -398,21 +417,77 @@ def _walk(o, inv_d, snear, order, box, tile, bound, test, pending, stats,
             live = live[pending(live)]
 
 
+def _tile_stop(snear, cap: int, tile: int) -> torch.Tensor:
+    """Where a walk capped at ``cap`` entries left each ray → (R,) int32:
+    the bits of the first entry distance its tile did not walk (-0 made
+    +0), or STOP_DRAINED when the order was walked to its end or the next
+    entry is the F32_MAX sentinel. The order is ascending, so every box
+    the tile has not walked is entered, by every ray, no nearer than
+    that: a ray whose best t is not above it (as int32 bits, ``bits(t) >
+    stop``) is finished, and the others go on with it as ``t_start``."""
+    n_tiles, n_cols = snear.shape
+    stop = torch.full((n_tiles,), STOP_DRAINED, dtype=torch.int32,
+                      device=snear.device)
+    if 0 < cap < n_cols:
+        nxt = snear[:, cap] + 0.0
+        stop = torch.where(nxt < _INF, nxt.view(torch.int32), stop)
+    return stop.repeat_interleave(tile)
+
+
+def _check_hooks(any_hit=False, group=0, jblk=0, pipelined=False,
+                 near=False, start_code=None, cap=0, return_stop=False):
+    """The drain hooks each kernel takes; anything else raises."""
+    if (cap or return_stop) and (any_hit or group or jblk or pipelined
+                                 or near):
+        raise ValueError(
+            "only K1's closest-hit entry takes cap and return_stop"
+        )
+    if cap < 0:
+        raise ValueError(f"cap must be >= 0, got {cap}")
+    if start_code is not None and (any_hit or group or jblk):
+        raise ValueError(
+            "start_code is for the single-level closest-hit entries of K1, "
+            "K2pl and K2n"
+        )
+
+
+def _start_codes(t_max, start_code, stats=None, more_words: int = 0):
+    """The codes a search starts from; counts the 4-byte words per ray
+    that the hooks add to a kernel's inputs and outputs (``start_code``,
+    and ``more_words``: a stop written, a ``t_start`` read)."""
+    words = more_words + (start_code is not None)
+    if words:
+        _count(stats, "hook_words", words * t_max.shape[0])
+    if start_code is not None:
+        return start_code.clone()
+    return torch.full(t_max.shape, -1, dtype=torch.int32,
+                      device=t_max.device)
+
+
 def _walk_torch(
     o, d, inv_d, t_max, excl, snear, order, box, face_id, tri, tile,
     any_hit: bool, jblk: int = 1, pipelined: bool = False,
+    start_code: Optional[torch.Tensor] = None, cap: int = 0,
+    return_stop: bool = False,
     chunk: Optional[int] = None, stats: Optional[dict] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+):
     """Plain-torch twin of K1 (both entries), of K5 (``jblk``) and of
     K2pl (``pipelined``): :func:`_walk` with the best t (any-hit: t_max,
     until the ray has a hit) as its bound and the exact slot test, in
     chunks of ``chunk`` rays (default 2**18 on a GPU, 2**15 elsewhere).
     Returns (best t, code); any-hit leaves best t at t_max. ``stats`` (a
-    dict) accumulates the work this walk does (see :func:`walk_stats`)."""
+    dict) accumulates the work this walk does (see :func:`walk_stats`).
+
+    The drain hooks (closest-hit): the search starts from (t_max,
+    ``start_code``), the best an earlier pass carried in, instead of
+    (t_max, -1), so a hit at the carried t with a lower code wins as it
+    would in one walk; ``cap`` ends the walk after that many entries
+    (K1), and ``return_stop`` adds :func:`_tile_stop` to the result."""
+    _check_hooks(any_hit, 0, jblk if jblk > 1 else 0, pipelined, False,
+                 start_code, cap, return_stop)
     chunk = _walk_setup(o, face_id, chunk, stats)
     best = t_max.clone()
-    best_code = torch.full((o.shape[0],), -1, dtype=torch.int32,
-                           device=o.device)
+    best_code = _start_codes(t_max, start_code, stats, int(return_stop))
 
     def test(rays, cids):
         _test_clusters(rays, cids, o, d, excl, face_id, tri, best, best_code,
@@ -420,7 +495,46 @@ def _walk_torch(
 
     _walk(o, inv_d, snear, order, box, tile, lambda r: best[r], test,
           (lambda r: best_code[r] < 0) if any_hit else None, stats, jblk,
-          pipelined)
+          pipelined, cap)
+    if return_stop:
+        return best, best_code, _tile_stop(snear, cap, tile)
+    return best, best_code
+
+
+def _binned_pass_torch(
+    o, d, inv_d, t_max, excl, sched, box, face_id, tri, tile,
+    start_code: Optional[torch.Tensor] = None,
+    chunk: Optional[int] = None, stats: Optional[dict] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain-torch twin of K4, in the kernel's order: every ray of block
+    b takes cluster ``sched[b, 0]``, then ``sched[b, 1]`` on top of the
+    best it carries (-1: skipped). A cluster is tested when the ray's own
+    slab test admits it, K1's gate (``near < far``, ``far > 0``, ``near <
+    best t``), with K1's exact slot test and (t, code) merge. There is no
+    order and no stop rule. Returns (best t, code), starting from (t_max,
+    ``start_code`` or -1); lanes with t_max 0 stay as they start.
+
+    The JAX kernel tests all slots of a scheduled cluster with no box
+    test, as its drain kernels do. Here the drain (K1) tests a cluster
+    only through this gate, so K4 must too: otherwise a triangle on the
+    knife edge of its cluster's box would be found by K4 and not by K1."""
+    chunk = _walk_setup(o, face_id, chunk, stats)
+    best = t_max.clone()
+    best_code = _start_codes(t_max, start_code, stats)
+    block_of = torch.arange(o.shape[0], device=o.device) // tile
+    # a block reads its two schedule entries: 8 bytes, as a table step
+    _count(stats, "table_steps", sched.shape[0])
+    for j in range(2):
+        cid_r = sched[block_of, j].long()
+        rays = torch.nonzero(cid_r >= 0).flatten()
+        cid = cid_r[rays]
+        near, far = _slab(box[cid], o[rays], inv_d[rays])
+        if stats is not None:
+            _count(stats, "box_tests", rays.numel())
+            stats["boxes_read"][cid] = True
+        consider = (near < far) & (far > 0.0) & (near < best[rays])
+        _test_clusters(rays[consider], cid[consider], o, d, excl, face_id,
+                       tri, best, best_code, False, chunk, stats)
     return best, best_code
 
 
@@ -596,7 +710,9 @@ def walk_stats(stats: dict, face_id: torch.Tensor, any_hit: bool,
     A, inv_d, t_max, excl → t1, three codes, the flag), the table entries
     (tile distance and order) the tiles stepped through, each box read,
     and the face ids of each cluster tested with, per occupied slot, the
-    triangle row (pairs: the 19 B entries of its columns). A K2n twin
+    triangle row (pairs: the 19 B entries of its columns); the drain hooks
+    add a word per ray each (the carried code, the stop, K2n's
+    ``t_start``), and K4 reads its block schedules as table steps. A K2n twin
     adds the tile entry distances' slab tests (``near_box_tests``, every
     ray against every box) and reads every box but no table entry. The
     counts of a K5 or K2pl twin include the speculative tests and fetches
@@ -615,6 +731,7 @@ def walk_stats(stats: dict, face_id: torch.Tensor, any_hit: bool,
         ray_bytes, face_bytes = 44 + (4 if any_hit else 8), 36
     n_bytes = (
         ray_bytes * stats["rays"]
+        + 4 * stats.get("hook_words", 0)
         + 8 * stats.get("table_steps", 0)
         + 24 * int(stats["boxes_read"].sum())
         + 4 * face_id.shape[1] * int(tested.sum())
@@ -634,11 +751,13 @@ def walk_stats(stats: dict, face_id: torch.Tensor, any_hit: bool,
     return out
 
 
-def _near_order(o, inv_d, t_max, box, tile, stats):
+def _near_order(o, inv_d, t_max, box, tile, stats, t_start=None):
     """K2n's first half as plain torch: each tile's entry distance into
-    every box and the stable ascending order → (snear, order)."""
+    every box (entries below a ray's ``t_start`` left out) and the stable
+    ascending order → (snear, order)."""
     snear, order = torch.sort(
-        tile_nears_fused(o, inv_d, t_max, box, tile), dim=1, stable=True
+        tile_nears_fused(o, inv_d, t_max, box, tile, t_start=t_start),
+        dim=1, stable=True,
     )
     if stats is not None:
         _count(stats, "near_box_tests", o.shape[0] * box.shape[0])
@@ -653,12 +772,17 @@ def _near_stats(stats) -> None:
 
 
 def _trace_near_torch(o, d, inv_d, t_max, excl, box, face_id, tri, tile,
-                      any_hit: bool, pipelined: bool = False, stats=None,
-                      **kw):
+                      any_hit: bool, pipelined: bool = False, t_start=None,
+                      stats=None, **kw):
     """Plain twin of K2n's closest-hit and any-hit entries → (best t,
-    code): the tile entry distances, the stable sort and K1's walk
-    (K2pl's when ``pipelined``)."""
-    snear, order = _near_order(o, inv_d, t_max, box, tile, stats)
+    code): the tile entry distances (masked by ``t_start``), the stable
+    sort and K1's walk (K2pl's when ``pipelined``; ``start_code`` as
+    there)."""
+    _check_hooks(near=True, cap=kw.get("cap", 0),
+                 return_stop=kw.get("return_stop", False))
+    snear, order = _near_order(o, inv_d, t_max, box, tile, stats, t_start)
+    if t_start is not None:
+        _count(stats, "hook_words", o.shape[0])
     out = _walk_torch(o, d, inv_d, t_max, excl, snear, order, box, face_id,
                       tri, tile, any_hit=any_hit, pipelined=pipelined,
                       stats=stats, **kw)
@@ -793,27 +917,54 @@ def _order_args(snear, order, n_cols):
     return (snear.data_ptr(), order.data_ptr(), n_cols)
 
 
+def _ptr(x) -> Optional[int]:
+    """A tensor's address, or None (a null pointer) for no tensor."""
+    return None if x is None else x.data_ptr()
+
+
 def _launch_kernel(o, d, inv_d, t_max, excl, snear, order, box, face_id,
                    tri, tile, any_hit: bool = False, group: int = 0,
-                   jblk: int = 0, pipelined: bool = False):
+                   jblk: int = 0, pipelined: bool = False, t_start=None,
+                   start_code=None, cap: int = 0,
+                   return_stop: bool = False):
     """Check the arguments and launch an exact-search entry, closest-hit
     (→ (t, code)) or any-hit (→ code): K1; K3 (``group`` = G); K5
     (``jblk`` clusters a round, closest-hit only); K2pl (``pipelined``);
-    K2n (``snear`` and ``order`` None, with or without ``pipelined``)."""
+    K2n (``snear`` and ``order`` None, with or without ``pipelined``).
+    The drain hooks as :func:`_walk_torch` and :func:`_trace_near_torch`
+    take them: ``start_code`` (closest-hit K1, K2pl, K2n), ``cap`` and
+    ``return_stop`` (closest-hit K1 → (t, code, stop)), ``t_start``
+    (K2n; for the others the order they are given is already masked)."""
     from ._build import load
 
+    near = snear is None
+    _check_hooks(any_hit, group, jblk, pipelined, near, start_code, cap,
+                 return_stop)
+    if t_start is not None and not near:
+        raise ValueError(
+            "t_start masks the tile entry distances: outside the kernel "
+            "for an order sorted outside (prepare_tiles), inside for K2n"
+        )
     tensors = dict(
         o=(o, torch.float32), d=(d, torch.float32),
         inv_d=(inv_d, torch.float32), t_max=(t_max, torch.float32),
         excl=(excl, torch.int32), box=(box, torch.float32),
         face_id=(face_id, torch.int32), tri=(tri, torch.float32),
     )
-    if snear is not None:
+    if not near:
         tensors.update(snear=(snear, torch.float32),
                        order=(order, torch.int32))
+    if t_start is not None:
+        tensors["t_start"] = (t_start, torch.float32)
+    if start_code is not None:
+        tensors["start_code"] = (start_code, torch.int32)
     dev = _check_cuda(tensors)
     r = o.shape[0]
-    if o.shape != (r, 3) or d.shape != (r, 3) or tri.shape[1:] != (9,):
+    if (
+        o.shape != (r, 3) or d.shape != (r, 3) or tri.shape[1:] != (9,)
+        or any(x is not None and x.shape != (r,)
+               for x in (t_start, start_code))
+    ):
         raise ValueError("cluster trace kernel: inconsistent shapes")
     if jblk and any_hit:
         raise ValueError("K5 has a closest-hit entry only")
@@ -826,6 +977,17 @@ def _launch_kernel(o, d, inv_d, t_max, excl, snear, order, box, face_id,
     )
     name, tail = _entry("any" if any_hit else "closest", snear, group, jblk,
                         pipelined)
+    stop_out = torch.empty((r,), dtype=torch.int32, device=dev) if (
+        return_stop) else None
+    # the hooks each entry takes, after its own arguments
+    if name == "closest":
+        tail += (_ptr(start_code), cap, _ptr(stop_out))
+    elif name == "pipelined_closest":
+        tail += (_ptr(start_code),)
+    elif name == "near_closest":
+        tail += (_ptr(t_start), _ptr(start_code))
+    elif name == "near_any":
+        tail += (_ptr(t_start),)
     head = (
         o.data_ptr(), d.data_ptr(), inv_d.data_ptr(), t_max.data_ptr(),
         excl.data_ptr(), *_order_args(snear, order, n_cols),
@@ -837,7 +999,46 @@ def _launch_kernel(o, d, inv_d, t_max, excl, snear, order, box, face_id,
     )
     _run(lib, getattr(lib, "wrt_trace_" + name), dev,
          head + outs + (n_tiles, tile))
+    if return_stop:
+        return t_out, code_out, stop_out
     return code_out if any_hit else (t_out, code_out)
+
+
+def _launch_binned(o, d, inv_d, t_max, excl, sched, box, face_id, tri, tile,
+                   start_code=None):
+    """Check the arguments and launch K4 → (t, code)."""
+    from ._build import load
+
+    tensors = dict(
+        o=(o, torch.float32), d=(d, torch.float32),
+        inv_d=(inv_d, torch.float32), t_max=(t_max, torch.float32),
+        excl=(excl, torch.int32), sched=(sched, torch.int32),
+        box=(box, torch.float32), face_id=(face_id, torch.int32),
+        tri=(tri, torch.float32),
+    )
+    if start_code is not None:
+        tensors["start_code"] = (start_code, torch.int32)
+    dev = _check_cuda(tensors)
+    r = o.shape[0]
+    if (
+        not 0 < tile <= 1024 or r % tile or sched.shape != (r // tile, 2)
+        or o.shape != (r, 3) or d.shape != (r, 3) or inv_d.shape != (r, 3)
+        or t_max.shape != (r,) or excl.shape != (r,)
+        or box.shape != (face_id.shape[0], 6) or tri.shape[1:] != (9,)
+        or (start_code is not None and start_code.shape != (r,))
+    ):
+        raise ValueError("binned pass kernel: inconsistent shapes")
+    lib = load()
+    t_out = torch.empty((r,), dtype=torch.float32, device=dev)
+    code_out = torch.empty((r,), dtype=torch.int32, device=dev)
+    _run(lib, lib.wrt_trace_binned, dev, (
+        o.data_ptr(), d.data_ptr(), inv_d.data_ptr(), t_max.data_ptr(),
+        excl.data_ptr(), sched.data_ptr(), box.data_ptr(),
+        face_id.data_ptr(), face_id.shape[1], tri.data_ptr(), EPS2,
+        _ptr(start_code), t_out.data_ptr(), code_out.data_ptr(),
+        r // tile, tile,
+    ))
+    return t_out, code_out
 
 
 def _launch_pairs(a, inv_d, t_max, excl, snear, order, box, face_id, mat_b,
@@ -1000,6 +1201,13 @@ trace_near_pairs_tiles = _wrapper(
     "trace_near_pairs_tiles", _trace_near_pairs_torch, _launch_near_pairs,
     "K2n (a, inv_d, t_max, excl, box, face_id, mat_b, tile, "
     "pipelined=False), pairs → (t1, c1, c2, c3, amb), equal to K2p's.")
+trace_binned_tiles = _wrapper(
+    "trace_binned_tiles", _binned_pass_torch, _launch_binned,
+    f"K4 {_RAYS}, sched, box, face_id, tri, tile, start_code=None): every "
+    "ray of block b of a ray stream sorted by nearest cluster tests the "
+    "clusters ``sched[b, 0]`` and ``sched[b, 1]`` (-1: none) by K1's gate "
+    "and slot test → (best t, code), starting from (t_max, start_code or "
+    "-1).")
 
 # variant of a prepare_tiles dict → its (closest-hit, any-hit, pairs)
 # wrappers; K5 has a closest-hit entry only
@@ -1026,7 +1234,9 @@ class TileArgs(dict):
 def prepare_tiles(o, d, t_max, tables, active=None, excl_code=None,
                   tile: int = 128, two_level: Optional[bool] = None,
                   pairs: bool = False, near: str = "outside",
-                  sched_rounds: int = 0, pipelined: bool = False):
+                  sched_rounds: int = 0, pipelined: bool = False,
+                  t_start=None, start_code=None, cap: int = 0,
+                  return_stop: bool = False):
     """Everything a kernel takes, as plain torch: rays padded to whole
     tiles (pad lanes inactive), inactive t_max zeroed, safe reciprocal
     directions, exclusion codes (-1 = none) and each tile's box order
@@ -1043,7 +1253,14 @@ def prepare_tiles(o, d, t_max, tables, active=None, excl_code=None,
     dict has no ``snear`` and ``order``, and carries ``pipelined``, K2n's
     choice of walk. ``sched_rounds`` (1, 2, 4, 8) adds ``jblk`` for K5;
     ``pipelined`` alone selects K2pl. All three are single-level only, and
-    K5 takes neither of the other two; anything else raises."""
+    K5 takes neither of the other two; anything else raises.
+
+    The drain hooks (single-level, not pairs; see :func:`_walk_torch`):
+    ``t_start`` (R,) masks the tile entry distances here, or goes into the
+    dict for K2n; ``start_code`` (R,), ``cap`` and ``return_stop`` go into
+    the dict for the closest-hit wrapper (``cap`` and ``return_stop``: K1's
+    only; ``start_code``: not K5's). Pad lanes get t_start 0 and code
+    -1."""
     ct = tables.clusters
     if two_level is None:
         two_level = is_two_level(ct)
@@ -1065,6 +1282,15 @@ def prepare_tiles(o, d, t_max, tables, active=None, excl_code=None,
             "hit and not pairs, over an order sorted outside, not "
             f"pipelined; got {sched_rounds}"
         )
+    hooked = (t_start is not None or start_code is not None or cap
+              or return_stop)
+    if hooked and (two_level or pairs):
+        raise ValueError(
+            "t_start, start_code, cap and return_stop are hooks of the "
+            "single-level closest-hit and any-hit entries"
+        )
+    _check_hooks(False, 0, sched_rounds, pipelined, in_near, start_code,
+                 cap, return_stop)
     if in_near and ct.box.shape[0] > NEAR_MAX_CLUSTERS:
         raise ValueError(
             f"kernel_near ranks at most {NEAR_MAX_CLUSTERS} clusters in a "
@@ -1086,6 +1312,11 @@ def prepare_tiles(o, d, t_max, tables, active=None, excl_code=None,
         excl_code = torch.cat(
             [excl_code, torch.full((pad,), -1, dtype=excl_code.dtype, device=dev)]
         )
+        if t_start is not None:
+            t_start = torch.cat([t_start, t_start.new_zeros((pad,))])
+        if start_code is not None:
+            start_code = torch.cat(
+                [start_code, start_code.new_full((pad,), -1)])
     t_max = torch.where(active, t_max, torch.zeros_like(t_max))
     inv_d = safe_inv_dir(d)
     rays = (
@@ -1098,7 +1329,8 @@ def prepare_tiles(o, d, t_max, tables, active=None, excl_code=None,
     )
     if not in_near:
         near_boxes = ct.super_box if two_level else ct.box
-        near_tc = tile_nears_fused(o, inv_d, t_max, near_boxes, tile)
+        near_tc = tile_nears_fused(o, inv_d, t_max, near_boxes, tile,
+                                   t_start=t_start)
         snear, order = torch.sort(near_tc, dim=1, stable=True)
         args.update(snear=snear.contiguous(),
                     order=order.to(torch.int32).contiguous())
@@ -1114,11 +1346,17 @@ def prepare_tiles(o, d, t_max, tables, active=None, excl_code=None,
     elif in_near:
         args.variant = "near"
         args["pipelined"] = bool(pipelined)
+        if t_start is not None:
+            args["t_start"] = t_start.contiguous()
     elif sched_rounds:
         args.variant = "sched"
         args["jblk"] = sched_rounds
     elif pipelined:
         args.variant = "pipelined"
+    if start_code is not None:
+        args["start_code"] = start_code.to(torch.int32).contiguous()
+    if cap or return_stop:
+        args.update(cap=cap, return_stop=return_stop)
     return args
 
 
@@ -1159,7 +1397,11 @@ def trace_closest_clustered_cuda(
     sched_rounds: int = 0,
     kernel_near: bool = False,
     pipelined: bool = False,
-    raw: bool = False,
+    raw=False,
+    t_start: Optional[torch.Tensor] = None,
+    start_code: Optional[torch.Tensor] = None,
+    cap: int = 0,
+    return_stop: bool = False,
 ):
     """Closest hit per ray → Hit(t, u, v, face), through K3 for two-level
     tables and K1 otherwise. Inactive rays return face -1 and t 0, misses
@@ -1180,8 +1422,31 @@ def trace_closest_clustered_cuda(
 
     ``raw`` returns what the sorted trace unsorts, before anything is
     re-derived: (best t, face), or with ``exact_pairs`` (t1, face1,
-    face2, face3, amb)."""
+    face2, face3, amb); ``raw="code"`` (best t, code), which a later pass
+    can carry on from.
+
+    The hooks of the multipass and binned traces (ops/ray_sort.py; JAX
+    ``t_start``, ``cap``, ``return_stop``), single-level tables and not
+    ``exact_pairs`` (both raise): ``t_start`` (R,) leaves every box a ray
+    enters below its own t_start out of its tile's order (an earlier pass
+    ran it); ``start_code`` (R,) is the code that pass carried beside its
+    best t, which comes in as ``t_max``: the search starts from that pair,
+    so the result is the merged best of both passes, ties to the lower
+    code as in one walk. ``cap`` > 0 ends every tile's walk after that
+    many clusters; ``return_stop`` appends the per-ray stop (int32 bits,
+    :func:`_tile_stop`): a ray is unfinished iff ``bits(t) > stop``. Only
+    K1 can cap. With ``kernel_near``, ``sched_rounds`` or ``pipelined``
+    the walk runs uncapped and the stop says so (STOP_DRAINED everywhere),
+    the JAX dispatcher's rule."""
     r0 = o.shape[0]
+    hooked = t_start is not None or start_code is not None
+    if (hooked or cap or return_stop) and (
+        exact_pairs or is_two_level(tables.clusters)
+    ):
+        raise ValueError(
+            "t_start, start_code, cap and return_stop need single-level "
+            "tables and a leg that is not exact_pairs"
+        )
     if sched_rounds and (
         sched_rounds not in SCHED_ROUNDS or is_two_level(tables.clusters)
     ):
@@ -1190,10 +1455,13 @@ def trace_closest_clustered_cuda(
             f"single-level tables; got {sched_rounds}"
         )
     jblk = 0 if (kernel_near or exact_pairs) else sched_rounds
+    can_cap = not (kernel_near or jblk or pipelined)
     args = prepare_tiles(
         o, d, t_max, tables, active, excl_code, tile, pairs=exact_pairs,
         near="kernel" if kernel_near else "outside", sched_rounds=jblk,
-        pipelined=pipelined and not jblk,
+        pipelined=pipelined and not jblk, t_start=t_start,
+        start_code=start_code, cap=cap if can_cap else 0,
+        return_stop=return_stop and can_cap,
     )
     fid = tables.clusters.face_id
     if exact_pairs:
@@ -1203,11 +1471,18 @@ def trace_closest_clustered_cuda(
             return (t1[:r0], *faces, amb[:r0])
         return adjudicate_compact(o, d, args["t_max"][:r0], t1[:r0], faces,
                                   amb[:r0], tables)
-    best_t, code = trace_closest_args(args)[0](**args)
+    best_t, code, *stop = trace_closest_args(args)[0](**args)
+    if return_stop:
+        stop = (stop[0][:r0] if can_cap else torch.full(
+            (r0,), STOP_DRAINED, dtype=torch.int32, device=o.device),)
+    best_t, code = best_t[:r0], code[:r0]
+    if raw == "code":
+        return (best_t, code, *stop)
+    face = code_to_face(code, fid)
     if raw:
-        return best_t[:r0], code_to_face(code[:r0], fid)
-    return rederive_uv(o, d, best_t[:r0], code_to_face(code[:r0], fid),
-                       tables)
+        return (best_t, face, *stop)
+    hit = rederive_uv(o, d, best_t, face, tables)
+    return (hit, *stop) if return_stop else hit
 
 
 def trace_any_clustered_cuda(
@@ -1220,16 +1495,65 @@ def trace_any_clustered_cuda(
     tile: int = 128,
     kernel_near: bool = False,
     pipelined: bool = False,
+    t_start: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Shadow-ray query → (R,) bool, True where some triangle blocks the
     ray with 0 < t < t_max, through K3 for two-level tables and K1
     otherwise; ``kernel_near`` takes K2n and ``pipelined`` K2pl (K5 has
     no any-hit entry). Inactive rays and NaN origins are unblocked.
     ``prepare_tiles`` (or K2n) feeds t_max into the tile distances, so
-    short rays prune boxes there."""
+    short rays prune boxes there. ``t_start`` as in
+    :func:`trace_closest_clustered_cuda` (single-level tables only)."""
     r0 = o.shape[0]
     args = prepare_tiles(
         o, d, t_max, tables, active, excl_code, tile,
         near="kernel" if kernel_near else "outside", pipelined=pipelined,
+        t_start=t_start,
     )
     return trace_any_args(args)[0](**args)[:r0] >= 0
+
+
+def binned_args(o, d, t_max, tables, sched, excl_code=None, start_code=None,
+                tile: int = 128) -> dict:
+    """The keyword arguments of :func:`trace_binned_tiles` for a ray
+    stream that is already sorted by nearest cluster and a whole number of
+    ``tile``-ray blocks, with ``sched`` (R // tile, 2) the two cluster ids
+    of each block (-1: none). Dead and pad lanes come with t_max 0.
+    Single-level tables only: the ids index ``clusters.box``."""
+    ct = tables.clusters
+    if ct.super_box is not None:
+        raise ValueError("the binned pass needs single-level tables")
+    r = o.shape[0]
+    if r % tile or tuple(sched.shape) != (r // tile, 2):
+        raise ValueError(
+            f"the binned pass takes whole blocks of {tile} rays and one "
+            f"(s0, s1) pair per block; got {r} rays, sched "
+            f"{tuple(sched.shape)}"
+        )
+    if excl_code is None:
+        excl_code = torch.full((r,), -1, dtype=torch.int32, device=o.device)
+    args = dict(
+        o=o.contiguous(), d=d.contiguous(),
+        inv_d=safe_inv_dir(d).contiguous(), t_max=t_max.contiguous(),
+        excl=excl_code.to(torch.int32).contiguous(),
+        sched=sched.to(torch.int32).contiguous(), box=ct.box.contiguous(),
+        face_id=ct.face_id.contiguous(), tri=tables.tri.contiguous(),
+        tile=tile,
+    )
+    if start_code is not None:
+        args["start_code"] = start_code.to(torch.int32).contiguous()
+    return args
+
+
+def trace_binned_pass(o, d, t_max, tables, sched, excl_code=None,
+                      start_code=None, tile: int = 128, codes: bool = False):
+    """One binned pass (K4; JAX ``trace_binned_pass``) over a sorted,
+    padded ray stream (:func:`binned_args`) → (t, face) in the given
+    order, or (t, code) with ``codes``; t is the exact best t, t_max on a
+    miss."""
+    t, code = trace_binned_tiles(
+        **binned_args(o, d, t_max, tables, sched, excl_code, start_code,
+                      tile))
+    if codes:
+        return t, code
+    return t, code_to_face(code, tables.clusters.face_id)

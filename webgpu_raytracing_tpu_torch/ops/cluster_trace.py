@@ -200,12 +200,19 @@ def tile_nears_fused(
     boxes: torch.Tensor,  # (C, 6)
     tile: int,
     max_elems: int = 1 << 24,
+    t_start: Optional[torch.Tensor] = None,  # (R,)
 ) -> torch.Tensor:
     """Per-tile per-cluster minimum entry distance (n_tiles, C): the
     slab test of every ray against every box (entry clamped at 0, +inf on
     a miss or when the entry is not below the ray's t_max), min-reduced
     over each tile. Same per-axis arithmetic as the JAX function; tiles
-    are processed in batches of at most ``max_elems`` ray-box pairs."""
+    are processed in batches of at most ``max_elems`` ray-box pairs.
+
+    ``t_start`` is the skip mask of the multipass and binned traces
+    (ops/ray_sort.py): a ray's entry into a box counts only when it is not
+    below the ray's ``t_start``, since an earlier pass has already run
+    every box the ray enters nearer than that. A NaN ``t_start`` masks
+    every box of its ray."""
     r = o.shape[0]
     n_tiles = r // tile
     c = boxes.shape[0]
@@ -232,5 +239,8 @@ def tile_nears_fused(
         nears = torch.where(
             hit, torch.clamp(near, min=0.0), torch.full_like(near, _INF)
         )
+        if t_start is not None:
+            nears = torch.where(nears >= t_start[sl][:, None], nears,
+                                torch.full_like(nears, _INF))
         out[t0_:t1_] = torch.amin(nears.view(t1_ - t0_, tile, c), dim=1)
     return out

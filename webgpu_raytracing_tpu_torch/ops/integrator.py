@@ -16,11 +16,15 @@ integrator :func:`trace_direct` (BASELINE config #1).
 
 With ``sort_bounce_rays`` the bounce and shadow legs of every segment
 past the first go through the ray sort (ops/ray_sort.py), a pure
-reordering with identical results.
+reordering with identical results; on single-level tables ``binned_sort``,
+``binned_any_sort`` and ``multipass_cap`` route those legs through the
+per-ray-scheduled traces of that module instead, again with identical
+results.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -28,7 +32,10 @@ import torch
 from ..config import F32_MAX, INV_PI, RenderSettings, ShadingType
 from . import detmath, rng
 from .adjudicate import adjudicate_compact
-from .cluster_cuda import trace_any_clustered_cuda, trace_closest_clustered_cuda
+from .cluster_cuda import (
+    trace_any_clustered_cuda,
+    trace_closest_clustered_cuda,
+)
 from .cluster_trace import rederive_uv
 from .env_sample import (
     EnvDistribution,
@@ -39,7 +46,12 @@ from .env_sample import (
 )
 from .envmap import sample_environment
 from .intersect import Hit
-from .ray_sort import sorted_trace
+from .ray_sort import (
+    binned_trace,
+    binned_trace_any,
+    sorted_trace,
+    sorted_trace_multipass,
+)
 from .strictf import scross, sdot3
 
 _ORIGIN = 1.0 / 32.0
@@ -51,6 +63,15 @@ def _kernel_settings(settings) -> dict:
     """The tile-scheduling settings as the dispatchers take them."""
     return dict(tile=settings.trace_tile, kernel_near=settings.kernel_near,
                 pipelined=settings.pipeline_rounds)
+
+
+def _per_ray_schedulable(tables) -> bool:
+    """Whether the binned and multipass traces apply: their keys, skip
+    masks and schedules are over the cluster boxes, so the tables must
+    have no supercluster level (the JAX package's rule; stricter here in
+    that tables whose supers are too large for the two-level kernel also
+    keep the plain sorted trace, whose key is over those supers)."""
+    return tables.clusters.super_box is None
 
 
 def trace_closest(o, d, t_max, tables, settings, active=None, excl=None,
@@ -68,7 +89,15 @@ def trace_closest(o, d, t_max, tables, settings, active=None, excl=None,
     re-derived in the original order; with ``live_slice`` segment 1
     traces the leading 0.75 of the sorted rays and later segments 0.5,
     the rest being known misses; an exact leg unsorts its three candidate
-    faces and the flag and adjudicates in the original order."""
+    faces and the flag and adjudicates in the original order.
+
+    A sorted leg that is not exact, on single-level tables, takes
+    :func:`.ray_sort.binned_trace` with ``binned_sort`` (K4, then the
+    drain kernel that ``kernel_near`` and ``pipeline_rounds`` pick; never
+    K5), else :func:`.ray_sort.sorted_trace_multipass` with
+    ``multipass_cap`` > 0 when the kernel can cap (K1: no ``trace_sched``,
+    ``kernel_near`` or ``pipeline_rounds``). Otherwise, and always on
+    two-level tables, the plain sorted trace runs."""
     exact = settings.exact_pairs and (primary or settings.exact_pairs_bounce)
     kw = dict(sched_rounds=settings.trace_sched, **_kernel_settings(settings))
     if not (sort and settings.sort_bounce_rays):
@@ -92,6 +121,23 @@ def trace_closest(o, d, t_max, tables, settings, active=None, excl=None,
         )
         return adjudicate_compact(o, d, tm_eff, tm_eff, (f1, f2, f3), amb,
                                   tables)
+    if _per_ray_schedulable(tables):
+        # the drain of both traces: the dispatcher itself, which takes
+        # their hooks by keyword and returns codes for the next pass
+        drain = functools.partial(trace_closest_clustered_cuda, raw="code",
+                                  **_kernel_settings(settings))
+        if settings.binned_sort:
+            t, face = binned_trace(drain, o, d, t_max, tables, active,
+                                   extra=excl)
+            return rederive_uv(o, d, t, face, tables)
+        if settings.multipass_cap > 0 and not (
+            settings.trace_sched or settings.kernel_near
+            or settings.pipeline_rounds
+        ):
+            t, face = sorted_trace_multipass(
+                drain, o, d, t_max, tables, active, extra=excl,
+                cap=settings.multipass_cap, passes=settings.multipass_passes)
+            return rederive_uv(o, d, t, face, tables)
     ls = None
     if settings.live_slice and seg > 0:
         ls = 0.75 if seg == 1 else 0.5
@@ -111,7 +157,9 @@ def trace_any(o, d, t_max, tables, settings, active=None, excl=None,
     two-sided face exclude its duplicate by code, as the Pallas path
     does. ``sort`` as in :func:`trace_closest` (JAX ``_trace_any``): with
     ``live_slice`` segment 1 traces the leading 0.375 of the sorted rays
-    and later segments 0.25; the rest is unblocked."""
+    and later segments 0.25; the rest is unblocked. With ``binned_sort``
+    or ``binned_any_sort``, on single-level tables, a sorted leg takes
+    :func:`.ray_sort.binned_trace_any` instead."""
     kw = _kernel_settings(settings)
     if not (sort and settings.sort_bounce_rays):
         return trace_any_clustered_cuda(
@@ -122,6 +170,12 @@ def trace_any(o, d, t_max, tables, settings, active=None, excl=None,
         return trace_any_clustered_cuda(o_, d_, tm_, tb_, act_,
                                         excl_code=ex_, **kw)
 
+    if (settings.binned_sort or settings.binned_any_sort) and (
+        _per_ray_schedulable(tables)
+    ):
+        return binned_trace_any(
+            functools.partial(trace_any_clustered_cuda, **kw), o, d, t_max,
+            tables, active, extra=excl)
     ls = None
     if settings.live_slice and seg > 0:
         ls = 0.375 if seg == 1 else 0.25
