@@ -6,14 +6,15 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
 
 1. environment: torch/CUDA/nvcc versions, the card's name and power limit;
    fails when no CUDA device is visible. TF32 is switched off.
-2. build: compiles the fourteen entries of the cluster trace kernels
+2. build: compiles the seventeen entries of the cluster trace kernels
    (``wrt_trace_closest``, ``wrt_trace_any``: K1; ``wrt_trace_binned``: K4;
    ``wrt_trace_closest_two_level``, ``wrt_trace_any_two_level``: K3;
    ``wrt_trace_pairs``: K2p; ``wrt_trace_pairs_two_level``: K3p;
    ``wrt_trace_sched``: K5; ``wrt_trace_near_closest`` / ``_any`` /
    ``_pairs``: K2n; ``wrt_trace_pipelined_closest`` / ``_any`` /
-   ``_pairs``: K2pl; csrc/cluster_trace.cu) from the checkout into
-   build/kernels/.
+   ``_pairs``: K2pl; ``wrt_trace_near_closest_two_level`` / ``_any_`` /
+   ``_pairs_two_level``: K3 and K3p ordering their supers themselves;
+   csrc/cluster_trace.cu) from the checkout into build/kernels/.
 3. K1 vs twins: on 1080p ray sets of ``stress_scene(44_556)`` made
    from frame 0 exactly as ``path_trace`` makes them, each CUDA entry and
    its plain-torch twin run on the same device tensors. Closest-hit: the
@@ -57,36 +58,46 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
    ``sorted_trace_multipass`` (cap 4) the same way.
 4. the 1080p paths through ``Renderer`` (one warm-up frame, then
    ``--frames`` timed frames; every launch count zeroed just before the
-   timed frames and read just after):
-   default (procedural sky): finite image, 6 closest-hit launches/frame;
-   NEE: 6 closest-hit + 6 any-hit launches/frame, no +-inf pixel (the
-   y = 0 floor's shading points are NaN by the reference's own offset
-   rule, so its NEE pixels are NaN; their share is printed);
+   timed frames and read just after). The default order is made inside
+   the kernel (``kernel_near``, K2n), so every default path is driven
+   twice: as it is (``tile_nears_fused`` must not be called once) and
+   with ``kernel_near=False`` (K1 / K2p over the order sorted outside),
+   and the two frames must be equal: same NaN mask, RMSE 0.
+   default (procedural sky): finite image, 6 K2n closest-hit launches per
+   frame; order outside: 6 K1;
+   NEE: 6 closest-hit + 6 any-hit launches/frame of K2n (outside: K1), no
+   +-inf pixel (the y = 0 floor's shading points are NaN by the
+   reference's own offset rule, so its NEE pixels are NaN; their share is
+   printed);
    env-IS on the synthesized equirect: 6 + 6 launches/frame, no +-inf,
    plus the time of ``sample_env`` on 2,073,600 lanes;
-   exact pairs (``exact_pairs`` and ``exact_pairs_bounce``): 6 K2p and no
-   K1 closest-hit launch per frame; its image against the default path's
-   (same seed and frame count): equal NaN masks, RMSE < 1e-5.
-   ``trace_sched=4``: 6 K5 launches and no K1 closest-hit one per frame;
-   ``kernel_near``: 6 K2n launches, and ``tile_nears_fused`` is not
-   called once; ``pipeline_rounds``: 6 K2pl launches; the sorted frame
-   (``sort_bounce_rays`` and ``live_slice``): 6 K1 launches, and one more
-   frame profiled leg by leg (live count, traced width, branch, ms of
-   key, sort, gathers, count read, trace and unsort); each against the
-   default path's image: equal NaN masks, RMSE < 1e-5.
-   NEE with the sort (sliced shadow legs), and NEE with ``exact_pairs``
-   under ``kernel_near``, under ``pipeline_rounds`` and under both (2
-   pairs + 4 closest-hit + 6 any-hit launches of K2n / K2pl / K2n per
-   frame), each against the NEE path's image.
-   The per-ray-scheduled traces, all with ``sort_bounce_rays``:
-   ``binned_sort`` (8 K4 + 6 K1 launches per frame: two K4 passes and one
-   drain per sorted leg); NEE with ``binned_any_sort`` (4 K4, 6 + 6 K1);
-   ``multipass_cap=4`` (10 K1: two passes per sorted leg); ``binned_sort``
-   under ``kernel_near`` (8 K4 + 6 K2n); each against the default or NEE
+   exact pairs (``exact_pairs`` and ``exact_pairs_bounce``): 6 K2n pairs
+   launches (outside: 6 K2p) and no closest-hit one per frame; its image
+   against the default path's (same seed and frame count): equal NaN
+   masks, RMSE < 1e-5.
+   The other scheduling kernels walk an order sorted outside, so their
+   paths set ``kernel_near=False``: ``trace_sched=4``: 6 K5 launches and
+   no K1 closest-hit one per frame; ``pipeline_rounds``: 6 K2pl launches;
+   the sorted frame (``sort_bounce_rays`` and ``live_slice``): 6 K1
+   launches, and one more frame profiled leg by leg (live count, traced
+   width, branch, ms of key, sort, gathers, count read, trace and
+   unsort); each against the default path's image: equal NaN masks, RMSE
+   < 1e-5.
+   NEE with the sort (sliced shadow legs, K1), and NEE with
+   ``exact_pairs`` under ``kernel_near``, under ``pipeline_rounds`` and
+   under both (2 pairs + 4 closest-hit + 6 any-hit launches of K2n / K2pl
+   / K2n per frame), each against the NEE path's image.
+   The per-ray-scheduled traces, all with ``sort_bounce_rays`` and, but
+   for the last, ``kernel_near=False``: ``binned_sort`` (8 K4 + 6 K1
+   launches per frame: two K4 passes and one drain per sorted leg); NEE
+   with ``binned_any_sort`` (4 K4, 6 + 6 K1); ``multipass_cap=4`` (10 K1:
+   two passes per sorted leg; only K1 can cap); ``binned_sort`` under
+   ``kernel_near`` (8 K4 + 6 K2n); each against the default or NEE
    frame: equal NaN masks, RMSE < 1e-5.
    Every pixel must hold 2 samples per frame.
 5. direct integrator (config #1): the analytic spheres-and-plane scene at
-   256x256, ``bounces_depth=1``, perspective: 2 + 2 launches per frame.
+   256x256, ``bounces_depth=1``, perspective: 2 + 2 launches per frame of
+   K2n, and of K1 with the order outside, the frames equal.
 6. reference: the 32x32 mini scene on the card reproduces the JAX
    package's golden (tests/golden/mini_scene_2f.npz, RMSE < 1e-5); and for
    NEE, ``bounces_depth=1`` and env-IS, the frame on the card equals the
@@ -98,26 +109,35 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
       3840x2160, 1,036,800 rays) of frame 0: primary and first bounce
       (closest-hit), NEE shadow (any-hit); as phase 3; and K3p vs twin
       on the primary and bounce rays, its adjudicated faces against K3's.
+      The same legs through the entries that order the supers inside the
+      kernel, against their twins and against K3 / K3p over the order
+      sorted outside: every output bit-equal on every ray.
    b. K3 route vs K1 route on the same primary and bounce rays: the tile
       entry distances over the 227 supers + K3 against those over all
-      14,528 clusters + K1; face ids must be identical; both timed.
+      14,528 clusters + K1; face ids must be identical; both timed, and
+      the whole route of K3 with its own order beside them.
    c. the config #5 frame: 3840x2160, ``RenderSettings`` defaults,
       procedural sky, ``frame_slabs=8``, one warm-up and
-      ``--config5-frames`` timed frames: 48 two-level closest-hit launches
-      per frame and no other, 2 samples per pixel per frame, finite image;
-      ms/frame, Mrays/s, peak device memory.
+      ``--config5-frames`` timed frames: 48 launches per frame of K3
+      ordering its supers itself and no other, ``tile_nears_fused`` never
+      called, 2 samples per pixel per frame, finite image; ms/frame,
+      Mrays/s, peak device memory; then the same with
+      ``kernel_near=False`` (48 K3 launches over the order sorted
+      outside): the frames equal, RMSE 0.
    d. slabs and resume at 960x544 on the same tables: 8 slabs equal 1
       slab bit for bit; a run saved after one frame and resumed in a fresh
       Renderer equals the uninterrupted run bit for bit.
    e. NEE on the 1M scene at 1920x1080 in 4 slabs, one warm-up and one
-      timed frame: 24 two-level closest-hit + 24 two-level any-hit
-      launches.
+      timed frame: 24 closest-hit + 24 any-hit launches of K3 with its
+      own order, then of K3 with the order outside; frames equal.
    f. the config #5 frame with ``exact_pairs`` (primary legs only, the
       JAX meaning), one warm-up and one timed frame: 16 K3p + 32 K3
-      closest-hit launches, finite image.
+      closest-hit launches, with the order inside and outside; finite
+      images, equal.
 
-Prints the per-kernel JSON line (fourteen kernels), then the ``nvidia-smi``
-name/power line, then ``{"ok": true, "device": {...}}`` as the last line.
+Prints the per-kernel JSON line (seventeen kernels), then the
+``nvidia-smi`` name/power line, then ``{"ok": true, "device": {...}}`` as
+the last line.
 """
 
 from __future__ import annotations
@@ -251,15 +271,18 @@ def _bound(name, work, needs=None):
 
 
 def _compare_leg(torch, name, args, card, any_hit=False, ref_code=None,
-                 needs=None, wrapper=None):
+                 needs=None, wrapper=None, ref_out=None):
     """One leg through the kernel entry that ``args`` is for (its
     ``variant``) and its twin on the same device tensors: codes must
     agree; closest-hit t must be bit-equal where they do. The twin counts
     the leg's work, which bounds the kernel, unless ``needs`` names the
     leg whose counts do (:func:`_bound`). ``ref_code``: K1's codes on the
-    same rays, which the kernel's must equal. ``wrapper``: the kernel,
-    where ``args`` is no ``prepare_tiles`` dict (K4). A capped leg
-    (``return_stop``) also returns its stop, which must be equal too."""
+    same rays, which the kernel's must equal. ``ref_out``: (its name, the
+    outputs of the kernel that walks the order sorted outside on the same
+    rays), which this kernel's must equal bit for bit, t included, on
+    every ray. ``wrapper``: the kernel, where ``args`` is no
+    ``prepare_tiles`` dict (K4). A capped leg (``return_stop``) also
+    returns its stop, which must be equal too."""
     from webgpu_raytracing_tpu_torch.ops import cluster_cuda as cc
 
     if wrapper is None:
@@ -325,6 +348,16 @@ def _compare_leg(torch, name, args, card, any_hit=False, ref_code=None,
               f"{vs_k1}", flush=True)
         if vs_k1 > MISMATCH_LIMIT * n_rays:
             fail(f"{name}: {vs_k1} codes differ from K1's")
+    if ref_out is not None:
+        ref_name, ref = ref_out
+        mine = (out_k,) if any_hit else tuple(out_k)
+        ref = (ref,) if any_hit else tuple(ref)
+        vs_k1 = sum(int((a.view(torch.int32) != b.view(torch.int32)).sum())
+                    for a, b in zip(mine, ref))
+        print(f"{name}: outputs that differ from {ref_name}'s over the order "
+              f"sorted outside, bit for bit: {vs_k1}", flush=True)
+        if vs_k1:
+            fail(f"{name}: {vs_k1} outputs differ from {ref_name}'s")
     return dict(n=n_rays, live=live, hits=hits, mismatch=mismatch,
                 vs_k1=vs_k1, staged_rounds=stats.get("staged_rounds"),
                 flag_mismatch=flag_mismatch, max_abs=max_abs, ms=ms_k,
@@ -336,7 +369,8 @@ def _compare_pairs_leg(torch, name, leg, tables, card, tile, needs=None,
     """One closest-hit leg through its pairs entry (K3p for two-level
     tables, K2n or K2pl with ``prep_kw``, else K2p) and its twin on the
     same device tensors: t1, c1, c2, c3 and the flag must agree (with
-    ``prep_kw`` also with K2p's); then ``adjudicate_compact`` on the
+    ``prep_kw`` also with K2p's, or K3p's over the order sorted outside,
+    those bit for bit on every ray); then ``adjudicate_compact`` on the
     kernel's candidates, whose faces must equal the K1/K3 route's on the
     same rays (each exception printed, with its exact t for both faces).
     ``needs``: the leg whose counts bound this one (:func:`_bound`)."""
@@ -377,17 +411,21 @@ def _compare_pairs_leg(torch, name, leg, tables, card, tile, needs=None,
     amb_rate = float(out_k[4][live].float().mean())
     vs_k2p = None
     if prep_kw:
-        ref = cc.trace_pairs_tiles(**cc.prepare_tiles(
-            tables=tables, tile=tile, pairs=True, **leg))
+        ref_args = cc.prepare_tiles(tables=tables, tile=tile, pairs=True,
+                                    **leg)
+        ref_wrapper = cc.trace_pairs_args(ref_args)[0]  # K2p, or K3p
+        ref = ref_wrapper(**ref_args)
         off = out_k[0].view(torch.int32) != ref[0].view(torch.int32)
         for x, y in zip(out_k[1:], ref[1:]):
             off |= x != y
         vs_k2p = int(off.sum())
-        del ref, off
-        print(f"{name}: outputs that differ from K2p's on the same rays: "
-              f"{vs_k2p}", flush=True)
-        if vs_k2p > MISMATCH_LIMIT * n_rays:
-            fail(f"{name}: {vs_k2p} outputs differ from K2p's")
+        del ref, off, ref_args
+        print(f"{name}: outputs that differ from {ref_wrapper.__name__}'s "
+              f"on the same rays: {vs_k2p}", flush=True)
+        if vs_k2p > MISMATCH_LIMIT * n_rays or (
+                vs_k2p and args.variant == "near_two_level"):
+            fail(f"{name}: {vs_k2p} outputs differ from "
+                 f"{ref_wrapper.__name__}'s")
 
     fid = tables.clusters.face_id
     faces = tuple(cc.code_to_face(c, fid) for c in out_k[1:4])
@@ -930,7 +968,10 @@ WRAPPERS = ("trace_closest_tiles", "trace_any_tiles",
             "trace_sched_tiles", "trace_near_closest_tiles",
             "trace_near_any_tiles", "trace_near_pairs_tiles",
             "trace_pipelined_closest_tiles", "trace_pipelined_any_tiles",
-            "trace_pipelined_pairs_tiles", "trace_binned_tiles")
+            "trace_pipelined_pairs_tiles", "trace_binned_tiles",
+            "trace_near_closest_two_level_tiles",
+            "trace_near_any_two_level_tiles",
+            "trace_near_pairs_two_level_tiles")
 
 
 def launches_per_frame(**counts):
@@ -1095,20 +1136,72 @@ def profile_sorted_legs(torch, r):
     return legs
 
 
+def _count_calls(module, name):
+    """Replace ``module.name`` by a counting pass-through → (the list that
+    holds the count, a function that puts the real one back)."""
+    real, calls = getattr(module, name), [0]
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return real(*a, **kw)
+
+    setattr(module, name, counted)
+    return calls, lambda: setattr(module, name, real)
+
+
+def drive_pair(torch, paths, key, name, scene, st, frames, seed, card,
+               counts, outside_counts, ref_img=None, what="", **kw):
+    """A path through the default order (every tile orders itself inside
+    the kernel: ``tile_nears_fused`` must not be called once) and the same
+    path with ``kernel_near=False`` (the order sorted outside, K1 / K3):
+    exact launch counts for both, and the two frames equal, RMSE 0 and the
+    same NaN mask → the default frame's image. ``ref_img``: a frame the
+    default one must equal too."""
+    from webgpu_raytracing_tpu_torch.ops import cluster_cuda as cc
+
+    if not st.kernel_near:
+        fail(f"{name}: kernel_near is not the default")
+    calls, restore = _count_calls(cc, "tile_nears_fused")
+    try:
+        paths[key], r = drive_path(torch, name, scene, st, frames, seed, card,
+                                   launches_per_frame(**counts), **kw)
+    finally:
+        restore()
+    print(f"{name}: tile_nears_fused was called {calls[0]} times", flush=True)
+    if calls[0]:
+        fail(f"{name}: the tile entry distances were also computed outside "
+             "the kernel")
+    paths[key]["tile_nears_fused_calls"] = calls[0]
+    img = r.buffers.image.clone()
+    del r
+    if ref_img is not None:
+        paths[key].update(_same_frame(torch, name, img, ref_img, what))
+    out_key, out_name = key + "_outside", name + ", order outside"
+    paths[out_key], r = drive_path(
+        torch, out_name, scene, st.replace(kernel_near=False), frames, seed,
+        card, launches_per_frame(**outside_counts), **kw)
+    same = _same_frame(torch, out_name, r.buffers.image, img, name)
+    del r
+    if same["rmse_vs_reference"] != 0.0:
+        fail(f"{out_name}: RMSE {same['rmse_vs_reference']} against the "
+             "default order's frame, expected 0")
+    paths[out_key].update(same)
+    return img
+
+
 def phase_scheduling_paths(torch, scene, base, default_img, nee_st, nee_img,
                            frames, seed, card):
-    """The 1080p paths of the tile-scheduling kernels and the ray sort,
-    each held to the default frame (or the NEE frame) of the same seed and
-    frame count: ``trace_sched=4`` (6 K5 launches per frame, no K1
-    closest-hit one), ``kernel_near`` (6 K2n, and not one call of
-    ``tile_nears_fused``), ``pipeline_rounds`` (6 K2pl), the sorted frame
+    """The 1080p paths of the other tile-scheduling kernels and the ray
+    sort, each held to the default frame (or the NEE frame) of the same
+    seed and frame count. All but the two K2n ones set ``kernel_near=False``
+    (K5, K2pl and the capped K1 walk an order sorted outside):
+    ``trace_sched=4`` (6 K5 launches per frame, no K1
+    closest-hit one), ``pipeline_rounds`` (6 K2pl), the sorted frame
     (``sort_bounce_rays`` and ``live_slice``; one more frame is profiled
     leg by leg), NEE with the sort (sliced shadow legs), and NEE with
     ``exact_pairs`` under ``kernel_near``, under ``pipeline_rounds`` and
     under both (the any-hit and pairs entries of K2n, of K2pl and of
     K2n's pipelined walk)."""
-    from webgpu_raytracing_tpu_torch.ops import cluster_cuda as cc
-
     paths = {}
 
     def run(key, name, st, counts, ref_img, what, finite=True):
@@ -1119,31 +1212,14 @@ def phase_scheduling_paths(torch, scene, base, default_img, nee_st, nee_img,
                                       what))
         return r
 
-    unsorted = base.replace(sort_bounce_rays=False)
-    run("sched", "trace_sched=4 path", unsorted.replace(trace_sched=4),
+    outside = base.replace(sort_bounce_rays=False, kernel_near=False)
+    nee_outside = nee_st.replace(kernel_near=False)
+    run("sched", "trace_sched=4 path", outside.replace(trace_sched=4),
         dict(sched=6), default_img, "default frame")
-    real, calls = cc.tile_nears_fused, [0]
-
-    def counted(*a, **kw):
-        calls[0] += 1
-        return real(*a, **kw)
-
-    cc.tile_nears_fused = counted
-    try:
-        run("near", "kernel_near path", unsorted.replace(kernel_near=True),
-            dict(near_closest=6), default_img, "default frame")
-    finally:
-        cc.tile_nears_fused = real
-    print(f"kernel_near path: tile_nears_fused was called {calls[0]} times",
-          flush=True)
-    if calls[0]:
-        fail("kernel_near path: the tile entry distances were also computed "
-             "outside the kernel")
-    paths["near"]["tile_nears_fused_calls"] = calls[0]
     run("pipelined", "pipeline_rounds path",
-        unsorted.replace(pipeline_rounds=True), dict(pipelined_closest=6),
+        outside.replace(pipeline_rounds=True), dict(pipelined_closest=6),
         default_img, "default frame")
-    sorted_st = base.replace(sort_bounce_rays=True, live_slice=True)
+    sorted_st = outside.replace(sort_bounce_rays=True, live_slice=True)
     r = run("sorted", "sorted path", sorted_st, dict(closest=6), default_img,
             "default frame")
     legs = profile_sorted_legs(torch, r)
@@ -1157,7 +1233,7 @@ def phase_scheduling_paths(torch, scene, base, default_img, nee_st, nee_img,
         fail(f"sorted path: {len(legs)} sorted legs in a frame, expected 4")
     paths["sorted"]["legs"] = legs
     run("nee_sorted", "NEE path, sorted",
-        nee_st.replace(sort_bounce_rays=True, live_slice=True),
+        nee_outside.replace(sort_bounce_rays=True, live_slice=True),
         dict(closest=6, any=6), nee_img, "NEE frame", finite=False)
     exact_nee = nee_st.replace(sort_bounce_rays=False, exact_pairs=True)
     run("near_nee_exact", "kernel_near path, NEE and exact primary legs",
@@ -1166,7 +1242,7 @@ def phase_scheduling_paths(torch, scene, base, default_img, nee_st, nee_img,
         finite=False)
     run("pipelined_nee_exact",
         "pipeline_rounds path, NEE and exact primary legs",
-        exact_nee.replace(pipeline_rounds=True),
+        exact_nee.replace(pipeline_rounds=True, kernel_near=False),
         dict(pipelined_pairs=2, pipelined_closest=4, pipelined_any=6),
         nee_img, "NEE frame", finite=False)
     run("near_pipelined_nee_exact",
@@ -1180,7 +1256,7 @@ def phase_scheduling_paths(torch, scene, base, default_img, nee_st, nee_img,
     run("binned", "binned_sort path", sorted_st.replace(binned_sort=True),
         dict(closest=6, binned=8), default_img, "default frame")
     run("binned_any_nee", "NEE path, sorted, binned_any_sort",
-        nee_st.replace(sort_bounce_rays=True, binned_any_sort=True),
+        nee_outside.replace(sort_bounce_rays=True, binned_any_sort=True),
         dict(closest=6, any=6, binned=4), nee_img, "NEE frame", finite=False)
     run("multipass", "multipass_cap=4 path",
         sorted_st.replace(multipass_cap=4), dict(closest=10), default_img,
@@ -1198,35 +1274,26 @@ def phase_paths(torch, scene, sky, frames, seed, card):
 
     paths = {}
     base = RenderSettings(**SLICE)
-    paths["default"], r = drive_path(torch, "default path", scene, base,
-                                     frames, seed, card,
-                                     launches_per_frame(closest=6))
-    default_img = r.buffers.image.clone()
-    del r
-    paths["exact"], r = drive_path(
-        torch, "exact-pairs path", scene,
+    default_img = drive_pair(
+        torch, paths, "default", "default path", scene, base, frames, seed,
+        card, dict(near_closest=6), dict(closest=6))
+    drive_pair(
+        torch, paths, "exact", "exact-pairs path", scene,
         base.replace(exact_pairs=True, exact_pairs_bounce=True), frames,
-        seed, card, (0, 0, 0, 0, 6, 0),
-    )
-    img = r.buffers.image
-    del r
-    paths["exact"].update(_same_frame(torch, "exact-pairs path", img,
-                                      default_img, "default frame"))
-    del img
+        seed, card, dict(near_pairs=6), dict(pairs=6), ref_img=default_img,
+        what="default frame")
     nee_st = base.replace(next_event_estimation=True)
-    paths["nee"], r = drive_path(
-        torch, "NEE path", scene, nee_st, frames, seed, card,
-        launches_per_frame(closest=6, any=6), finite=False,
-    )
-    nee_img = r.buffers.image.clone()
-    del r
+    nee_img = drive_pair(
+        torch, paths, "nee", "NEE path", scene, nee_st, frames, seed, card,
+        dict(near_closest=6, near_any=6), dict(closest=6, any=6),
+        finite=False)
     paths.update(phase_scheduling_paths(torch, scene, base, default_img,
                                         nee_st, nee_img, frames, seed, card))
     del default_img, nee_img
     env_st = base.replace(environment="equirect", env_importance_sampling=True)
-    paths["envis"] = drive_path(torch, "env-IS path", scene, env_st, frames,
-                                seed, card, (6, 6, 0, 0, 0, 0), env_data=sky,
-                                finite=False)[0]
+    drive_pair(torch, paths, "envis", "env-IS path", scene, env_st, frames,
+               seed, card, dict(near_closest=6, near_any=6),
+               dict(closest=6, any=6), env_data=sky, finite=False)
     lanes = 1920 * 1080
     state = rng.seed_state(
         12345, torch.arange(lanes, dtype=torch.int32, device="cuda")
@@ -1262,7 +1329,7 @@ def analytic_scene():
     )
 
 
-def phase_direct(torch, frames, seed, card):
+def phase_direct(torch, paths, frames, seed, card):
     from webgpu_raytracing_tpu_torch.config import (
         ProjectionType, RenderSettings,
     )
@@ -1270,9 +1337,10 @@ def phase_direct(torch, frames, seed, card):
     st = RenderSettings(width=256, height=256, sample_count=1,
                         bounces_depth=1,
                         projection_type=ProjectionType.PERSPECTIVE)
-    return drive_path(torch, "direct path (config #1)", analytic_scene(), st,
-                      frames, seed, card, (2, 2, 0, 0, 0, 0),
-                      finite=False)[0]
+    drive_pair(torch, paths, "direct", "direct path (config #1)",
+               analytic_scene(), st, frames, seed, card,
+               dict(near_closest=2, near_any=2), dict(closest=2, any=2),
+               finite=False)
 
 
 def mini_scene():
@@ -1367,6 +1435,29 @@ def phase_config5_kernels(torch, tables, seed, card):
                                    label="config #5 slab ")
     pairs = compare_pairs_legs(torch, tables, legs, card, st.trace_tile,
                                label="config #5 slab ")
+    # K3 / K3p ordering their supers themselves: against their twins, and
+    # bit for bit against K3 / K3p over the order sorted outside
+    near = {}
+    for key in ("primary", "bounce", "nee"):
+        any_hit = key in SHADOW_LEGS
+        select = cc.trace_any_args if any_hit else cc.trace_closest_args
+        ref_args = cc.prepare_tiles(tables=tables, tile=st.trace_tile,
+                                    **legs[key])
+        ref_wrapper = select(ref_args)[0]
+        ref = ref_wrapper(**ref_args)
+        del ref_args
+        args = cc.prepare_tiles(tables=tables, tile=st.trace_tile,
+                                near="kernel", **legs[key])
+        if args.variant != "near_two_level" or "snear" in args:
+            fail("config #5: near='kernel' did not select the in-kernel "
+                 "super order")
+        near[key] = _compare_leg(
+            torch, f"config #5 slab {LEG_NAMES[key]}, order in the kernel",
+            args, card, any_hit, ref_out=(ref_wrapper.__name__, ref))
+        del args, ref
+    near_pairs = compare_pairs_legs(
+        torch, tables, legs, card, st.trace_tile,
+        label="config #5 slab, order in the kernel, ", near="kernel")
     routes = {}
     for key in ("primary", "bounce"):
         leg = legs[key]
@@ -1383,8 +1474,14 @@ def phase_config5_kernels(torch, tables, seed, card):
                  for tl in (True, False)}
         torch.cuda.synchronize()
         mismatch = int((faces[True] != faces[False]).sum())
+        def near_route():
+            args = cc.prepare_tiles(tables=tables, tile=st.trace_tile,
+                                    near="kernel", **leg)
+            return cc.trace_closest_args(args)[0](**args)[1]
+
         a1 = prep(False)
         ms = dict(
+            near_two_level_route=_time_cuda(torch, near_route, 3),
             two_level_route=_time_cuda(torch, lambda: route(True), 3),
             two_level_prep=_time_cuda(torch, lambda: prep(True), 3),
             single_level_route=_time_cuda(torch, lambda: route(False), 1,
@@ -1395,7 +1492,9 @@ def phase_config5_kernels(torch, tables, seed, card):
                                  3),
         )
         del a1
-        print(f"config #5 slab {key}: K3 route {ms['two_level_route']:.3f} ms"
+        print(f"config #5 slab {key}: K3 route with the order made in the "
+              f"kernel {ms['near_two_level_route']:.3f} ms, K3 route "
+              f"{ms['two_level_route']:.3f} ms"
               f" (prep {ms['two_level_prep']:.3f}), K1 route over all "
               f"{tables.clusters.box.shape[0]} clusters "
               f"{ms['single_level_route']:.3f} ms (prep "
@@ -1406,7 +1505,7 @@ def phase_config5_kernels(torch, tables, seed, card):
             fail(f"config #5 {key}: K3 and K1 routes differ on {mismatch} "
                  "faces")
         routes[key] = dict(mismatch=mismatch, **ms)
-    return closest, anyhit, pairs, routes
+    return closest, anyhit, pairs, routes, near, near_pairs
 
 
 def _bits_equal(torch, a, b) -> bool:
@@ -1486,7 +1585,7 @@ def main() -> int:
     closest, anyhit, pairs, sched, k4, hooked, binned_legs = (
         phase_kernel_vs_twin(torch, scene, sky, a.seed, card))
     paths = phase_paths(torch, scene, sky, a.frames, a.seed, card)
-    paths["direct"] = phase_direct(torch, a.frames, a.seed, card)
+    phase_direct(torch, paths, a.frames, a.seed, card)
     reference = phase_reference(torch)
     del scene
 
@@ -1521,28 +1620,31 @@ def main() -> int:
     if not (is_two_level(ct) and g == 64 and c == c2 * g):
         fail(f"config #5: tables are not two-level with G = 64 (C {c}, C2 "
              f"{c2}, G {g})")
-    closest5, anyhit5, pairs5, routes = phase_config5_kernels(
-        torch, tables5, a.seed, card)
-    paths["config5"], r5 = drive_path(
-        torch, "config #5 frame", scene5, RenderSettings(**CONFIG5),
-        a.config5_frames, a.seed, card,
-        (0, 0, 6 * CONFIG5["frame_slabs"], 0, 0, 0),
-    )
+    closest5, anyhit5, pairs5, routes, near5, near_pairs5 = (
+        phase_config5_kernels(torch, tables5, a.seed, card))
     del scene5
-    tables5 = r5.tables
-    del r5
+    slabs = CONFIG5["frame_slabs"]
+    drive_pair(
+        torch, paths, "config5", "config #5 frame", Prebuilt(tables5),
+        RenderSettings(**CONFIG5), a.config5_frames, a.seed, card,
+        dict(near_closest_two_level=6 * slabs),
+        dict(closest_two_level=6 * slabs))
     phase_config5_slabs_resume(torch, tables5, a.seed, card)
-    paths["config5_nee"] = drive_path(
-        torch, "config #5 NEE (1080p)", Prebuilt(tables5),
+    drive_pair(
+        torch, paths, "config5_nee", "config #5 NEE (1080p)",
+        Prebuilt(tables5),
         RenderSettings(width=1920, height=1080, frame_slabs=4,
                        next_event_estimation=True),
-        1, a.seed, card, (0, 0, 24, 24, 0, 0), finite=False,
-    )[0]
-    paths["config5_exact"] = drive_path(
-        torch, "config #5 frame, exact pairs", Prebuilt(tables5),
-        RenderSettings(exact_pairs=True, **CONFIG5), 1, a.seed, card,
-        (0, 0, 4 * CONFIG5["frame_slabs"], 0, 0, 2 * CONFIG5["frame_slabs"]),
-    )[0]
+        1, a.seed, card,
+        dict(near_closest_two_level=24, near_any_two_level=24),
+        dict(closest_two_level=24, any_two_level=24), finite=False)
+    drive_pair(
+        torch, paths, "config5_exact", "config #5 frame, exact pairs",
+        Prebuilt(tables5), RenderSettings(exact_pairs=True, **CONFIG5), 1,
+        a.seed, card,
+        dict(near_pairs_two_level=2 * slabs,
+             near_closest_two_level=4 * slabs),
+        dict(pairs_two_level=2 * slabs, closest_two_level=4 * slabs))
 
     def by_path(i):
         return {k: v["launches"][i] for k, v in paths.items()
@@ -1589,17 +1691,17 @@ def main() -> int:
               reference_rmse=reference),
         entry("trace_closest_clustered_two_level", f"{pallas}:1379", 2,
               closest5, "bounce", routes=routes,
-              config5_frame=paths["config5"]),
+              config5_frame=paths["config5_outside"]),
         entry("trace_any_clustered_two_level", f"{pallas}:1379", 3, anyhit5,
               "nee"),
         entry("trace_pairs_clustered",
               f"{pallas}:396 and :436 (pairs=True: _round_pick :236-270, "
               ":335-373; _amb_flag :376)", 4, pairs, "bounce",
-              exact_path=paths["exact"]),
+              exact_path=paths["exact_outside"]),
         entry("trace_pairs_clustered_two_level",
               f"{pallas}:1379 (pairs=True: :1406-1410, :1443-1458, "
               ":1566-1569)", 5, pairs5, "bounce",
-              config5_exact_frame=paths["config5_exact"]),
+              config5_exact_frame=paths["config5_exact_outside"]),
         entry("trace_sched_clustered",
               f"{pallas}:841 (_kernel_sched, called at :1932)", 6,
               sched["K5 rounds of 4"], "bounce",
@@ -1610,7 +1712,7 @@ def main() -> int:
               f"{pallas}:436 (_kernel_one_tile in_near=True, :469-490)", 7,
               closest_of(sched["K2n"]), "bounce", routes=sched["routes"],
               pipelined_walk=closest_of(sched["K2n pipelined"]),
-              near_path=paths["near"]),
+              near_path=paths["default"]),
         entry("trace_near_any_clustered",
               f"{pallas}:436 (in_near=True, any_hit=True)", 8,
               anyhit_of(sched["K2n"]), "nee",
@@ -1635,6 +1737,20 @@ def main() -> int:
               whole_legs=binned_legs,
               paths={k: paths[k] for k in ("binned", "binned_any_nee",
                                            "multipass", "binned_near")}),
+        entry("trace_near_closest_clustered_two_level",
+              f"{pallas}:1379 (_kernel_two_level, called at :1772) with the "
+              "super order of :436's in_near=True (:469-490); the JAX "
+              "dispatcher turns kernel_near off on two-level tables (:1717)",
+              14, closest_of(near5), "bounce", routes=routes,
+              config5_frame=paths["config5"]),
+        entry("trace_near_any_clustered_two_level",
+              f"{pallas}:1379 (any_hit=True) with the in-kernel super order",
+              15, anyhit_of(near5), "nee",
+              config5_nee_frame=paths["config5_nee"]),
+        entry("trace_near_pairs_clustered_two_level",
+              f"{pallas}:1379 (pairs=True) with the in-kernel super order",
+              16, near_pairs5, "bounce",
+              config5_exact_frame=paths["config5_exact"]),
     ]}), flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all",
           flush=True)

@@ -678,10 +678,12 @@ FRAME_CASES = {
     "binned_any": (dict(binned_any_sort=True),
                    dict(sorted_trace=8),
                    dict(sorted_trace=8, binned_trace_any=8)),
-    "multipass4": (dict(multipass_cap=4),
+    # only K1 can cap: the multipass trace needs the order from outside
+    "multipass4": (dict(multipass_cap=4, kernel_near=False),
                    dict(sorted_trace_multipass=8),
                    dict(sorted_trace_multipass=8, sorted_trace=8)),
-    "multipass1_3": (dict(multipass_cap=1, multipass_passes=3),
+    "multipass1_3": (dict(multipass_cap=1, multipass_passes=3,
+                          kernel_near=False),
                      dict(sorted_trace_multipass=8),
                      dict(sorted_trace_multipass=8, sorted_trace=8)),
     "binned_near": (dict(binned_sort=True, kernel_near=True),
@@ -693,7 +695,8 @@ FRAME_CASES = {
     # a kernel that cannot cap keeps the plain sorted trace
     "multipass_near": (dict(multipass_cap=4, kernel_near=True),
                        dict(sorted_trace=8), dict(sorted_trace=16)),
-    "multipass_sched": (dict(multipass_cap=4, trace_sched=2),
+    "multipass_sched": (dict(multipass_cap=4, trace_sched=2,
+                             kernel_near=False),
                         dict(sorted_trace=8), dict(sorted_trace=16)),
     # binned goes before multipass, as in the JAX package
     "binned_multipass": (dict(binned_sort=True, multipass_cap=2),

@@ -162,6 +162,19 @@ def test_two_level_kernels_match_twins_on_card(cuda, which):
         (cc.trace_any_tiles(**a1) >= 0).cpu().numpy(),
         (a_k >= 0).cpu().numpy(),
     )
+    # K3 ordering its supers itself: its twins' and K3's outputs, bit for bit
+    near = cc.prepare_tiles(*ins, near="kernel")
+    assert near.variant == "near_two_level" and "snear" not in near
+    for wrapper, ref in (
+        (cc.trace_near_closest_two_level_tiles, (t_k, c_k)),
+        (cc.trace_near_any_two_level_tiles, a_k),
+    ):
+        before = wrapper.launches
+        got = wrapper(**near)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1
+        _assert_same(got, wrapper.twin(**near))
+        _assert_same(got, ref)
 
 
 @pytest.mark.parametrize("which", ["single", "g4", "g64"])
@@ -215,6 +228,17 @@ def test_pairs_kernels_match_twins_on_card(cuda, which):
     plain = cc.trace_closest_clustered_cuda(*ins)
     np.testing.assert_array_equal(exact.face.cpu().numpy(),
                                   plain.face.cpu().numpy())
+    # the entry that orders its own tiles (K2n; K3p over its supers)
+    near = cc.prepare_tiles(*ins, pairs=True, near="kernel")
+    near_wrapper = cc.trace_pairs_args(near)[0]
+    assert near_wrapper is (cc.trace_near_pairs_tiles if which == "single"
+                            else cc.trace_near_pairs_two_level_tiles)
+    before = near_wrapper.launches
+    got_near = near_wrapper(**near)
+    torch.cuda.synchronize()
+    assert near_wrapper.launches == before + 1
+    _assert_same(got_near, near_wrapper.twin(**near))
+    _assert_same(got_near, got)
 
 
 def _small_scene():
@@ -358,18 +382,55 @@ def test_kernel_near_cluster_cap_on_card(cuda):
 
 
 def test_scheduling_settings_raise_on_two_level_tables_on_card(cuda):
+    """K5 and K2pl stay single-level and raise; ``kernel_near`` is K3
+    ordering its supers itself."""
     tables = _small_scene().tables(cuda, cluster_size=16, group_size=4)
     assert cc.is_two_level(tables.clusters)
     o = torch.zeros((128, 3), device=cuda)
     d = torch.ones((128, 3), device=cuda)
     tm = torch.full((128,), F32_MAX, device=cuda)
-    for kw in (dict(sched_rounds=4), dict(kernel_near=True),
-               dict(pipelined=True)):
+    for kw in (dict(sched_rounds=4), dict(pipelined=True),
+               dict(kernel_near=True, pipelined=True)):
         with pytest.raises(ValueError):
             cc.trace_closest_clustered_cuda(o, d, tm, tables, **kw)
-    for kw in (dict(kernel_near=True), dict(pipelined=True)):
+    for kw in (dict(pipelined=True), dict(kernel_near=True, pipelined=True)):
         with pytest.raises(ValueError):
             cc.trace_any_clustered_cuda(o, d, tm, tables, **kw)
+    before = cc.trace_near_closest_two_level_tiles.launches
+    near = cc.trace_closest_clustered_cuda(o, d, tm, tables, kernel_near=True)
+    assert cc.trace_near_closest_two_level_tiles.launches == before + 1
+    _assert_same(tuple(near),
+                 tuple(cc.trace_closest_clustered_cuda(o, d, tm, tables)))
+
+
+@pytest.mark.parametrize("n_boxes", [1, 63, 64, 65, 130, 192, 700, 1500])
+def test_kernel_near_orders_any_number_of_boxes_on_card(cuda, n_boxes):
+    """K2n's first half over box counts around its row, segment and tail
+    boundaries (a row is 128 boxes, a sort segment 64 keys, a tail at most
+    half a row): the small scene's clusters cut or padded with empty
+    clusters to ``n_boxes``, against K1 over the order sorted outside."""
+    import dataclasses
+
+    tables = _small_scene().tables(cuda, cluster_size=2, group_size=0)
+    ct = tables.clusters
+    if n_boxes <= ct.box.shape[0]:
+        tables = dataclasses.replace(tables, clusters=dataclasses.replace(
+            ct, box=ct.box[:n_boxes].contiguous(),
+            face_id=ct.face_id[:n_boxes].contiguous(),
+            mat_b=ct.mat_b[:n_boxes].contiguous()))
+    else:
+        tables = _padded_clusters(tables, n_boxes)
+    o, d, tmax, active, excl = _mixed_rays(
+        2000, 47, n_boxes * ct.face_id.shape[1])
+
+    def t(a, dt=None):
+        return torch.as_tensor(a, dtype=dt, device=cuda)
+
+    ins = (t(o), t(d), t(tmax), tables, t(active), t(excl, torch.int32))
+    ref = cc.trace_closest_tiles(**cc.prepare_tiles(*ins))
+    got = cc.trace_near_closest_tiles(**cc.prepare_tiles(*ins, near="kernel"))
+    torch.cuda.synchronize()
+    _assert_same(got, ref)
 
 
 def test_scheduling_and_sorted_frames_on_card(cuda):
@@ -378,7 +439,7 @@ def test_scheduling_and_sorted_frames_on_card(cuda):
     its kernels and equals the default frame bit for bit."""
     st = RenderSettings(width=32, height=32, bounces_depth=4, sample_count=1,
                         environment="procedural", next_event_estimation=True,
-                        sort_bounce_rays=False)
+                        sort_bounce_rays=False, kernel_near=False)
     names = ("trace_closest_tiles", "trace_any_tiles", "trace_sched_tiles",
              "trace_near_closest_tiles", "trace_near_any_tiles",
              "trace_pipelined_closest_tiles", "trace_pipelined_any_tiles")
@@ -542,19 +603,29 @@ def _mini_scene():
 
 def test_nee_launches_on_card(cuda):
     """A 2-frame NEE render (2 samples, 2 segments): 8 closest-hit and 8
-    any-hit launches, and the same accumulation as on the CPU (twins)."""
+    any-hit launches, of K2n by default and of K1 with ``kernel_near``
+    off and of no other kernel; the two frames equal bit for bit, and the
+    accumulation equals the CPU's (twins)."""
     st = RenderSettings(width=32, height=32, bounces_depth=3, sample_count=1,
                         environment="procedural", next_event_estimation=True)
-    k1, k_any = cc.trace_closest_tiles.launches, cc.trace_any_tiles.launches
-    r = Renderer(_mini_scene(), st, base_seed=77, device=cuda)
-    r.step()
-    r.step()
-    assert cc.trace_closest_tiles.launches == k1 + 2 * 2 * 2
-    assert cc.trace_any_tiles.launches == k_any + 2 * 2 * 2
+    assert st.kernel_near is True
+    wrappers = (cc.trace_near_closest_tiles, cc.trace_near_any_tiles,
+                cc.trace_closest_tiles, cc.trace_any_tiles)
+    images = []
+    for near, expect in ((True, [8, 8, 0, 0]), (False, [0, 0, 8, 8])):
+        before = [w.launches for w in wrappers]
+        r = Renderer(_mini_scene(), st.replace(kernel_near=near),
+                     base_seed=77, device=cuda)
+        r.step()
+        r.step()
+        assert [w.launches - b for w, b in zip(wrappers, before)] == expect
+        images.append(r.buffers.image)
+    assert torch.equal(images[0].view(torch.int32),
+                       images[1].view(torch.int32))
     c = Renderer(_mini_scene(), st, base_seed=77, device="cpu")
     c.step()
     c.step()
-    got, want = r.buffers.image.cpu().numpy(), c.buffers.image.numpy()
+    got, want = images[0].cpu().numpy(), c.buffers.image.numpy()
     np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
     ok = ~np.isnan(want)
     assert float(np.sqrt(np.mean((got[ok] - want[ok]) ** 2))) < 1e-5
@@ -564,11 +635,11 @@ def test_golden_mini_scene_on_card(cuda):
     scene = _mini_scene()
     st = RenderSettings(width=32, height=32, bounces_depth=3, sample_count=1,
                         environment="procedural")
-    before = cc.trace_closest_tiles.launches
+    before = cc.trace_near_closest_tiles.launches
     r = Renderer(scene, st, base_seed=77, device=cuda)
     r.step()
     r.step()
-    assert cc.trace_closest_tiles.launches == before + 2 * 2 * 2
+    assert cc.trace_near_closest_tiles.launches == before + 2 * 2 * 2
     got = r.buffers.image.cpu().numpy()
     rmse = float(np.sqrt(np.mean((got - np.load(GOLDEN)["image"]) ** 2)))
     assert rmse < 1e-5, rmse
@@ -577,17 +648,25 @@ def test_golden_mini_scene_on_card(cuda):
 def test_two_level_frames_on_card(cuda):
     """A 2-frame NEE render on two-level tables of the mini scene (S = 16,
     G = 4) in 2 slabs: 16 two-level closest-hit and 16 two-level any-hit
-    launches and no single-level one; the accumulation equals the CPU
-    twins' and the single-level frame on the card."""
+    launches and no single-level one, of K3 ordering its supers itself by
+    default and of K3 over the order sorted outside with ``kernel_near``
+    off; the accumulation equals the CPU twins' and the single-level
+    frame on the card."""
     st = RenderSettings(width=32, height=32, bounces_depth=3, sample_count=1,
                         environment="procedural", next_event_estimation=True,
                         frame_slabs=2)
-    wrappers = (cc.trace_closest_tiles, cc.trace_any_tiles,
+    wrappers = (cc.trace_near_closest_tiles, cc.trace_near_any_tiles,
+                cc.trace_near_closest_two_level_tiles,
+                cc.trace_near_any_two_level_tiles,
                 cc.trace_closest_two_level_tiles,
-                cc.trace_any_two_level_tiles)
+                cc.trace_any_two_level_tiles, cc.trace_closest_tiles,
+                cc.trace_any_tiles)
     images = {}
-    for dev, two_level in (("cuda", True), ("cpu", True), ("cuda", False)):
-        r = Renderer(_mini_scene(), st, base_seed=77, device=dev)
+    for dev, two_level, near in (("cuda", True, True), ("cpu", True, True),
+                                 ("cuda", False, True),
+                                 ("cuda", True, False)):
+        r = Renderer(_mini_scene(), st.replace(kernel_near=near),
+                     base_seed=77, device=dev)
         if two_level:
             r.tables = _mini_scene().tables(dev, cluster_size=16,
                                             group_size=4)
@@ -597,11 +676,16 @@ def test_two_level_frames_on_card(cuda):
         torch.cuda.synchronize()
         launched = [w.launches - b for w, b in zip(wrappers, before)]
         if dev == "cuda":
-            assert launched == ([0, 0, 16, 16] if two_level
-                                else [16, 16, 0, 0]), launched
-        images[dev, two_level] = r.buffers.image.cpu().numpy()
-    want = images["cpu", True]
-    for key in (("cuda", True), ("cuda", False)):
+            expect = [0] * 8
+            at = (2 if two_level else 0) if near else 4
+            expect[at] = expect[at + 1] = 16
+            assert launched == expect, launched
+        images[dev, two_level, near] = r.buffers.image.cpu().numpy()
+    want = images["cpu", True, True]
+    np.testing.assert_array_equal(
+        images["cuda", True, True].view(np.int32),
+        images["cuda", True, False].view(np.int32))
+    for key in (("cuda", True, True), ("cuda", False, True)):
         got = images[key]
         np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
         ok = ~np.isnan(want)

@@ -387,20 +387,35 @@ def test_exact_settings_route_the_legs(monkeypatch, exact, bounce, depth,
     legs through the pairs walk, ``exact_pairs_bounce`` also the bounce
     legs (the direct integrator's one leg is primary); without
     ``exact_pairs`` the bounce flag does nothing."""
-    calls = []
-    walk = cc.trace_pairs_tiles.twin
+    calls = {}
 
-    def spy(*args, **kw):
-        calls.append((args[0] if args else kw["a"]).shape[0])
-        return walk(*args, **kw)
+    def spy_on(wrapper):
+        walk = wrapper.twin
+        calls[wrapper] = []
 
-    monkeypatch.setattr(cc.trace_pairs_tiles, "twin", spy)
-    st = TSettings(width=8, height=8, bounces_depth=depth, sample_count=1,
-                   exact_pairs=exact, exact_pairs_bounce=bounce)
-    r = TRenderer(_mini(tscene, ttm), st, base_seed=4, device="cpu")
-    r.step()
-    assert len(calls) == want
-    assert np.isfinite(r.buffers.image.numpy()).all()
+        def spy(*args, **kw):
+            calls[wrapper].append((args[0] if args else kw["a"]).shape[0])
+            return walk(*args, **kw)
+
+        monkeypatch.setattr(wrapper, "twin", spy)
+
+    spy_on(cc.trace_pairs_tiles)
+    spy_on(cc.trace_near_pairs_tiles)
+    # the default orders each tile inside the kernel (K2n's pairs entry);
+    # kernel_near=False keeps K2p over the order sorted outside
+    for near, ran, idle in (
+        (True, cc.trace_near_pairs_tiles, cc.trace_pairs_tiles),
+        (False, cc.trace_pairs_tiles, cc.trace_near_pairs_tiles),
+    ):
+        st = TSettings(width=8, height=8, bounces_depth=depth, sample_count=1,
+                       exact_pairs=exact, exact_pairs_bounce=bounce)
+        assert st.kernel_near is True
+        r = TRenderer(_mini(tscene, ttm), st.replace(kernel_near=near),
+                      base_seed=4, device="cpu")
+        r.step()
+        assert len(calls[ran]) == want and not calls[idle]
+        assert np.isfinite(r.buffers.image.numpy()).all()
+        calls[ran].clear()
 
 
 def _frame(st, exact, two_level=False):

@@ -4,6 +4,7 @@ The same scene, built from the same generators, must give the same
 tables in both packages, array for array and bit for bit."""
 
 import dataclasses
+import inspect
 
 import numpy as np
 import pytest
@@ -14,6 +15,9 @@ import webgpu_raytracing_tpu_torch.config as tcfg
 from webgpu_raytracing_tpu.models import scene as jscene
 from webgpu_raytracing_tpu.models import stress as jstress
 from webgpu_raytracing_tpu.models import test_models as jtm
+from webgpu_raytracing_tpu.ops.cluster_pallas import (
+    trace_closest_clustered_pallas,
+)
 from webgpu_raytracing_tpu_torch.models import scene as tscene
 from webgpu_raytracing_tpu_torch.models import stress as tstress
 from webgpu_raytracing_tpu_torch.models import test_models as ttm
@@ -102,7 +106,12 @@ def test_render_settings_match_jax():
     # the one field of the port without a counterpart there
     assert set(tf) - set(jf) == set(tcfg.PORT_ONLY_FIELDS) == {"kernel_near"}
     jd, td = jcfg.RenderSettings(), tcfg.RenderSettings()
-    assert td.kernel_near is False
+    # ... and the port's main path: on by default, with the reason stated
+    # (the JAX dispatcher's argument of that name defaults to False)
+    assert td.kernel_near is True and tcfg.DEFAULT_DEVIATIONS["kernel_near"]
+    jax_default = inspect.signature(
+        trace_closest_clustered_pallas).parameters["kernel_near"].default
+    assert jax_default is False
     # the binned and multipass traces: the JAX fields, all off as there
     ported = ("binned_sort", "binned_any_sort", "multipass_cap",
               "multipass_passes")
@@ -111,7 +120,8 @@ def test_render_settings_match_jax():
                               | set(tcfg.DEFAULT_DEVIATIONS))
     assert (td.binned_sort, td.binned_any_sort, td.multipass_cap,
             td.multipass_passes) == (False, False, 0, 2)
-    assert set(tcfg.DEFAULT_DEVIATIONS) <= set(tf) & set(jf)
+    assert set(tcfg.DEFAULT_DEVIATIONS) <= (
+        set(tf) & set(jf) | set(tcfg.PORT_ONLY_FIELDS))
     for name in set(tf) & set(jf):
         a, b = getattr(jd, name), getattr(td, name)
         if name in tcfg.DEFAULT_DEVIATIONS:

@@ -388,13 +388,19 @@ def test_what_the_kernels_do_not_take_raises(scenes, fine_tables):
     # two-level tables: nothing gives way to K3 quietly
     two = _scene(tscene, ttm).tables("cpu", cluster_size=16, group_size=4)
     assert cc.is_two_level(two.clusters)
-    for kw in (dict(sched_rounds=4), dict(kernel_near=True),
-               dict(pipelined=True)):
+    for kw in (dict(sched_rounds=4), dict(pipelined=True),
+               dict(kernel_near=True, pipelined=True)):
         with pytest.raises(ValueError):
             cc.trace_closest_clustered_cuda(*rays, two, **kw)
-    for kw in (dict(kernel_near=True), dict(pipelined=True)):
+    for kw in (dict(pipelined=True), dict(kernel_near=True, pipelined=True)):
         with pytest.raises(ValueError):
             cc.trace_any_clustered_cuda(*rays, two, **kw)
+    # kernel_near alone is K3 ordering its supers itself: the same faces
+    _same(tuple(cc.trace_closest_clustered_cuda(*rays, two,
+                                                kernel_near=True)),
+          tuple(cc.trace_closest_clustered_cuda(*rays, two)))
+    assert cc.prepare_tiles(*rays, two, near="kernel").variant == (
+        "near_two_level")
     # K2n's cap on the number of boxes
     at_cap = _padded_clusters(fine_tables, cc.NEAR_MAX_CLUSTERS)
     near = cc.prepare_tiles(*rays, at_cap, near="kernel")
@@ -558,8 +564,22 @@ def test_bad_trace_sched_raises(kw):
     dict(trace_sched=4), dict(kernel_near=True), dict(pipeline_rounds=True),
 ], ids=lambda kw: next(iter(kw)))
 def test_scheduling_settings_raise_on_two_level_tables(kw):
-    st = TSettings(width=8, height=8, bounces_depth=3, **kw)
-    r = TRenderer(_mini(tscene, ttm), st, base_seed=0, device="cpu")
-    r.tables = _mini(tscene, ttm).tables("cpu", cluster_size=16, group_size=4)
-    with pytest.raises(ValueError):
+    """``trace_sched`` and ``pipeline_rounds`` are single-level kernels and
+    raise, under either ``kernel_near``; ``kernel_near`` itself is K3
+    ordering its supers in the kernel, and renders the frame of the
+    outside order bit for bit."""
+    def run(**more):
+        st = TSettings(width=8, height=8, bounces_depth=3, **{**kw, **more})
+        r = TRenderer(_mini(tscene, ttm), st, base_seed=0, device="cpu")
+        r.tables = _mini(tscene, ttm).tables("cpu", cluster_size=16,
+                                             group_size=4)
         r.step()
+        return r.buffers.image.numpy()
+
+    if "kernel_near" in kw:
+        np.testing.assert_array_equal(
+            run().view(np.int32), run(kernel_near=False).view(np.int32))
+        return
+    for near in (True, False):
+        with pytest.raises(ValueError):
+            run(kernel_near=near)

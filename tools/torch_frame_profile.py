@@ -1,21 +1,27 @@
 """Where a frame of the PyTorch port goes on the GPU.
 
     python3 tools/torch_frame_profile.py [--frames 2] [--width 1920 --height 1080]
-        [--trace-sched J] [--kernel-near] [--pipeline-rounds] [--sort]
-        [--binned] [--multipass-cap N]
+        [--trace-sched J] [--order-outside] [--pipeline-rounds] [--sort]
+        [--binned] [--multipass-cap N] [--config5]
 
 Renders the main-path slice (``stress_scene(44_556)``, default path
 settings, procedural sky) on the first CUDA device: one warm-up frame,
 then ``--frames`` frames under ``torch.profiler`` with the frame's layers
-marked as named ranges (raygen, trace prep = tile entry distances + sort,
-kernel, rederive, environment, the ray sort = key, sort, gathers, live
+marked as named ranges (raygen, trace prep = ray padding and, with the
+order made outside the kernel, tile entry distances + sort; kernel,
+rederive, environment, the ray sort = key, sort, gathers, live
 count and unsort of ops/ray_sort.py, the rest of the integrator). The
-flags set ``trace_sched``, ``kernel_near``, ``pipeline_rounds`` and
+default frame orders every tile inside the kernel (``kernel_near``);
+``--order-outside`` turns that off (K1 / K3 over ``tile_nears_fused`` and
+``torch.sort``; ``--multipass-cap`` needs it to take effect). The other
+flags set ``trace_sched``, ``pipeline_rounds`` and
 ``sort_bounce_rays`` (with ``live_slice``), so those frames get the same
 table; ``--binned`` and ``--multipass-cap`` (both imply ``--sort``) set
 ``binned_sort`` and ``multipass_cap``, whose keys, sorts, gathers, count
 reads and unsorts fall into the ray sort's range and whose K4 launches
-into the kernel's. Prints the
+into the kernel's. ``--config5`` renders BASELINE config #5 instead
+(``stress_scene(1_000_000)``, 3840x2160 in 8 slabs, two-level tables).
+Prints the
 GPU span of each layer, the kernels' busy share of the frame's GPU span,
 the top CUDA kernels, and one JSON line with the numbers. The card's name
 and power limit (nvidia-smi) are printed beside them. Fails without a
@@ -62,7 +68,8 @@ def main() -> int:
     ap.add_argument("--height", type=int, default=1080)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace-sched", type=int, default=0)
-    ap.add_argument("--kernel-near", action="store_true")
+    ap.add_argument("--order-outside", action="store_true")
+    ap.add_argument("--config5", action="store_true")
     ap.add_argument("--pipeline-rounds", action="store_true")
     ap.add_argument("--sort", action="store_true")
     ap.add_argument("--binned", action="store_true")
@@ -98,13 +105,18 @@ def main() -> int:
     for stage, name in SORT_STAGES.items():
         _wrap(ray_sort, name, f"ray_sort.{stage}", record_function)
 
+    if a.config5:
+        a.width, a.height = 3840, 2160
     st = RenderSettings(width=a.width, height=a.height, sample_count=1,
                         bounces_depth=4, environment="procedural",
-                        trace_sched=a.trace_sched, kernel_near=a.kernel_near,
+                        frame_slabs=8 if a.config5 else 1,
+                        trace_sched=a.trace_sched,
+                        kernel_near=not a.order_outside,
                         pipeline_rounds=a.pipeline_rounds,
                         sort_bounce_rays=a.sort, live_slice=True,
                         binned_sort=a.binned, multipass_cap=a.multipass_cap)
-    r = Renderer(stress_scene(44_556), st, base_seed=a.seed, device="cuda")
+    r = Renderer(stress_scene(1_000_000 if a.config5 else 44_556), st,
+                 base_seed=a.seed, device="cuda")
     r.step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -155,7 +167,8 @@ def main() -> int:
     print(json.dumps({
         "card": card, "frames": a.frames, "width": a.width,
         "height": a.height, "trace_sched": a.trace_sched,
-        "kernel_near": a.kernel_near, "pipeline_rounds": a.pipeline_rounds,
+        "kernel_near": not a.order_outside, "config5": a.config5,
+        "pipeline_rounds": a.pipeline_rounds,
         "sort": a.sort, "binned": a.binned,
         "multipass_cap": a.multipass_cap, "frame_ms": frame_ms,
         "gpu_span_ms": layer_ms["frame"], "gpu_busy_ms": busy_ms,

@@ -7,15 +7,21 @@ settings simply select code paths in :mod:`.renderer` and
 :mod:`.ops.integrator`.
 
 The tile-scheduling settings select hand-written kernels of
-``csrc/cluster_trace.cu`` (single-level tables only; with two-level tables
-they raise): ``trace_sched`` (0, or 1, 2, 4, 8: K5, closest-hit legs in
-rounds of that many clusters), ``pipeline_rounds`` (K2pl: the next cluster
-is fetched while the current one is tested) and ``kernel_near`` (K2n: the
-tile entry distances and the cluster order are computed inside the kernel).
-``kernel_near`` is an argument of the JAX dispatcher
-(``trace_closest_clustered_pallas``), not a field of its settings; it is a
-field here (PORT_ONLY_FIELDS) so that a frame can run it. All three return
-the default kernels' results and are off by default.
+``csrc/cluster_trace.cu``: ``kernel_near`` (the tile entry distances and
+the box order are computed inside the kernel: K2n over the clusters of
+single-level tables, K3 / K3p over the superclusters of two-level ones),
+``trace_sched`` (0, or 1, 2, 4, 8: K5, closest-hit legs in rounds of that
+many clusters) and ``pipeline_rounds`` (K2pl: the next cluster is fetched
+while the current one is tested); the last two are single-level only and
+raise with two-level tables. All three return the same results as K1 / K3
+over an order sorted outside the kernel. ``kernel_near`` is an argument of
+the JAX dispatcher (``trace_closest_clustered_pallas``), off by default and
+single-level only there, and not a field of its settings; it is a field
+here (PORT_ONLY_FIELDS), and ON by default (DEFAULT_DEVIATIONS): with it
+off every trace leg pays a dense plain-torch pass over all ray-box pairs
+and a sort before its kernel. ``kernel_near=False`` keeps that outside
+route (K1 / K3 over ``tile_nears_fused`` and ``torch.sort``), which
+``multipass_cap`` needs, since only K1 can cap a walk.
 
 ``sort_bounce_rays`` and ``live_slice`` are the JAX fields: bounce and
 shadow legs of segments past the first are traced in nearest-cluster order
@@ -36,7 +42,8 @@ traced again, ``multipass_passes`` passes in all. Each returns the plain
 sorted trace's results; on two-level tables, on exact-pairs legs, and for
 ``multipass_cap`` with a kernel that takes no cap (``trace_sched``,
 ``kernel_near``, ``pipeline_rounds``) the plain sorted trace runs instead,
-as in the JAX package.
+as in the JAX package: ``multipass_cap`` takes effect only with
+``kernel_near=False``.
 
 Fields of the JAX ``RenderSettings`` left out of this one (OMITTED_FIELDS):
 
@@ -119,6 +126,12 @@ DEFAULT_DEVIATIONS = {
         "the sort key is a second dense ray-box pass in plain torch per "
         "sorted leg, which costs more than the sort saves (PERF.md)"
     ),
+    "kernel_near": (
+        "not a JAX setting (PORT_ONLY_FIELDS; the JAX dispatcher's argument "
+        "defaults to False): outside the kernel the tile entry distances "
+        "and the sort are 134 ms of plain torch per 1080p leg, inside it a "
+        "few ms (PERF.md)"
+    ),
 }
 # ``trace_sched``: 0 (K1) or the clusters per round of K5
 TRACE_SCHED_VALUES = (0, 1, 2, 4, 8)
@@ -197,10 +210,11 @@ class RenderSettings:
     next_event_estimation: bool = False
     environment: str = "procedural"
     env_importance_sampling: bool = False
-    # the tile-scheduling kernels (module docstring); all off by default
+    # the tile-scheduling kernels (module docstring): the box order is made
+    # inside the kernel by default; the other two are off
     trace_sched: int = 0
     pipeline_rounds: bool = False
-    kernel_near: bool = False
+    kernel_near: bool = True
     # the ray sort of bounce and shadow legs (ops/ray_sort.py)
     sort_bounce_rays: bool = False  # JAX: True (DEFAULT_DEVIATIONS)
     live_slice: bool = True
@@ -221,9 +235,9 @@ class RenderSettings:
 def check_supported(settings: RenderSettings) -> None:
     """Raise ``NotImplementedError`` for settings this package does not
     implement yet (each is a later slice of the port), and ``ValueError``
-    for a ``trace_sched`` that K5 does not take. The tile-scheduling
-    settings with two-level tables raise where the tables are known
-    (ops/cluster_cuda.py ``prepare_tiles``)."""
+    for a ``trace_sched`` that K5 does not take. ``trace_sched`` and
+    ``pipeline_rounds`` with two-level tables raise where the tables are
+    known (ops/cluster_cuda.py ``prepare_tiles``)."""
     unsupported = {
         "reprojection_rate > 0": settings.reprojection_rate > 0,
         "use_hit_predictor": settings.use_hit_predictor,

@@ -1,6 +1,7 @@
 // Closest-hit, any-hit and exact-pairs cluster traces for NVIDIA Hopper
 // (sm_90a): single-level (K1, K2p, and the tile-scheduling forms K5, K2n,
-// K2pl) and two-level (K3, K3p); and the binned pass K4.
+// K2pl) and two-level (K3, K3p, with the super order from outside or made
+// in the kernel); and the binned pass K4.
 //
 // K1 (`trace_kernel<Exact>`) replaces the TPU kernels of
 // webgpu_raytracing_tpu/ops/cluster_pallas.py in non-pairs mode:
@@ -12,12 +13,17 @@
 //
 // K3 (`trace_two_level_kernel<Exact>`) replaces `_kernel_two_level` (:1379,
 // called at :1772), the large-scene form (BASELINE config #5): the tile
-// walks SUPERclusters nearest entry first (their tile entry distances are
-// computed outside the kernel), and for each super the kernel slab-tests the
-// G child cluster boxes itself, takes the tile minimum per child and walks
-// the children nearest first. Per-tile box work is O(C2 + supers visited x
-// G) instead of O(C): on the 1M-triangle scene 227 supers instead of 14,528
-// clusters.
+// walks SUPERclusters nearest entry first, and for each super the kernel
+// slab-tests the G child cluster boxes itself, takes the tile minimum per
+// child and walks the children nearest first. Per-tile box work is O(C2 +
+// supers visited x G) instead of O(C): on the 1M-triangle scene 227 supers
+// instead of 14,528 clusters. The super order comes sorted from outside the
+// kernel (`wrt_trace_{closest,any,pairs}_two_level`) or, as K2n orders its
+// clusters, from the kernel's own first half over the super boxes
+// (`wrt_trace_near_{closest,any,pairs}_two_level`; RenderSettings.kernel_near
+// on two-level tables, which the JAX dispatcher turns off, :1717: a limit of
+// its VMEM residency, not of the function). Both return the same results
+// bit for bit.
 //
 // K2p and K3p (`trace_kernel<Pairs>`, `trace_two_level_kernel<Pairs>`)
 // replace the same two kernels with `pairs=True` (`_round_pick`'s pairs
@@ -47,12 +53,17 @@
 //
 // K2n (`wrt_trace_near_{closest,any,pairs}`, `trace_near_kernel`) replaces
 // `_kernel_one_tile` with `in_near=True` (:469-490; the dispatcher's
-// `kernel_near`, RenderSettings.kernel_near here): the block computes the
-// tile's entry distance into every cluster box itself, ranks the entered
-// clusters, and walks them; the plain-torch pass over R x C ray-box pairs
-// and the (tiles, C) sort outside the kernel (ops/cluster_cuda.py
-// prepare_tiles) are not run at all. At most kMaxNearClusters boxes, 12
-// bytes of shared memory each; single-level tables only.
+// `kernel_near`, RenderSettings.kernel_near here, the port's default): the
+// block computes the tile's entry distance into every cluster box itself,
+// orders the entered clusters, and walks them; the plain-torch pass over R x
+// C ray-box pairs and the (tiles, C) sort outside the kernel
+// (ops/cluster_cuda.py prepare_tiles) are not run at all. Its first half
+// (`tile_order`, described where it stands) is written for this card: boxes
+// on the lanes, rays in shared memory grouped by sign octant, no shuffle,
+// atomic or barrier per ray-box pair, and a bitonic sort of 64-bit keys. At
+// most kMaxNearClusters boxes, 8 bytes of shared memory each (for the next
+// power of two) beside 16 KB of ray and box stages; tiles of at most
+// kMaxTile rays.
 //
 // K2pl (`wrt_trace_pipelined_{closest,any,pairs}`, `trace_staged_kernel`
 // pipelined; also K2n's walk with its `pipelined` flag) replaces
@@ -97,7 +108,11 @@
 // own from the tables; the block in staged rounds; the two-level one) are
 // templated on the search (`Exact<kAnyHit>` or `Pairs`) and, single-level,
 // on the source of the order, so the walks and the arithmetic are written
-// once.
+// once. The closest-hit walks of K2n and K3 keep a warp in step over the
+// order and let its lanes share their slot scans (`coop_test`): the
+// (t, code) minimum does not depend on the order of the tests, so the
+// results stay K1's. The any-hit code and the pairs' carried candidates do
+// depend on it, and those searches keep the scan of one thread.
 //
 // What is NOT carried over: the TPU kernels evaluate Möller–Trumbore as a
 // bilinear-form matmul (ray matrix x cluster matrix B) because the MXU is
@@ -108,8 +123,8 @@
 // and the child order; `_kernel_sched` reads its schedule from SMEM scalars
 // to spare the vector-to-scalar drain, and K2n's TPU form re-runs a masked
 // minimum over all C keys per round. Here each thread is one ray, an order
-// is a sorted list (K2n: ranked once, in the block), and a round's bound is
-// a register. K1 and K3 compute exact
+// is a sorted list (K2n, K3's supers: sorted once, in the block), and a
+// round's bound is a register. K1 and K3 compute exact
 // sequential f32 Möller–Trumbore, the reference's own arithmetic, on the
 // triangle rows `tri`; K2p and K3p compute A·B in f32 on the CUDA cores, one
 // slot at a time; minima and orders are exact floats.
@@ -123,14 +138,30 @@
 // reads shared: all threads of a block walk the same per-tile cluster order
 // (sorted outside the kernel, as `_kernel_sched` does), so at a given step
 // every lane that tests a cluster loads the same row and a warp's load is
-// one broadcast transaction. K3 adds, per super a block visits, G slab tests
-// per thread and four block barriers; it stages the G child boxes in shared
-// memory once per block (1.5 KB at G = 64), reduces each child's minimum
-// within the warp (`__reduce_min_sync`) and then across the four warps with
-// one shared atomic each, so the child cull reads no device memory beyond
-// that staging. Each thread stops at the first cluster (K3: child, and at
-// the super level, super) whose tile-minimum entry distance is not below its
-// own bound, and skips clusters its own slab test rejects.
+// one broadcast transaction. K2n and K3 are bound by instruction count:
+// without FMA (--fmad=false) a ray-box pair of the first half is about 25
+// instructions (12 subtracts and multiplies, 4 NaN-propagating min / max, 3
+// compares, 3 integer min / max and selects, and its share of the ray
+// read), 1.33 G pairs a 1080p leg over 643 clusters; K3 adds, per super a
+// block visits, G T slab tests of the child cull (T / G x fewer per thread:
+// every thread takes a child and a part of the rays), a 64-key sort by one
+// warp and three block barriers (the vote, the minima, the order); the
+// child boxes go to shared memory once per visit (1.5 KB at G = 64) for the
+// walk's per-ray tests. Each thread stops at the first cluster (K3: child,
+// and at the super level, super) whose tile-minimum entry distance is not
+// below its own bound, and skips clusters its own slab test rejects. On a
+// bounce leg the rays of a tile go apart, and a thread that scans a
+// cluster's 128 slots alone holds its warp for 31 lanes that skip that
+// cluster: there the shared scan (`coop_test`) does in 4 tests a lane what
+// took 128.
+//
+// Occupancy of the redesigned kernels (`__launch_bounds__(kMaxTile)`, blocks
+// of 128 threads; nvcc -Xptxas -v, sm_90a): K2n 56 registers any-hit, 64
+// closest-hit (the shared scan's second ray) and pairs, and 24 KB of shared
+// memory at 643 clusters, so 9 blocks an SM (any-hit) or 8, by registers
+// (at kMaxNearClusters 48 KB: 4, by shared memory); K3 56 registers (any-hit
+// over the outside order 48) and 8.9 KB static (+ 8 KB dynamic with its own
+// super order at 227 supers), so 9 blocks an SM, by registers.
 //
 // Contract of K1 and K3 (matches the plain twins `_trace_closest_torch` and
 // `_walk_two_level_torch` in ops/cluster_cuda.py bit for bit; build with
@@ -186,13 +217,14 @@
 //     term, which has no counterpart: t is not truncated here.
 //
 // K3's child minima (JAX's formula): a ray contributes max(near, 0) for a
-// child when near < far, near < t_max and far > 0, else F32_MAX; every
-// thread contributes, finished or not, so the minima do not depend on walk
-// progress. -0 is made +0 before the minimum is taken on the float's bits
-// (exact for non-negative floats). Children are ranked by (minimum, index).
-// Children without faces (the pads of the last super, inverted-empty boxes
-// that a symmetric slab test does not reject) keep F32_MAX and are never
-// visited.
+// child when near < far, near < t_max and far > 0, else F32_MAX; every ray of
+// the tile contributes, finished or not (the rays are read from the block's
+// stage, not from the threads that own them), so the minima do not depend
+// on walk progress. -0 is made +0 before the minimum is taken on the
+// float's bits (exact for non-negative floats). Children are ordered by
+// (minimum, index). Children without faces (the pads of the last super,
+// inverted-empty boxes that a symmetric slab test does not reject) keep
+// F32_MAX and are never visited.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -201,18 +233,33 @@ namespace {
 
 constexpr int kMaxGroup = 128;
 constexpr int kMaxJblk = 8;                 // K5: clusters per block of rounds
-constexpr int kMaxNearClusters = 4096;      // K2n: boxes a tile may rank
+constexpr int kMaxNearClusters = 4096;      // K2n, K3: boxes a tile may order
+constexpr int kMaxTile = 128;               // K2n, K3: rays of a block
+// first half: the most boxes a thread tests per ray read, ordering clusters
+// (K2n) and supers (K3); each costs 7 registers and 24 bytes of stage a ray
+constexpr int kNearRows = 4;
+constexpr int kSuperRows = 2;
+constexpr int kOctWords = 16 + 8 * (kMaxTile / 32);  // octant starts, counts
 constexpr size_t kMaxSharedBytes = 232448;  // a block's opt-in limit, sm_90
 constexpr unsigned kF32MaxBits = 0x7f7fffffu;
 constexpr unsigned kBoundUlps = 1u << 9;      // (cluster_pallas.py:566)
 constexpr long long kAmbBand = 2 * (1 << 9);  // (cluster_pallas.py:389)
 
-// NaN-propagating min/max, as torch.minimum / torch.maximum
+typedef unsigned long long u64;
+
+// NaN-propagating min/max, as torch.minimum / torch.maximum: one FMNMX.NAN
+// each (PTX min.NaN / max.NaN, sm_80 and later) instead of two compares and
+// a select around fminf / fmaxf. A ray along an axis makes 0 x inf = NaN in
+// the slab products, and that NaN must reach `near < far`.
 __device__ __forceinline__ float min_nan(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 __device__ __forceinline__ float max_nan(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 
 struct Ray {
@@ -237,6 +284,7 @@ struct Walk {
   const int* code0;      // (R,) closest-hit: the code carried in beside t_max
   int cap;               // K1: walk at most this many entries of the order
   int* stop_out;         // (R,) K1: bits of the first entry not walked
+  const float* super_box;  // (n_cols, 6) K3 ordering its supers itself
 };
 
 // Slab test of one ray against one box (min.xyz, max.xyz) → (near, far),
@@ -302,19 +350,31 @@ struct Exact {
         ex(w.excl[ray]), best(w.t_max[ray]),
         best_code(!kAnyHit && w.code0 ? w.code0[ray] : -1) {}
 
+  // another thread's search, to take a share of its scan (`coop_test`)
+  __device__ Exact(const Ray& r, int ex, float best, int best_code)
+      : r(r), ex(ex), best(best), best_code(best_code) {}
+
+  __device__ __forceinline__ static float3 origin(const In& in,
+                                                   long long ray) {
+    return make_float3(in.o[3 * ray], in.o[3 * ray + 1], in.o[3 * ray + 2]);
+  }
+
   // stop and skip bound: the best t (any-hit: t_max)
   __device__ __forceinline__ float bound() const { return best; }
 
   static constexpr int kRowWords = 9;  // staged words per slot: a tri row
+  // closest-hit: a warp may share a lane's slot scan (`coop_test`)
+  static constexpr bool kCoop = !kAnyHit;
 
   // The occupied slots of a cluster, in slot order: ids `fids`, triangle
   // rows `rows` indexed by face id (the table) or, staged, by slot. Returns
   // true when the ray is done (any-hit: its first valid hit, code in
-  // best_code).
-  template <bool kStaged>
+  // best_code). kStride > 1: only the slots first, first + kStride, ...
+  template <bool kStaged, int kStride = 1>
   __device__ __forceinline__ bool scan(int cid, const int* fids,
-                                       const float* rows, const Walk& w) {
-    for (int s = 0; s < w.slots; ++s) {
+                                       const float* rows, const Walk& w,
+                                       int first = 0) {
+    for (int s = first; s < w.slots; s += kStride) {
       const int f = fids[s];
       if (f < 0) break;  // occupied slots come first
       const int code = cid * w.slots + s;
@@ -424,12 +484,19 @@ struct Pairs {
     t1 = t2 = t3 = w.t_max[ray];
   }
 
+  __device__ __forceinline__ static float3 origin(const In& in,
+                                                   long long ray) {
+    return make_float3(in.a[10 * ray], in.a[10 * ray + 1],
+                       in.a[10 * ray + 2]);
+  }
+
   // stop and skip bound: t3 + 2^9 ulps, capped at F32_MAX
   __device__ __forceinline__ float bound() const {
     return __uint_as_float(min(__float_as_uint(t3) + kBoundUlps, kF32MaxBits));
   }
 
   static constexpr int kRowWords = 19;  // staged words per slot: B's terms
+  static constexpr bool kCoop = false;
 
   // The occupied slots of a cluster, in slot order. `rows` is the cluster's
   // block of mat_b (10 rows of 4 * slots) or, staged, its 19 structurally
@@ -548,16 +615,18 @@ struct GlobalOrder {
   __device__ __forceinline__ int cid(int k) const { return order[k]; }
 };
 
-// ... or ranked by the block itself (K2n): `dist` holds every cluster's tile
-// minimum as float bits, `ord` the n clusters some ray of the tile enters.
+// ... or ordered by the block itself (K2n; K3's supers; `tile_order`): the n
+// boxes some ray of the tile enters as sorted keys in shared memory, the
+// tile's entry distance (float bits) above the box index.
 struct SharedOrder {
-  const unsigned* dist;
-  const int* ord;
+  const u64* key;
   int n;
   __device__ __forceinline__ float near(int k) const {
-    return __uint_as_float(dist[ord[k]]);
+    return __uint_as_float((unsigned)(key[k] >> 32));
   }
-  __device__ __forceinline__ int cid(int k) const { return ord[k]; }
+  __device__ __forceinline__ int cid(int k) const {
+    return (int)(unsigned)key[k];
+  }
 };
 
 // ... or (K4) the block's two schedule entries, with no entry distances: -1
@@ -584,6 +653,82 @@ __device__ __forceinline__ void walk_plain(Search& s, const Order& ord,
     if (!((near_t < far_t) && (far_t > 0.0f) && (near_t < s.bound())))
       continue;
     if (s.test(cid, in, w)) break;
+  }
+}
+
+// Closest-hit slot scans shared by a warp (K2n's and K3's walks). A thread
+// that scans a cluster on its own runs up to `slots` triangle tests in
+// sequence while the lanes of its warp whose rays skip that cluster wait for
+// it: on a bounce leg, where a tile's rays go apart, most of a warp's
+// instruction slots are such waits. Here the lanes that `want` cluster
+// `cid` tested (they passed the bound and their own slab test) are taken
+// one at a time: the
+// lane's ray, exclusion code and best (t, code) go to the whole warp by
+// shuffle, every lane tests the slots lane, lane + 32, ... (face ids and
+// triangle rows read side by side), and a butterfly takes the (t, code)
+// lexicographic minimum, which goes back to the lane. That minimum does not
+// depend on the order of the tests, and it starts from the lane's own best,
+// so the result is the sequential scan's bit for bit. When most of the warp
+// wants the cluster (primary rays), the sequential scan is cheaper, every
+// load a broadcast: kCoopSerial lanes or more take it. All 32 lanes call
+// this together.
+constexpr int kCoopSerial = 24;
+
+__device__ __forceinline__ void coop_test(Exact<false>& s, bool want, int cid,
+                                          const ExactIn& in, const Walk& w) {
+  constexpr unsigned kFull = 0xffffffffu;
+  unsigned mask = __ballot_sync(kFull, want);
+  if (__popc(mask) >= kCoopSerial) {
+    if (want) s.test(cid, in, w);
+    return;
+  }
+  const int lane = threadIdx.x & 31;
+  const int* fids = w.face_id + (long long)cid * w.slots;
+  while (mask) {
+    const int src = __ffs(mask) - 1;
+    mask &= mask - 1;
+    auto from = [&](auto x) { return __shfl_sync(kFull, x, src); };
+    Exact<false> c(Ray{from(s.r.ox), from(s.r.oy), from(s.r.oz), from(s.r.dx),
+                       from(s.r.dy), from(s.r.dz), 0.0f, 0.0f, 0.0f},
+                   from(s.ex), from(s.best), from(s.best_code));
+    c.scan<false, 32>(cid, fids, in.tri, w, lane);
+    float best = c.best;
+    int best_code = c.best_code;
+#pragma unroll
+    for (int off = 16; off >= 1; off >>= 1) {
+      const float ot = __shfl_xor_sync(kFull, best, off);
+      const int oc = __shfl_xor_sync(kFull, best_code, off);
+      if (ot < best || (ot == best && oc < best_code)) {
+        best = ot;
+        best_code = oc;
+      }
+    }
+    if (lane == src) {
+      s.best = best;
+      s.best_code = best_code;
+    }
+  }
+}
+
+// K2n's closest-hit walk: `walk_plain` with the warp in step over the order,
+// so that its lanes can share their slot scans. A thread of `walk_plain`
+// leaves at the first entry not below its bound; the entries ascend and the
+// bound only falls, so testing that rule entry by entry leaves out the same
+// clusters, and the warp leaves when no lane is left.
+template <class Order>
+__device__ __forceinline__ void walk_coop(Exact<false>& s, const Order& ord,
+                                          const ExactIn& in, const Walk& w) {
+  for (int k = 0; k < ord.n; ++k) {
+    const bool alive = !(ord.near(k) >= s.bound());
+    if (!__any_sync(0xffffffffu, alive)) break;
+    const int cid = ord.cid(k);
+    bool want = alive;
+    if (want) {
+      float near_t, far_t;
+      slab(w.box + 6 * cid, s.r, near_t, far_t);
+      want = (near_t < far_t) && (far_t > 0.0f) && (near_t < s.bound());
+    }
+    coop_test(s, want, cid, in, w);
   }
 }
 
@@ -719,7 +864,7 @@ __global__ void trace_binned_kernel(typename Search::In in, Walk w,
 template <class Search>
 __global__ void trace_staged_kernel(typename Search::In in, Walk w, int jblk,
                                     int pipelined) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const long long tile = blockIdx.x;
   const long long ray = tile * blockDim.x + threadIdx.x;
   Search s(in, w, ray);
@@ -729,136 +874,563 @@ __global__ void trace_staged_kernel(typename Search::In in, Walk w, int jblk,
   s.store(in, ray);
 }
 
-// K2n: the block computes its tile's entry distance into every cluster box
-// (w.n_cols boxes; w.snear and w.order are not read), ranks the clusters
-// that some ray enters by (distance, cluster), the order a stable ascending
-// sort gives, and walks them as K1 does or, `pipelined`, as K2pl does.
+// ---------------------------------------------------------------------------
+// The first half of K2n and K3: a tile orders its own boxes (`tile_order`),
+// and K3's child cull takes the same pass.
 //
-// Distances (tile_nears_fused, ops/cluster_trace.py): a ray contributes
-// max(near, 0) for a box when near < far, near < t_max and far > 0, else
-// F32_MAX; -0 is made +0 and the minimum is taken on the float's bits, within
-// the warp and then across warps with one shared atomic each. Clusters that
-// no ray enters keep F32_MAX and are left out of the order: no bound exceeds
-// F32_MAX, so no walk would reach them. With `Walk::t_start` a ray's entry
-// below its own t_start is left out of the minimum. Shared memory: 12 bytes per cluster
-// (distance, candidate list, order) before the staging buffers.
-template <class Search>
-__global__ void trace_near_kernel(typename Search::In in, Walk w,
-                                  int pipelined) {
-  extern __shared__ float smem[];
-  __shared__ int s_n;
-  const int n_boxes = w.n_cols;
-  unsigned* s_dist = (unsigned*)smem;
-  int* s_cand = (int*)smem + n_boxes;
-  int* s_ord = s_cand + n_boxes;
-  const int tid = threadIdx.x;
-  const long long ray = (long long)blockIdx.x * blockDim.x + tid;
-  Search s(in, w, ray);
-  const float tmax = w.t_max[ray];
-  const bool masked = w.t_start != nullptr;  // block-uniform
-  const float ts = masked ? w.t_start[ray] : 0.0f;
+// What it computes is `tile_nears_fused` + a stable ascending sort
+// (ops/cluster_cuda.py `_near_order`): per box the minimum over the tile's
+// rays of the ray's entry value, max(near, 0) + 0 where near < far, near <
+// t_max, far > 0 and the entry is not below the ray's t_start, else F32_MAX;
+// then the entered boxes by (distance, box index) ascending. Non-negative
+// floats order as their bits and a minimum of exact values does not depend
+// on the order it is taken in, so distances and order are those of the twin
+// bit for bit.
+//
+// BOXES ON THE LANES, RAYS IN SHARED MEMORY. The block stages its rays once,
+// 32 bytes each: (o, t_max) and (inv_d, t_start or 0), so a thread reads a
+// ray as two broadcast 16-byte loads. A thread owns the boxes tid, tid + T,
+// ...: it keeps up to kNearRows (4; K3's supers: kSuperRows, 2) of them at a
+// time in registers with their running minima (the rows are cut into the
+// fewest groups of at most that many, as even as they go: the slice's 5
+// rows are 3 + 2) and loops over the rays, so one ray read serves several
+// slab tests, and per ray-box pair
+// there is one slab test and one integer minimum: no shuffle, no atomic and
+// no barrier inside the pass. The rays are staged grouped by the sign octant
+// of inv_d (`stage_rays`), so which corner of a box is the near one is
+// decided once per run of rays and not once per pair: 12 subtracts and
+// multiplies, 4 NaN-propagating min / max and 6 compare, select and integer
+// min / max instructions a pair, where the plain slab test (`slab`) takes 6
+// min / max more. The boxes of a group of rows come in as one coalesced
+// 16-byte cp.async copy into a 12 KB stage (K3: 6 KB), from which each
+// thread takes its own. More rows a thread (5 and 6 were measured) make the
+// pass itself faster and the kernel slower: the walk that follows loses a
+// block an SM to the registers and the stage.
+//
+// THE ORDER BY A SORT. After each group a warp compacts its entered boxes
+// with ballots (one shared atomicAdd per warp and group) into 64-bit keys,
+// distance bits << 32 | box, which are distinct, so any correct sort gives
+// the stable order. `block_sort` is a bitonic network over the next power of
+// two P >= 64 of the entered count, padded with ~0: every 64-key segment is
+// held two keys a lane in registers by one warp, which runs all compare
+// distances j <= 32 there (j = 32 inside the lane, j < 32 by __shfl_xor),
+// so only the distances j >= 64 go through shared memory between block
+// barriers. P = 1024 takes 10 + 4 barriers in place of the 55 of a plain
+// block bitonic; P = 64 (a tile that enters up to 64 boxes; K3's children)
+// is one warp and no barrier inside the sort.
+//
+// Shared memory: 8 bytes a box (the keys, for the next power of two of the
+// box count, at least 64) + 32 T (rays) + 24 kNearRows T (box stage): 24 KB
+// at the slice's 643 clusters and T = 128, 48 KB at kMaxNearClusters; K3
+// ordering 227 supers: 2 KB of keys and a 6 KB stage beside its static 9 KB.
+// ---------------------------------------------------------------------------
 
-  for (int c = tid; c < n_boxes; c += blockDim.x) s_dist[c] = kF32MaxBits;
-  if (tid == 0) s_n = 0;
-  __syncthreads();
-  for (int c = 0; c < n_boxes; ++c) {
-    float near_t, far_t;
-    slab(w.box + 6 * c, s.r, near_t, far_t);
-    unsigned v = kF32MaxBits;
-    if ((near_t < far_t) && (near_t < tmax) && (far_t > 0.0f)) {
-      const float entry = fmaxf(near_t, 0.0f) + 0.0f;  // -0 → +0
-      // t_start: an entry below it was run by an earlier pass (NaN: all)
-      if (!masked || entry >= ts) v = __float_as_uint(entry);
-    }
-    v = __reduce_min_sync(0xffffffffu, v);
-    if ((tid & 31) == 0 && v != kF32MaxBits) atomicMin(&s_dist[c], v);
+// The tile's rays in shared memory, and where each octant's rays start.
+struct RayStage {
+  float4* ray;  // (2 T)
+  int* oct;     // (kOctWords) starts of the 8 octants and the end; counts
+};
+
+// The tile's rays as the box passes read them, GROUPED BY SIGN OCTANT of
+// inv_d (bit a set where inv_d[a] < 0; NaN and -0 count as "up"): rows 2i
+// and 2i + 1 of the ray in place i, the rays of octant k in places
+// oct[k] .. oct[k + 1] - 1. A minimum over the tile's rays does not
+// depend on their order, so the passes may take them octant by octant with
+// the octant's code chosen once per group of rays, not once per ray. A
+// counting sort: per warp and octant one ballot, the counts in oct[16..],
+// one block barrier, and every thread sums the counts before its own.
+// The caller needs a block barrier before the stage is read.
+template <class Search>
+__device__ __forceinline__ void stage_rays(const RayStage& rs,
+                                           const typename Search::In& in,
+                                           const Walk& w, long long ray) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n_warps = blockDim.x >> 5;
+  const float3 o = Search::origin(in, ray);
+  const float4 p = make_float4(o.x, o.y, o.z, w.t_max[ray]);
+  const float4 q =
+      make_float4(w.inv_d[3 * ray], w.inv_d[3 * ray + 1], w.inv_d[3 * ray + 2],
+                  w.t_start ? w.t_start[ray] : 0.0f);
+  const int oct = (q.x < 0.0f) | ((q.y < 0.0f) << 1) | ((q.z < 0.0f) << 2);
+  int* s_cnt = rs.oct + 16;  // [octant][warp]
+  unsigned mine = 0;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const unsigned bal = __ballot_sync(0xffffffffu, oct == k);
+    if (lane == k) s_cnt[k * n_warps + warp] = __popc(bal);
+    if (oct == k) mine = bal;
   }
   __syncthreads();
-  for (int c = tid; c < n_boxes; c += blockDim.x)
-    if (s_dist[c] != kF32MaxBits) s_cand[atomicAdd(&s_n, 1)] = c;
-  __syncthreads();
-  const int n = s_n;
-  for (int i = tid; i < n; i += blockDim.x) {
-    const int c = s_cand[i];
-    const unsigned mine = s_dist[c];  // non-negative floats order as bits
-    int pos = 0;
-    for (int q = 0; q < n; ++q) {
-      const int cq = s_cand[q];
-      const unsigned other = s_dist[cq];
-      pos += (other < mine) || (other == mine && cq < c);
+  int pos = __popc(mine & ((1u << lane) - 1u));
+  for (int i = 0; i < oct * n_warps + warp; ++i) pos += s_cnt[i];
+  if (tid <= 8) {
+    int start = 0;
+    for (int i = 0; i < tid * n_warps; ++i) start += s_cnt[i];
+    rs.oct[tid] = start;
+  }
+  rs.ray[2 * pos] = p;
+  rs.ray[2 * pos + 1] = q;
+}
+
+// max(near, 0) with -0 made +0, on the float's bits: a negative float, -0
+// included, is a negative integer. (A NaN fails the compares that follow.)
+__device__ __forceinline__ float entry_of(float near_t) {
+  return __int_as_float(max(__float_as_int(near_t), 0));
+}
+
+// One ray of the pass against kB boxes in registers. A box comes with each
+// axis sorted (bx[a] <= bx[3 + a], `sorted_box`), so along an axis the ray
+// goes up (inv_d >= 0, kN false) its products satisfy (lo - o) inv_d <= (hi -
+// o) inv_d by the monotonicity of rounding, and along one it goes down the
+// reverse: the per-axis min and max of the slab test are known from the
+// ray's sign octant and are not computed. The values are those of `slab`
+// on the same ray and box (a sorted axis gives the same two products): any
+// NaN product (0 x inf for a ray along an axis; a NaN origin) sits in `near`
+// or `far` and the NaN-propagating combine carries it into `near < far`.
+template <int kB, bool kNx, bool kNy, bool kNz>
+__device__ __forceinline__ void box_pass_ray(const float4& p, const float4& q,
+                                             const float (&bx)[kB][6],
+                                             unsigned (&m)[kB]) {
+#pragma unroll
+  for (int b = 0; b < kB; ++b) {
+    const float nx = (bx[b][kNx ? 3 : 0] - p.x) * q.x;
+    const float fx = (bx[b][kNx ? 0 : 3] - p.x) * q.x;
+    const float ny = (bx[b][kNy ? 4 : 1] - p.y) * q.y;
+    const float fy = (bx[b][kNy ? 1 : 4] - p.y) * q.y;
+    const float nz = (bx[b][kNz ? 5 : 2] - p.z) * q.z;
+    const float fz = (bx[b][kNz ? 2 : 5] - p.z) * q.z;
+    const float near_t = max_nan(max_nan(nx, ny), nz);
+    const float far_t = min_nan(min_nan(fx, fy), fz);
+    const float entry = entry_of(near_t);
+    // near < far and far > 0, as one compare: max(near, 0) < far
+    if ((entry < far_t) && (near_t < p.w) && (entry >= q.w))
+      m[b] = min(m[b], __float_as_uint(entry));
+  }
+}
+
+// The pass: the rays in places [r0, r1) of the stage against kB boxes in
+// registers; m[b] is box b's running minimum as float bits. The rays come
+// octant by octant (stage_rays), so the octant's code is picked once per
+// run of rays and the loop over a run is straight-line: two 16-byte
+// broadcast reads and kB slab tests. An entry >= 0 is never below a t_start
+// of 0, and never "not below" a NaN one.
+template <int kB, bool kNx, bool kNy, bool kNz>
+__device__ __forceinline__ void box_pass_run(const float4* s_ray, int r0,
+                                             int r1,
+                                             const float (&bx)[kB][6],
+                                             unsigned (&m)[kB]) {
+  for (int i = r0; i < r1; ++i)
+    box_pass_ray<kB, kNx, kNy, kNz>(s_ray[2 * i], s_ray[2 * i + 1], bx, m);
+}
+template <int kB>
+__device__ __forceinline__ void box_pass(const RayStage& rs, int r0, int r1,
+                                         const float (&bx)[kB][6],
+                                         unsigned (&m)[kB]) {
+  const float4* sr = rs.ray;
+#pragma unroll 1
+  for (int oct = 0; oct < 8; ++oct) {
+    const int lo = max(r0, rs.oct[oct]), hi = min(r1, rs.oct[oct + 1]);
+    switch (oct) {
+      case 0: box_pass_run<kB, false, false, false>(sr, lo, hi, bx, m); break;
+      case 1: box_pass_run<kB, true, false, false>(sr, lo, hi, bx, m); break;
+      case 2: box_pass_run<kB, false, true, false>(sr, lo, hi, bx, m); break;
+      case 3: box_pass_run<kB, true, true, false>(sr, lo, hi, bx, m); break;
+      case 4: box_pass_run<kB, false, false, true>(sr, lo, hi, bx, m); break;
+      case 5: box_pass_run<kB, true, false, true>(sr, lo, hi, bx, m); break;
+      case 6: box_pass_run<kB, false, true, true>(sr, lo, hi, bx, m); break;
+      default: box_pass_run<kB, true, true, true>(sr, lo, hi, bx, m); break;
     }
-    s_ord[pos] = c;
+  }
+}
+
+// A box for the pass: each axis sorted, NaN kept (an inverted-empty pad box
+// slab-tests like the box between its swapped corners, as in `slab`).
+__device__ __forceinline__ void sorted_box(const float* src, float (&bx)[6]) {
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float lo = src[a], hi = src[3 + a];
+    bx[a] = min_nan(lo, hi);
+    bx[3 + a] = max_nan(lo, hi);
+  }
+}
+
+// One group of kB rows of boxes: boxes first .. first + count - 1 of `box`
+// through the stage into registers, the pass over all the tile's rays, and
+// the entered ones appended to `s_key` as keys (in no order).
+template <int kB>
+__device__ __forceinline__ void order_rows(const float* box, int first,
+                                           int count, const RayStage& rs,
+                                           float* s_stage, u64* s_key,
+                                           int* s_n) {
+  const int tid = threadIdx.x, T = blockDim.x;
+  const float* src = box + 6LL * first;  // 16-byte aligned: T % 32 == 0
+  const int words = 6 * count, vecs = words >> 2;
+  for (int v = tid; v < vecs; v += T)
+    __pipeline_memcpy_async(s_stage + 4 * v, src + 4 * v, 16);
+  for (int q = 4 * vecs + tid; q < words; q += T)
+    __pipeline_memcpy_async(s_stage + q, src + q, 4);
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();  // the stage is whole (and, first group: the rays)
+  float bx[kB][6];
+  unsigned m[kB];
+#pragma unroll
+  for (int b = 0; b < kB; ++b) {
+    const int idx = tid + b * T;
+    sorted_box(s_stage + 6 * (idx < count ? idx : 0), bx[b]);
+    m[b] = kF32MaxBits;
+  }
+  __syncthreads();  // the stage is read: the next group may overwrite it
+  box_pass<kB>(rs, 0, T, bx, m);
+  unsigned bal[kB];
+  int total = 0;
+#pragma unroll
+  for (int b = 0; b < kB; ++b) {
+    const bool entered = tid + b * T < count && m[b] != kF32MaxBits;
+    bal[b] = __ballot_sync(0xffffffffu, entered);
+    total += __popc(bal[b]);
+  }
+  const int lane = tid & 31;
+  int base = 0;
+  if (lane == 0 && total) base = atomicAdd(s_n, total);
+  base = __shfl_sync(0xffffffffu, base, 0);
+#pragma unroll
+  for (int b = 0; b < kB; ++b) {
+    if ((bal[b] >> lane) & 1u)
+      s_key[base + __popc(bal[b] & ((1u << lane) - 1u))] =
+          ((u64)m[b] << 32) | (unsigned)(first + tid + b * T);
+    base += __popc(bal[b]);
+  }
+}
+
+// `count` <= T boxes, each split over T / count parts of the tile's rays:
+// thread tid takes box tid % count (`load(box, bx)` fetches it and says
+// whether it is to be tested) over the rays of part tid / count, and leaves
+// its minimum in s_part[tid]. The minimum of box c is then the least of
+// s_part[c + p * count] over the parts p (`merged`), after a block barrier.
+template <class Load>
+__device__ __forceinline__ void split_pass(int count, const RayStage& rs,
+                                           unsigned* s_part, Load load) {
+  const int tid = threadIdx.x, T = blockDim.x;
+  const int parts = T / count, per = (T + parts - 1) / parts;
+  if (tid < parts * count) {
+    const int part = tid / count;
+    float bx[1][6];
+    unsigned m[1] = {kF32MaxBits};
+    if (load(tid % count, part, bx[0]))
+      box_pass<1>(rs, part * per, min(T, (part + 1) * per), bx, m);
+    s_part[tid] = m[0];
+  }
+}
+__device__ __forceinline__ unsigned merged(const unsigned* s_part, int count,
+                                           int box) {
+  unsigned v = s_part[box];
+  for (int i = box + count; i + count - box <= (int)blockDim.x; i += count)
+    v = min(v, s_part[i]);
+  return v;
+}
+
+// The boxes left after the whole rows, when they fill at most half a row
+// (the slice's 643 clusters leave 3): a row of their own would keep most
+// threads on boxes that are not there, so each is split over several
+// threads (`split_pass`) and the minima are merged where the keys are made.
+__device__ __forceinline__ void order_tail(const float* box, int first,
+                                           int count, const RayStage& rs,
+                                           float* s_stage, u64* s_key,
+                                           int* s_n) {
+  const int tid = threadIdx.x, T = blockDim.x;
+  const float* src = box + 6LL * first;
+  for (int q = tid; q < 6 * count; q += T) s_stage[q] = src[q];
+  unsigned* s_part = (unsigned*)(s_stage + 3 * T);  // past count <= T / 2 boxes
+  __syncthreads();
+  split_pass(count, rs, s_part, [&](int c, int, float (&bx)[6]) {
+    sorted_box(s_stage + 6 * c, bx);
+    return true;
+  });
+  __syncthreads();
+  const unsigned v = tid < count ? merged(s_part, count, tid) : kF32MaxBits;
+  const unsigned bal = __ballot_sync(0xffffffffu, v != kF32MaxBits);
+  const int lane = tid & 31;
+  int base = 0;
+  if (lane == 0 && bal) base = atomicAdd(s_n, __popc(bal));
+  base = __shfl_sync(0xffffffffu, base, 0);
+  if ((bal >> lane) & 1u)
+    s_key[base + __popc(bal & ((1u << lane) - 1u))] =
+        ((u64)v << 32) | (unsigned)(first + tid);
+  __syncthreads();  // the stage and the parts are read
+}
+
+// Step k of the bitonic network on one 64-key segment (keys base .. base +
+// 63, base a multiple of 64) held two a lane, `a` = key base + lane and `b`
+// = key base + 32 + lane: the compare distances j = min(k / 2, 32) .. 1.
+// Key i goes up (takes the minimum at the lower index) when (i & k) == 0.
+__device__ __forceinline__ void bitonic_tail64(u64& a, u64& b, int k,
+                                               int base) {
+  const int lane = threadIdx.x & 31;
+  const bool up_a = ((base + lane) & k) == 0;
+  const bool up_b = ((base + 32 + lane) & k) == 0;
+  int j = k >> 1;
+  if (j >= 32) {  // j = 32: the pair lies in this lane, and up_a == up_b
+    if ((a > b) == up_a) {
+      const u64 t = a;
+      a = b;
+      b = t;
+    }
+    j = 16;
+  }
+  for (; j >= 1; j >>= 1) {
+    const u64 oa = __shfl_xor_sync(0xffffffffu, a, j);
+    const u64 ob = __shfl_xor_sync(0xffffffffu, b, j);
+    const bool low = (lane & j) == 0;
+    a = (low == up_a) ? min(a, oa) : max(a, oa);
+    b = (low == up_b) ? min(b, ob) : max(b, ob);
+  }
+}
+
+// Sort key[0 .. P) ascending, P a power of two >= 64, whole block. The
+// initial keys are init(i) (which may read `key` itself); ends with a block
+// barrier. P = 64: warp 0 alone, in registers.
+template <class Init>
+__device__ __forceinline__ void block_sort(u64* key, int P, Init init) {
+  const int tid = threadIdx.x, T = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, n_warps = T >> 5;
+  for (int seg = warp; seg < (P >> 6); seg += n_warps) {
+    const int base = seg << 6;
+    u64 a = init(base + lane), b = init(base + 32 + lane);
+    for (int k = 2; k <= 64; k <<= 1) bitonic_tail64(a, b, k, base);
+    key[base + lane] = a;
+    key[base + 32 + lane] = b;
+  }
+  for (int k = 128; k <= P; k <<= 1) {
+    for (int j = k >> 1; j >= 64; j >>= 1) {
+      __syncthreads();
+      for (int t = tid; t < (P >> 1); t += T) {
+        const int i = ((t & ~(j - 1)) << 1) | (t & (j - 1));
+        const u64 x = key[i], y = key[i + j];
+        if ((x > y) == ((i & k) == 0)) {
+          key[i] = y;
+          key[i + j] = x;
+        }
+      }
+    }
+    __syncthreads();
+    for (int seg = warp; seg < (P >> 6); seg += n_warps) {
+      const int base = seg << 6;
+      u64 a = key[base + lane], b = key[base + 32 + lane];
+      bitonic_tail64(a, b, k, base);
+      key[base + lane] = a;
+      key[base + 32 + lane] = b;
+    }
   }
   __syncthreads();
-  const SharedOrder ord{s_dist, s_ord, n};
+}
+
+// Keys a tile of n_boxes boxes may need: the next power of two, at least 64.
+__host__ __device__ inline int key_capacity(int n_boxes) {
+  int p = 64;
+  while (p < n_boxes) p <<= 1;
+  return p;
+}
+
+// A group of kB rows for `order_rows`, compiled only where kB <= kRows.
+struct OrderGroup {
+  const float* box;
+  int first, count;
+  const RayStage& rs;
+  float* s_stage;
+  u64* s_key;
+  int* s_n;
+  template <int kB, int kRows>
+  __device__ __forceinline__ void run() const {
+    if constexpr (kB <= kRows)
+      order_rows<kB>(box, first, count, rs, s_stage, s_key, s_n);
+  }
+};
+
+// The first half: the tile orders `n_boxes` boxes, a thread holding at most
+// kRows of them at a time. Leaves the entered boxes
+// as sorted keys in s_key and returns their number. The ray stage must be
+// written (stage_rays) by every thread before the call; no barrier is needed
+// between.
+template <int kRows>
+__device__ __forceinline__ int tile_order(const float* box, int n_boxes,
+                                          const RayStage& rs, float* s_stage,
+                                          u64* s_key, int* s_n) {
+  static_assert(kRows >= 1 && kRows <= 6, "groups of one to six rows");
+  const int tid = threadIdx.x, T = blockDim.x;
+  if (tid == 0) *s_n = 0;
+  const int tail = n_boxes % T <= T / 2 ? n_boxes % T : 0;
+  const int whole = n_boxes - tail;  // boxes taken a row of T at a time
+  const int rows = (whole + T - 1) / T;
+  const int groups = (rows + kRows - 1) / kRows;
+  for (int g = 0, row = 0; g < groups; ++g) {
+    const int take = (rows - row + groups - g - 1) / (groups - g);
+    const int first = row * T, count = min(take * T, whole - first);
+    const OrderGroup grp{box, first, count, rs, s_stage, s_key, s_n};
+    switch (take) {
+      case 1: grp.run<1, kRows>(); break;
+      case 2: grp.run<2, kRows>(); break;
+      case 3: grp.run<3, kRows>(); break;
+      case 4: grp.run<4, kRows>(); break;
+      case 5: grp.run<5, kRows>(); break;
+      default: grp.run<6, kRows>(); break;
+    }
+    row += take;
+  }
+  if (tail) order_tail(box, whole, tail, rs, s_stage, s_key, s_n);
+  __syncthreads();
+  const int n = *s_n;
+  const int P = key_capacity(n);
+  for (int i = n + tid; i < P; i += T) s_key[i] = ~0ull;
+  __syncthreads();
+  block_sort(s_key, P, [&](int i) { return s_key[i]; });
+  return n;
+}
+
+// Dynamic shared memory of the first half for a tile of `tile` rays over
+// n_boxes boxes: keys, then (K2n: the rays, then) the box stage.
+__host__ __device__ inline size_t order_bytes(int n_boxes, int tile,
+                                              bool rays) {
+  return 8 * (size_t)key_capacity(n_boxes) + (rays ? 32 * (size_t)tile : 0) +
+         24 * (size_t)(rays ? kNearRows : kSuperRows) * tile;
+}
+
+// K2n: the block orders its tile's cluster boxes itself (`tile_order` over
+// the w.n_cols boxes of w.box; w.snear and w.order are not read) and walks
+// them as K1 does or, `pipelined`, as K2pl does. Clusters that no ray enters
+// keep F32_MAX and are left out of the order: no bound exceeds F32_MAX, so no
+// walk would reach them. With `Walk::t_start` a ray's entry below its own
+// t_start is left out of the minimum. The search's registers are taken only
+// after the first half.
+template <class Search>
+__global__ void __launch_bounds__(kMaxTile)
+    trace_near_kernel(typename Search::In in, Walk w, int pipelined) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int s_n;
+  __shared__ int s_oct[kOctWords];
+  const int n_boxes = w.n_cols;
+  u64* s_key = (u64*)smem;
+  const RayStage rs{(float4*)(s_key + key_capacity(n_boxes)), s_oct};
+  float* s_stage = (float*)(rs.ray + 2 * blockDim.x);
+  float* s_walk = s_stage + 6 * kNearRows * blockDim.x;
+  const long long ray = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  stage_rays<Search>(rs, in, w, ray);
+  const int n =
+      tile_order<kNearRows>(w.box, n_boxes, rs, s_stage, s_key, &s_n);
+  Search s(in, w, ray);
+  const SharedOrder ord{s_key, n};
   if (pipelined)
-    walk_staged(s, ord, in, w, 1, true, smem + 3 * n_boxes);
+    walk_staged(s, ord, in, w, 1, true, s_walk);
+  else if constexpr (Search::kCoop)
+    walk_coop(s, ord, in, w);
   else
     walk_plain(s, ord, in, w);
   s.store(in, ray);
 }
 
-// K3 / K3p: one block per tile, one thread per ray, over the tile's SUPER
-// order; the children of each super are culled, ranked and walked in the
-// block. Every __syncthreads is reached by the whole block: the outer loop's
-// exit is block-uniform (__syncthreads_or), and a finished thread stays in
-// the loop to contribute to the child minima.
-template <class Search>
-__global__ void trace_two_level_kernel(typename Search::In in, Walk w) {
-  __shared__ float s_box[6 * kMaxGroup];  // the super's child boxes
-  __shared__ int s_full[kMaxGroup];       // child holds faces
-  __shared__ unsigned s_cmin[kMaxGroup];  // tile-minimum entry, float bits
-  __shared__ int s_rank[kMaxGroup];       // child index at each walk step
+// Where K3's time goes: built with -DWRT_K3_CLOCKS (tools/torch_k3_split.py
+// does), thread 0 of every block adds the clock64() ticks between the walk's
+// block barriers to these sums; a build without the flag has none of it.
+#ifdef WRT_K3_CLOCKS
+enum { kClkOrder, kClkVote, kClkCull, kClkRank, kClkWalk, kClkSupers, kClkN };
+__device__ u64 g_k3_clocks[kClkN];
+#define K3_CLOCK_START() long long k3_t0 = clock64()
+#define K3_CLOCK(slot)                                    \
+  if (threadIdx.x == 0) {                                 \
+    const long long k3_t1 = clock64();                    \
+    atomicAdd(&g_k3_clocks[slot], (u64)(k3_t1 - k3_t0));  \
+    k3_t0 = k3_t1;                                        \
+  }
+#define K3_COUNT(slot) \
+  if (threadIdx.x == 0) atomicAdd(&g_k3_clocks[slot], (u64)1)
+#else
+#define K3_CLOCK_START()
+#define K3_CLOCK(slot)
+#define K3_COUNT(slot)
+#endif
 
-  const int tid = threadIdx.x;
+// What K3's walk keeps in shared memory besides the order.
+struct TwoLevelShared {
+  RayStage rays;   // the tile's rays (stage_rays)
+  float* box;      // (6 G) the super's child boxes
+  unsigned* part;  // (T) child minima by part of the tile's rays
+  u64* ckey;       // (max(64, G')) the children in walk order, as keys
+};
+
+// The walk of K3 / K3p over the tile's SUPER order; the children of each
+// super are culled, ordered and walked in the block. Every __syncthreads is
+// reached by the whole block: the outer loop's exit is block-uniform
+// (__syncthreads_or), and a finished thread stays in the loop to take its
+// share of the child minima.
+//
+// The child cull is the first half's pass at N = G (`split_pass`): thread
+// tid owns child tid % G and the rays of part tid / G of the tile (T / G
+// parts: two at G = 64, T = 128, so all four warps work), writes its part's
+// minimum to shared memory, and the parts are merged where the keys are
+// made (two and four children a thread over a quarter and an eighth of the
+// rays were measured: the pass is shorter and the leg 8 % and 40 % longer,
+// by the registers the search holds meanwhile); the order is
+// `block_sort` at 64 keys (128 above G = 64): one warp, in registers. Three
+// block barriers per visited super: the vote, the minima, the order.
+template <class Search, class Order>
+__device__ __forceinline__ void walk_two_level(Search& s, const Order& ord,
+                                               const typename Search::In& in,
+                                               const Walk& w,
+                                               const TwoLevelShared& sh) {
   const int group = w.group;
-  const long long tile = blockIdx.x;
-  const long long ray = tile * blockDim.x + tid;
-  Search s(in, w, ray);
-  const float tmax = w.t_max[ray];
+  const int P = key_capacity(group);
   bool found = false;  // any-hit: done at the first valid hit
-
-  const float* srow = w.snear + tile * w.n_cols;
-  const int* orow = w.order + tile * w.n_cols;
-  for (int k = 0; k < w.n_cols; ++k) {
-    // as K1's stop rule, per ray; the block goes on while any ray is live
-    const bool live = !(srow[k] >= s.bound()) && !found;
+  K3_CLOCK_START();
+  for (int k = 0; k < ord.n; ++k) {
+    // as K1's stop rule, per ray; the block goes on while any ray is live.
+    // The barrier also orders the last super's walk (and the first time the
+    // ray stage) before this super's writes.
+    const bool live = !(ord.near(k) >= s.bound()) && !found;
     if (!__syncthreads_or(live)) break;
-    const int c0 = orow[k] * group;
-    if (tid < group) {
-      const float* bx = w.box + 6LL * (c0 + tid);
-      for (int q = 0; q < 6; ++q) s_box[6 * tid + q] = bx[q];
-      s_full[tid] = w.face_id[(long long)(c0 + tid) * w.slots] >= 0;
-      s_cmin[tid] = kF32MaxBits;
-    }
-    __syncthreads();
-    for (int j = 0; j < group; ++j) {
-      if (!s_full[j]) continue;  // block-uniform
-      float near_t, far_t;
-      slab(s_box + 6 * j, s.r, near_t, far_t);
-      unsigned v = kF32MaxBits;
-      if ((near_t < far_t) && (near_t < tmax) && (far_t > 0.0f))
-        v = __float_as_uint(fmaxf(near_t, 0.0f) + 0.0f);  // -0 → +0
-      v = __reduce_min_sync(0xffffffffu, v);
-      if ((tid & 31) == 0) atomicMin(&s_cmin[j], v);
-    }
-    __syncthreads();
-    if (tid < group) {
-      const float mine = __uint_as_float(s_cmin[tid]);
-      int pos = 0;
-      for (int j = 0; j < group; ++j) {
-        const float other = __uint_as_float(s_cmin[j]);
-        pos += (other < mine) || (other == mine && j < tid);
+    K3_CLOCK(kClkVote);
+    K3_COUNT(kClkSupers);
+    const int c0 = ord.cid(k) * group;
+    split_pass(group, sh.rays, sh.part, [&](int child, int part,
+                                           float (&bx)[6]) {
+      const float* src = w.box + 6LL * (c0 + child);
+      if (part == 0) {  // the walk reads the box as it is in the tables
+#pragma unroll
+        for (int q = 0; q < 6; ++q) sh.box[6 * child + q] = src[q];
       }
-      s_rank[pos] = tid;
-    }
+      sorted_box(src, bx);
+      // children without faces keep F32_MAX
+      return w.face_id[(long long)(c0 + child) * w.slots] >= 0;
+    });
     __syncthreads();
-    if (live) {
+    K3_CLOCK(kClkCull);
+    block_sort(sh.ckey, P, [&](int i) -> u64 {
+      if (i >= group) return ~0ull;
+      return ((u64)merged(sh.part, group, i) << 32) | (unsigned)i;
+    });
+    K3_CLOCK(kClkRank);
+    if constexpr (Search::kCoop) {
+      // the warp in step over the children, sharing slot scans (coop_test)
       for (int q = 0; q < group; ++q) {
-        const int j = s_rank[q];
-        if (__uint_as_float(s_cmin[j]) >= s.bound()) break;
+        const u64 key = sh.ckey[q];
+        const bool alive =
+            live && !(__uint_as_float((unsigned)(key >> 32)) >= s.bound());
+        if (!__any_sync(0xffffffffu, alive)) break;
+        const int j = (int)(unsigned)key;
+        bool want = alive;
+        if (want) {
+          float near_t, far_t;
+          slab(sh.box + 6 * j, s.r, near_t, far_t);
+          want = (near_t < far_t) && (far_t > 0.0f) && (near_t < s.bound());
+        }
+        coop_test(s, want, c0 + j, in, w);
+      }
+    } else if (live) {
+      for (int q = 0; q < group; ++q) {
+        const u64 key = sh.ckey[q];
+        if (__uint_as_float((unsigned)(key >> 32)) >= s.bound()) break;
+        const int j = (int)(unsigned)key;
         float near_t, far_t;
-        slab(s_box + 6 * j, s.r, near_t, far_t);
+        slab(sh.box + 6 * j, s.r, near_t, far_t);
         if (!((near_t < far_t) && (far_t > 0.0f) && (near_t < s.bound())))
           continue;
         if (s.test(c0 + j, in, w)) {
@@ -867,37 +1439,87 @@ __global__ void trace_two_level_kernel(typename Search::In in, Walk w) {
         }
       }
     }
-    // the next iteration's __syncthreads_or orders this walk's shared reads
-    // before the next staging
+    K3_CLOCK(kClkWalk);  // thread 0's own walk; the rest waits in the vote
+  }
+}
+
+// K3 / K3p: one block per tile, one thread per ray. The super order comes
+// sorted from outside (rows of w.snear / w.order), or, kNearOrder, the block
+// orders the w.n_cols boxes of w.super_box itself (`tile_order`), exactly as
+// K2n orders clusters: w.snear and w.order are not read.
+template <class Search, bool kNearOrder>
+__global__ void __launch_bounds__(kMaxTile)
+    trace_two_level_kernel(typename Search::In in, Walk w) {
+  extern __shared__ __align__(16) float smem[];  // kNearOrder: keys, stage
+  __shared__ float4 s_ray[2 * kMaxTile];
+  __shared__ float s_box[6 * kMaxGroup];
+  __shared__ unsigned s_part[kMaxTile];
+  __shared__ u64 s_ckey[kMaxGroup];
+  __shared__ int s_n;
+  __shared__ int s_oct[kOctWords];
+  const TwoLevelShared sh{RayStage{s_ray, s_oct}, s_box, s_part, s_ckey};
+  const long long tile = blockIdx.x;
+  const long long ray = tile * blockDim.x + threadIdx.x;
+  stage_rays<Search>(sh.rays, in, w, ray);
+  Search s(in, w, ray);
+  if constexpr (kNearOrder) {
+    u64* s_key = (u64*)smem;
+    float* s_stage = (float*)(s_key + key_capacity(w.n_cols));
+    K3_CLOCK_START();
+    const int n = tile_order<kSuperRows>(w.super_box, w.n_cols, sh.rays,
+                                         s_stage, s_key, &s_n);
+    K3_CLOCK(kClkOrder);
+    walk_two_level(s, SharedOrder{s_key, n}, in, w, sh);
+  } else {
+    walk_two_level(s, GlobalOrder{w.snear + tile * w.n_cols,
+                                  w.order + tile * w.n_cols, w.n_cols},
+                   in, w, sh);
   }
   s.store(in, ray);
 }
 
+// Dynamic shared memory of a launch, beside the kernel's own static bytes:
+// refuse above the card's limit, opt in above 48 KB.
+template <class Kernel>
+int reserve_shared(Kernel kernel, size_t bytes) {
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return (int)err;
+  const size_t total = bytes + attr.sharedSizeBytes;
+  if (total > kMaxSharedBytes) return (int)cudaErrorInvalidValue;
+  if (total <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// K1 / K2p, or (w.group > 0) K3 / K3p with the super order from outside or
+// (w.super_box) made in the kernel
 template <class Search>
 int launch(const typename Search::In& in, const Walk& w, int n_tiles,
            int tile, void* stream) {
   if (w.group) {
-    if (w.group < 1 || w.group > kMaxGroup || w.group > tile || tile % 32 != 0)
+    if (w.group < 1 || w.group > kMaxGroup || w.group > tile ||
+        tile % 32 != 0 || tile > kMaxTile)
       return (int)cudaErrorInvalidValue;
-    if (n_tiles > 0)
-      trace_two_level_kernel<Search>
+    if (w.super_box) {
+      if (w.n_cols < 1 || w.n_cols > kMaxNearClusters ||
+          (size_t)w.super_box % 16)  // the stage's 16-byte copies
+        return (int)cudaErrorInvalidValue;
+      const size_t bytes = order_bytes(w.n_cols, tile, false);
+      const int err =
+          reserve_shared(trace_two_level_kernel<Search, true>, bytes);
+      if (err) return err;
+      if (n_tiles > 0)
+        trace_two_level_kernel<Search, true>
+            <<<n_tiles, tile, bytes, (cudaStream_t)stream>>>(in, w);
+    } else if (n_tiles > 0) {
+      trace_two_level_kernel<Search, false>
           <<<n_tiles, tile, 0, (cudaStream_t)stream>>>(in, w);
+    }
   } else if (n_tiles > 0) {
     trace_kernel<Search><<<n_tiles, tile, 0, (cudaStream_t)stream>>>(in, w);
   }
   return (int)cudaGetLastError();
-}
-
-// Dynamic shared memory of a launch, beside up to kStaticShared bytes of the
-// kernel's own: refuse above the card's limit, opt in above 48 KB.
-constexpr size_t kStaticShared = 1024;
-template <class Kernel>
-int reserve_shared(Kernel kernel, size_t bytes) {
-  if (bytes + kStaticShared > kMaxSharedBytes)
-    return (int)cudaErrorInvalidValue;
-  if (bytes + kStaticShared <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
 template <class Search>
@@ -924,10 +1546,12 @@ int launch_staged(const typename Search::In& in, const Walk& w, int n_tiles,
 template <class Search>
 int launch_near(const typename Search::In& in, const Walk& w, int n_tiles,
                 int tile, int pipelined, void* stream) {
-  if (w.n_cols < 1 || w.n_cols > kMaxNearClusters || tile % 32 != 0)
+  if (w.n_cols < 1 || w.n_cols > kMaxNearClusters || tile % 32 != 0 ||
+      tile < 32 || tile > kMaxTile ||
+      (size_t)w.box % 16)  // the stage's 16-byte copies
     return (int)cudaErrorInvalidValue;
   const size_t bytes =
-      12 * (size_t)w.n_cols +
+      order_bytes(w.n_cols, tile, true) +
       (pipelined ? staged_bytes<Search>(w, 1, true) : (size_t)0);
   const int err = reserve_shared(trace_near_kernel<Search>, bytes);
   if (err) return err;
@@ -1125,6 +1749,63 @@ extern "C" int wrt_trace_near_pairs(
            eps2, 0},
       n_tiles, tile, pipelined, stream);
 }
+
+// K3 / K3p ordering their supers themselves: `super_box` (n_supers, 6) in
+// place of snear, order, n_cols
+extern "C" int wrt_trace_near_closest_two_level(
+    const float* o, const float* d, const float* inv_d, const float* t_max,
+    const int* excl, int n_supers, const float* super_box, const float* box,
+    const int* face_id, int slots, const float* tri, float eps2, int group,
+    float* t_out, int* code_out, int n_tiles, int tile, void* stream) {
+  if (group < 1 || !super_box) return (int)cudaErrorInvalidValue;
+  return launch<Exact<false>>(
+      ExactIn{o, d, tri, t_out, code_out},
+      Walk{inv_d, t_max, excl, nullptr, nullptr, n_supers, box, face_id,
+           slots, eps2, group, nullptr, nullptr, 0, nullptr, super_box},
+      n_tiles, tile, stream);
+}
+
+extern "C" int wrt_trace_near_any_two_level(
+    const float* o, const float* d, const float* inv_d, const float* t_max,
+    const int* excl, int n_supers, const float* super_box, const float* box,
+    const int* face_id, int slots, const float* tri, float eps2, int group,
+    int* code_out, int n_tiles, int tile, void* stream) {
+  if (group < 1 || !super_box) return (int)cudaErrorInvalidValue;
+  return launch<Exact<true>>(
+      ExactIn{o, d, tri, nullptr, code_out},
+      Walk{inv_d, t_max, excl, nullptr, nullptr, n_supers, box, face_id,
+           slots, eps2, group, nullptr, nullptr, 0, nullptr, super_box},
+      n_tiles, tile, stream);
+}
+
+extern "C" int wrt_trace_near_pairs_two_level(
+    const float* a, const float* inv_d, const float* t_max, const int* excl,
+    int n_supers, const float* super_box, const float* box,
+    const int* face_id, int slots, const float* mat_b, float eps2,
+    float margin, int group, float* t_out, int* c1_out, int* c2_out,
+    int* c3_out, int* amb_out, int n_tiles, int tile, void* stream) {
+  if (group < 1 || !super_box) return (int)cudaErrorInvalidValue;
+  return launch<Pairs>(
+      PairsIn{a, mat_b, margin, t_out, c1_out, c2_out, c3_out, amb_out},
+      Walk{inv_d, t_max, excl, nullptr, nullptr, n_supers, box, face_id,
+           slots, eps2, group, nullptr, nullptr, 0, nullptr, super_box},
+      n_tiles, tile, stream);
+}
+
+#ifdef WRT_K3_CLOCKS
+// read the sums (order, vote, cull, rank, walk ticks; supers visited) into
+// `out` (6 words) and, `reset`, zero them
+extern "C" int wrt_k3_clocks(unsigned long long* out, int reset) {
+  cudaError_t err = cudaDeviceSynchronize();
+  if (err == cudaSuccess)
+    err = cudaMemcpyFromSymbol(out, g_k3_clocks, sizeof(u64) * kClkN);
+  if (err == cudaSuccess && reset) {
+    const u64 zero[kClkN] = {};
+    err = cudaMemcpyToSymbol(g_k3_clocks, zero, sizeof(zero));
+  }
+  return (int)err;
+}
+#endif
 
 extern "C" const char* wrt_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

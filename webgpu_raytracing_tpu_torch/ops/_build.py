@@ -14,7 +14,9 @@ Entry points (``csrc/cluster_trace.cu``): ``wrt_trace_closest`` and
 ``jblk`` clusters), ``wrt_trace_near_closest`` / ``_any`` / ``_pairs`` (K2n,
 the tile entry distances inside the kernel) and
 ``wrt_trace_pipelined_closest`` / ``_any`` / ``_pairs`` (K2pl, the next
-cluster fetched while the current one is tested); ``wrt_trace_binned`` (K4,
+cluster fetched while the current one is tested);
+``wrt_trace_near_closest_two_level`` / ``_any_`` / ``_pairs_two_level`` (K3
+and K3p ordering their supers inside the kernel); ``wrt_trace_binned`` (K4,
 the two scheduled clusters of each block of a sorted ray stream); and
 ``wrt_error_string``. The closest-hit entries of K1, K2pl and K2n and K4
 take the code carried in beside t_max (or null), K1's also the cap and the
@@ -119,6 +121,9 @@ def _entries():
     # K4 takes the block schedules in place of snear, order, n_cols
     binned_head = head[:5] + [p] + head[8:]
     near_pairs_head = pairs_head[:4] + [i] + pairs_head[7:] + [i]
+    # K3 ordering its supers takes their number and boxes in that place
+    near2_head = head[:5] + [i, p] + head[8:]
+    near2_pairs_head = pairs_head[:4] + [i, p] + pairs_head[7:]
     return {
         # code0, cap, stop_out, t_out, code_out
         "wrt_trace_closest": (i, head + [p, i, p, p, p] + tail),
@@ -139,6 +144,11 @@ def _entries():
         "wrt_trace_near_closest": (i, near_head + [p, p, p, p] + tail),
         "wrt_trace_near_any": (i, near_head + [p, p] + tail),  # t_start, code
         "wrt_trace_near_pairs": (i, near_pairs_head + pairs_out + tail),
+        # group, t_out, code_out
+        "wrt_trace_near_closest_two_level": (i, near2_head + [i, p, p] + tail),
+        "wrt_trace_near_any_two_level": (i, near2_head + [i, p] + tail),
+        "wrt_trace_near_pairs_two_level": (
+            i, near2_pairs_head + [i] + pairs_out + tail),
         "wrt_error_string": (ctypes.c_char_p, [i]),
     }
 

@@ -6,12 +6,17 @@ twins (counterpart of ``trace_closest_clustered_pallas`` with
 ``webgpu_raytracing_tpu/ops/cluster_pallas.py``).
 
 Around the kernels, as plain torch (the JAX package does the same outside
-Pallas): pad the rays to whole tiles, compute each tile's entry distance
-into every box (:func:`.cluster_trace.tile_nears_fused`) and sort every
-row ascending with a stable sort, giving each tile its box order. The
+Pallas): pad the rays to whole tiles and, for the kernels that take their
+order from outside (``near="outside"``; ``kernel_near=False``), compute each
+tile's entry distance into every box
+(:func:`.cluster_trace.tile_nears_fused`) and sort every row ascending with
+a stable sort, giving each tile its box order. The
 boxes are the clusters (single-level: kernels K1, K2p) or, for two-level
 tables, the superclusters (K3, K3p, which cull and order each super's G
-child clusters themselves). All kernels (``csrc/cluster_trace.cu``) walk
+child clusters themselves). With ``near="kernel"`` (``kernel_near``, the
+renderer's default) the kernel makes that order itself, tile by tile: K2n
+over the clusters, K3 / K3p over the supers, and neither the distances nor
+the sort run outside. All kernels (``csrc/cluster_trace.cu``) walk
 that order per ray. The closest-hit entries return the best ``t`` and
 code ``cid * S + slot``; :func:`code_to_face` and :func:`rederive_uv`
 then give the face id and the exact t, u, v. The any-hit entries (shadow
@@ -25,8 +30,9 @@ The tile-scheduling kernels return the same results another way (JAX
 order in rounds of several clusters staged in shared memory, looking at
 the stop bound once per round; K2n computes the tile entry distances and
 the order inside the kernel, so that the plain-torch pass and the sort
-above are not run at all; K2pl fetches the next cluster while the current
-one is tested.
+above are not run at all (and K3 / K3p do the same over their supers,
+which the JAX dispatcher does not offer); K2pl fetches the next cluster
+while the current one is tested.
 
 K4 (:func:`trace_binned_tiles`, :func:`trace_binned_pass`; JAX
 ``trace_binned_pass``) is the pass of the binned traces (ops/ray_sort.py):
@@ -41,7 +47,8 @@ t (given as t_max), so that a later pass keeps K1's tie rule.
 
 The wrappers (:func:`trace_closest_tiles`, :func:`trace_any_tiles`,
 :func:`trace_pairs_tiles` and their ``_two_level`` forms;
-:func:`trace_sched_tiles`; ``trace_near_{closest,any,pairs}_tiles``;
+:func:`trace_sched_tiles`; ``trace_near_{closest,any,pairs}_tiles`` and
+their ``_two_level`` forms;
 ``trace_pipelined_{closest,any,pairs}_tiles``; :func:`trace_binned_tiles`;
 all made by one factory
 from the launcher, the twin and the keywords that tell the entries apart)
@@ -49,8 +56,8 @@ launch their kernel entry for CUDA tensors, counting each launch in their
 own ``launches``, and run the plain twin (their ``twin``) for CPU tensors
 only; any other device raises. There is no
 fallback from one to the other, and what a kernel does not take (two-level
-tables for the scheduling kernels, more boxes than K2n ranks, rounds K5
-does not run) raises.
+tables for K5 and K2pl, more boxes than a block orders, tiles of more rays
+than K2n and K3 stage, rounds K5 does not run) raises.
 """
 
 from __future__ import annotations
@@ -714,7 +721,8 @@ def walk_stats(stats: dict, face_id: torch.Tensor, any_hit: bool,
     add a word per ray each (the carried code, the stop, K2n's
     ``t_start``), and K4 reads its block schedules as table steps. A K2n twin
     adds the tile entry distances' slab tests (``near_box_tests``, every
-    ray against every box) and reads every box but no table entry. The
+    ray against every box) and reads every box but no table entry; a twin
+    of K3 with its own super order the same over the super boxes. The
     counts of a K5 or K2pl twin include the speculative tests and fetches
     (see :func:`_walk`): they say what the kernel did, and the bound of
     its function is the K1 (K2p) twin's counts on the same rays."""
@@ -733,7 +741,8 @@ def walk_stats(stats: dict, face_id: torch.Tensor, any_hit: bool,
         ray_bytes * stats["rays"]
         + 4 * stats.get("hook_words", 0)
         + 8 * stats.get("table_steps", 0)
-        + 24 * int(stats["boxes_read"].sum())
+        + 24 * (int(stats["boxes_read"].sum())
+                + stats.get("super_boxes_read", 0))
         + 4 * face_id.shape[1] * int(tested.sum())
         + face_bytes * n_faces
     )
@@ -801,6 +810,44 @@ def _trace_near_pairs_torch(a, inv_d, t_max, excl, box, face_id, mat_b,
     return out
 
 
+def _trace_near_two_level_torch(o, d, inv_d, t_max, excl, super_box, box,
+                                face_id, tri, tile, group, any_hit: bool,
+                                chunk=None, stats=None):
+    """Plain twin of K3's closest-hit and any-hit entries that order their
+    supers themselves → (best t, code): the tile entry distances into
+    every super box and the stable sort (:func:`_near_order`), then K3's
+    walk. ``stats`` counts the supers' slab tests as ``near_box_tests``,
+    every super box as read, and no table step."""
+    snear, order = _near_order(o, inv_d, t_max, super_box, tile, stats)
+    out = _walk_two_level_torch(o, d, inv_d, t_max, excl, snear, order, box,
+                                face_id, tri, tile, group, any_hit, chunk,
+                                stats)
+    _near_two_level_stats(stats, super_box)
+    return out
+
+
+def _trace_near_pairs_two_level_torch(a, inv_d, t_max, excl, super_box, box,
+                                      face_id, mat_b, tile, group,
+                                      chunk=None, stats=None):
+    """Plain twin of K3p ordering its supers itself → (t1, c1, c2, c3,
+    amb)."""
+    snear, order = _near_order(a[:, 0:3], inv_d, t_max, super_box, tile,
+                               stats)
+    out = _walk_pairs_two_level_torch(a, inv_d, t_max, excl, snear, order,
+                                      box, face_id, mat_b, tile, group, chunk,
+                                      stats)
+    _near_two_level_stats(stats, super_box)
+    return out
+
+
+def _near_two_level_stats(stats, super_box) -> None:
+    """K3 with its own super order reads every super box once and no table
+    entry."""
+    if stats is not None:
+        stats["super_boxes_read"] = super_box.shape[0]
+        stats["table_steps"] = 0
+
+
 def _check_cuda(tensors: dict) -> torch.device:
     """The device of a kernel's tensors, which must all be contiguous, of
     their dtype and on one CUDA device."""
@@ -818,10 +865,26 @@ def _check_cuda(tensors: dict) -> torch.device:
 
 # K5's rounds (JAX ``sched_rounds``); the dynamic shared memory a block may
 # ask for on sm_90 (232,448 bytes less 1 KB kept for the kernels' static
-# variables); the most boxes K2n ranks in a block (12 bytes each).
+# variables); the most boxes a block orders itself (K2n: clusters; K3 with
+# its own super order: supers) and the most rays of such a block and of
+# every K3 one (the ray stage); the boxes a thread of the first half holds
+# at a time, clusters and supers (csrc/cluster_trace.cu kMaxNearClusters,
+# kMaxTile, kNearRows, kSuperRows).
 SCHED_ROUNDS = TRACE_SCHED_VALUES[1:]
 SHARED_LIMIT = 232448 - 1024
 NEAR_MAX_CLUSTERS = 4096
+NEAR_MAX_TILE = 128
+NEAR_BOX_ROWS = 4
+NEAR_SUPER_ROWS = 2
+
+
+def near_order_bytes(n_boxes: int, tile: int, rays: bool) -> int:
+    """Dynamic shared memory of the kernels' first half: 8 bytes a key for
+    the next power of two of the box count (at least 64), K2n's ray stage
+    (32 bytes a ray; K3 keeps its own statically) and the box stage."""
+    keys = max(64, 1 << max(0, n_boxes - 1).bit_length())
+    rows = NEAR_BOX_ROWS if rays else NEAR_SUPER_ROWS
+    return 8 * keys + (32 * tile if rays else 0) + 24 * rows * tile
 
 
 def staged_bytes(slots: int, row_words: int, jblk: int,
@@ -833,31 +896,41 @@ def staged_bytes(slots: int, row_words: int, jblk: int,
 
 
 def _check_walk(r, inv_d, t_max, excl, snear, order, box, face_id, tile,
-                group, row_words, jblk=0, pipelined=False):
+                group, row_words, jblk=0, pipelined=False, super_box=None):
     """Shapes every walk takes, and the shared memory the staged and
-    in-kernel-order walks need → (n_tiles, n_cols). ``snear`` None: K2n,
-    whose columns are the boxes."""
+    in-kernel-order walks need → (n_tiles, n_cols). ``snear`` None: the
+    block orders its boxes itself, the clusters (K2n) or, with ``group``,
+    the supers of ``super_box`` (K3)."""
     near = snear is None
-    n_tiles, n_cols = (r // tile, box.shape[0]) if near else snear.shape
+    if not near:
+        n_tiles, n_cols = snear.shape
+    else:
+        n_tiles = r // tile
+        n_cols = (super_box if group else box).shape[0]
     if (
         r != n_tiles * tile or inv_d.shape != (r, 3) or t_max.shape != (r,)
         or excl.shape != (r,) or (not near and order.shape != snear.shape)
         or box.shape != (face_id.shape[0], 6) or not 0 < tile <= 1024
+        or (near and group and super_box.shape != (n_cols, 6))
     ):
         raise ValueError("cluster trace kernel: inconsistent shapes")
     if group and (
         box.shape[0] != n_cols * group or group > min(tile, 128)
-        or tile % 32
     ):
         raise ValueError(
             f"two-level trace kernel: {box.shape[0]} clusters are not "
             f"{n_cols} supers of {group}, or G = {group} exceeds "
-            f"min(tile, 128), or tile {tile} is not a multiple of 32"
+            f"min(tile, 128)"
         )
-    if group and (near or jblk or pipelined):
+    if (group or near) and (tile % 32 or tile > NEAR_MAX_TILE):
         raise ValueError(
-            "the two-level kernels take their order from outside and have "
-            "no rounds of several clusters and no pipelined form"
+            "K2n and K3 stage their tile's rays in shared memory: the tile "
+            f"must be a multiple of 32 up to {NEAR_MAX_TILE}, got {tile}"
+        )
+    if group and (jblk or pipelined):
+        raise ValueError(
+            "the two-level kernels have no rounds of several clusters and "
+            "no pipelined form"
         )
     if jblk and (jblk not in SCHED_ROUNDS or near or pipelined):
         raise ValueError(
@@ -866,13 +939,12 @@ def _check_walk(r, inv_d, t_max, excl, snear, order, box, face_id, tile,
         )
     shared = 0
     if near:
-        if n_cols > NEAR_MAX_CLUSTERS or tile % 32:
+        if n_cols > NEAR_MAX_CLUSTERS:
             raise ValueError(
-                f"K2n ranks at most {NEAR_MAX_CLUSTERS} cluster boxes in a "
-                f"block whose tile is a multiple of 32; got {n_cols} boxes, "
-                f"tile {tile}"
+                f"a block orders at most {NEAR_MAX_CLUSTERS} boxes itself "
+                f"(K2n: clusters; K3: supers); got {n_cols}"
             )
-        shared = 12 * n_cols
+        shared = near_order_bytes(n_cols, tile, rays=not group)
     if jblk or pipelined:
         shared += staged_bytes(face_id.shape[1], row_words, max(jblk, 1),
                                pipelined)
@@ -900,6 +972,8 @@ def _run(lib, entry, dev, args) -> None:
 def _entry(kind, snear, group, jblk, pipelined):
     """Which entry of the library these arguments select → (its name
     after ``wrt_trace_``, the arguments it takes after the tables)."""
+    if snear is None and group:
+        return f"near_{kind}_two_level", (group,)
     if snear is None:
         return f"near_{kind}", (int(pipelined),)
     if group:
@@ -909,12 +983,14 @@ def _entry(kind, snear, group, jblk, pipelined):
     return (f"pipelined_{kind}" if pipelined else kind), ()
 
 
-def _order_args(snear, order, n_cols):
-    """The order a kernel walks: sorted outside, or (K2n) only the number
-    of boxes."""
-    if snear is None:
-        return (n_cols,)
-    return (snear.data_ptr(), order.data_ptr(), n_cols)
+def _order_args(snear, order, n_cols, super_box=None):
+    """The order a kernel walks: sorted outside, or only the number of
+    boxes (K2n: the clusters; K3: the supers and their boxes)."""
+    if snear is not None:
+        return (snear.data_ptr(), order.data_ptr(), n_cols)
+    if super_box is not None:
+        return (n_cols, super_box.data_ptr())
+    return (n_cols,)
 
 
 def _ptr(x) -> Optional[int]:
@@ -926,11 +1002,13 @@ def _launch_kernel(o, d, inv_d, t_max, excl, snear, order, box, face_id,
                    tri, tile, any_hit: bool = False, group: int = 0,
                    jblk: int = 0, pipelined: bool = False, t_start=None,
                    start_code=None, cap: int = 0,
-                   return_stop: bool = False):
+                   return_stop: bool = False, super_box=None):
     """Check the arguments and launch an exact-search entry, closest-hit
     (→ (t, code)) or any-hit (→ code): K1; K3 (``group`` = G); K5
     (``jblk`` clusters a round, closest-hit only); K2pl (``pipelined``);
-    K2n (``snear`` and ``order`` None, with or without ``pipelined``).
+    K2n (``snear`` and ``order`` None, with or without ``pipelined``); K3
+    ordering its supers itself (``snear`` and ``order`` None, ``group``
+    and ``super_box``).
     The drain hooks as :func:`_walk_torch` and :func:`_trace_near_torch`
     take them: ``start_code`` (closest-hit K1, K2pl, K2n), ``cap`` and
     ``return_stop`` (closest-hit K1 → (t, code, stop)), ``t_start``
@@ -954,6 +1032,13 @@ def _launch_kernel(o, d, inv_d, t_max, excl, snear, order, box, face_id,
     if not near:
         tensors.update(snear=(snear, torch.float32),
                        order=(order, torch.int32))
+    if (super_box is not None) != bool(near and group):
+        raise ValueError(
+            "super_box goes with a two-level walk that orders its supers "
+            "itself, and only with that"
+        )
+    if super_box is not None:
+        tensors["super_box"] = (super_box, torch.float32)
     if t_start is not None:
         tensors["t_start"] = (t_start, torch.float32)
     if start_code is not None:
@@ -969,7 +1054,8 @@ def _launch_kernel(o, d, inv_d, t_max, excl, snear, order, box, face_id,
     if jblk and any_hit:
         raise ValueError("K5 has a closest-hit entry only")
     n_tiles, n_cols = _check_walk(r, inv_d, t_max, excl, snear, order, box,
-                                  face_id, tile, group, 9, jblk, pipelined)
+                                  face_id, tile, group, 9, jblk, pipelined,
+                                  super_box)
     lib = load()
     code_out = torch.empty((r,), dtype=torch.int32, device=dev)
     t_out = None if any_hit else torch.empty(
@@ -990,7 +1076,7 @@ def _launch_kernel(o, d, inv_d, t_max, excl, snear, order, box, face_id,
         tail += (_ptr(t_start),)
     head = (
         o.data_ptr(), d.data_ptr(), inv_d.data_ptr(), t_max.data_ptr(),
-        excl.data_ptr(), *_order_args(snear, order, n_cols),
+        excl.data_ptr(), *_order_args(snear, order, n_cols, super_box),
         box.data_ptr(), face_id.data_ptr(), face_id.shape[1],
         tri.data_ptr(), EPS2, *tail,
     )
@@ -1042,10 +1128,12 @@ def _launch_binned(o, d, inv_d, t_max, excl, sched, box, face_id, tri, tile,
 
 
 def _launch_pairs(a, inv_d, t_max, excl, snear, order, box, face_id, mat_b,
-                  tile, group: int = 0, pipelined: bool = False):
+                  tile, group: int = 0, pipelined: bool = False,
+                  super_box=None):
     """Check the arguments and launch a pairs entry → (t1, c1, c2, c3,
     amb): K2p; K3p (``group`` = G); K2pl (``pipelined``); K2n (``snear``
-    and ``order`` None, with or without ``pipelined``)."""
+    and ``order`` None, with or without ``pipelined``); K3p ordering its
+    supers itself (``snear`` and ``order`` None, ``group``, ``super_box``)."""
     from ._build import load
 
     tensors = dict(
@@ -1057,13 +1145,21 @@ def _launch_pairs(a, inv_d, t_max, excl, snear, order, box, face_id, mat_b,
     if snear is not None:
         tensors.update(snear=(snear, torch.float32),
                        order=(order, torch.int32))
+    if (super_box is not None) != bool(snear is None and group):
+        raise ValueError(
+            "super_box goes with a two-level walk that orders its supers "
+            "itself, and only with that"
+        )
+    if super_box is not None:
+        tensors["super_box"] = (super_box, torch.float32)
     dev = _check_cuda(tensors)
     r = a.shape[0]
     c, s = face_id.shape
     if a.shape != (r, 10) or mat_b.shape != (c, 10, 4 * s):
         raise ValueError("pairs trace kernel: inconsistent shapes")
     n_tiles, n_cols = _check_walk(r, inv_d, t_max, excl, snear, order, box,
-                                  face_id, tile, group, 19, 0, pipelined)
+                                  face_id, tile, group, 19, 0, pipelined,
+                                  super_box)
     lib = load()
     t_out = torch.empty((r,), dtype=torch.float32, device=dev)
     codes = [torch.empty((r,), dtype=torch.int32, device=dev)
@@ -1071,7 +1167,7 @@ def _launch_pairs(a, inv_d, t_max, excl, snear, order, box, face_id, mat_b,
     name, tail = _entry("pairs", snear, group, 0, pipelined)
     head = (
         a.data_ptr(), inv_d.data_ptr(), t_max.data_ptr(), excl.data_ptr(),
-        *_order_args(snear, order, n_cols), box.data_ptr(),
+        *_order_args(snear, order, n_cols, super_box), box.data_ptr(),
         face_id.data_ptr(), s, mat_b.data_ptr(), EPS2, MARGIN, *tail,
     )
     outs = (t_out.data_ptr(),) + tuple(x.data_ptr() for x in codes)
@@ -1089,6 +1185,19 @@ def _launch_near_pairs(a, inv_d, t_max, excl, box, face_id, mat_b, tile,
                        **kw):
     return _launch_pairs(a, inv_d, t_max, excl, None, None, box, face_id,
                          mat_b, tile, **kw)
+
+
+def _launch_near_two_level(o, d, inv_d, t_max, excl, super_box, box,
+                           face_id, tri, tile, group, **kw):
+    return _launch_kernel(o, d, inv_d, t_max, excl, None, None, box,
+                          face_id, tri, tile, group=group,
+                          super_box=super_box, **kw)
+
+
+def _launch_near_pairs_two_level(a, inv_d, t_max, excl, super_box, box,
+                                 face_id, mat_b, tile, group):
+    return _launch_pairs(a, inv_d, t_max, excl, None, None, box, face_id,
+                         mat_b, tile, group=group, super_box=super_box)
 
 
 def _wrapper(name, twin, launch, doc, **fixed):
@@ -1201,6 +1310,27 @@ trace_near_pairs_tiles = _wrapper(
     "trace_near_pairs_tiles", _trace_near_pairs_torch, _launch_near_pairs,
     "K2n (a, inv_d, t_max, excl, box, face_id, mat_b, tile, "
     "pipelined=False), pairs → (t1, c1, c2, c3, amb), equal to K2p's.")
+trace_near_closest_two_level_tiles = _wrapper(
+    "trace_near_closest_two_level_tiles", _trace_near_two_level_torch,
+    _launch_near_two_level,
+    f"K3 {_RAYS}, super_box, box, face_id, tri, tile, group): the tile's "
+    "entry distance into every SUPER box and the order they give, computed "
+    "inside the kernel, then K3's walk → (best t, code), equal to K3's "
+    "after :func:`.cluster_trace.tile_nears_fused` over the supers and the "
+    "stable sort. At most NEAR_MAX_CLUSTERS supers.", any_hit=False)
+trace_near_any_two_level_tiles = _wrapper(
+    "trace_near_any_two_level_tiles", _trace_near_two_level_torch,
+    _launch_near_two_level,
+    f"K3 {_RAYS}, super_box, box, face_id, tri, tile, group), any-hit, the "
+    "super order made in the kernel → code of the first valid hit with t < "
+    "t_max in walk order, or -1; the order is exactly the stable sort's, "
+    "so the codes are K3's.", any_hit=True)
+trace_near_pairs_two_level_tiles = _wrapper(
+    "trace_near_pairs_two_level_tiles", _trace_near_pairs_two_level_torch,
+    _launch_near_pairs_two_level,
+    "K3p (a, inv_d, t_max, excl, super_box, box, face_id, mat_b, tile, "
+    "group), the super order made in the kernel → (t1, c1, c2, c3, amb), "
+    "equal to K3p's.")
 trace_binned_tiles = _wrapper(
     "trace_binned_tiles", _binned_pass_torch, _launch_binned,
     f"K4 {_RAYS}, sched, box, face_id, tri, tile, start_code=None): every "
@@ -1220,6 +1350,9 @@ WRAPPERS = {
                   trace_pipelined_pairs_tiles),
     "near": (trace_near_closest_tiles, trace_near_any_tiles,
              trace_near_pairs_tiles),
+    "near_two_level": (trace_near_closest_two_level_tiles,
+                       trace_near_any_two_level_tiles,
+                       trace_near_pairs_two_level_tiles),
 }
 
 
@@ -1249,11 +1382,14 @@ def prepare_tiles(o, d, t_max, tables, active=None, excl_code=None,
     of the wrapper that its ``variant`` names (:func:`trace_closest_args`
     and its kin look it up).
 
-    ``near="kernel"`` leaves the entry distances and the sort to K2n: the
-    dict has no ``snear`` and ``order``, and carries ``pipelined``, K2n's
-    choice of walk. ``sched_rounds`` (1, 2, 4, 8) adds ``jblk`` for K5;
-    ``pipelined`` alone selects K2pl. All three are single-level only, and
-    K5 takes neither of the other two; anything else raises.
+    ``near="kernel"`` leaves the entry distances and the sort to the
+    kernel: the dict has no ``snear`` and ``order``. Single-level that is
+    K2n, and the dict carries ``pipelined``, K2n's choice of walk;
+    two-level it is K3 ordering its supers itself (variant
+    ``"near_two_level"``), and the dict carries ``super_box``.
+    ``sched_rounds`` (1, 2, 4, 8) adds ``jblk`` for K5; ``pipelined`` alone
+    selects K2pl. Those two are single-level only, and K5 takes neither of
+    the other two; anything else raises.
 
     The drain hooks (single-level, not pairs; see :func:`_walk_torch`):
     ``t_start`` (R,) masks the tile entry distances here, or goes into the
@@ -1269,10 +1405,10 @@ def prepare_tiles(o, d, t_max, tables, active=None, excl_code=None,
     if near not in ("outside", "kernel"):
         raise ValueError(f"near must be 'outside' or 'kernel', got {near!r}")
     in_near = near == "kernel"
-    if two_level and (in_near or sched_rounds or pipelined):
+    if two_level and (sched_rounds or pipelined):
         raise ValueError(
-            "kernel_near, trace_sched and pipeline_rounds are single-level "
-            "kernels; these tables are two-level"
+            "trace_sched and pipeline_rounds are single-level kernels; "
+            "these tables are two-level"
         )
     if sched_rounds and (
         sched_rounds not in SCHED_ROUNDS or in_near or pipelined or pairs
@@ -1291,10 +1427,12 @@ def prepare_tiles(o, d, t_max, tables, active=None, excl_code=None,
         )
     _check_hooks(False, 0, sched_rounds, pipelined, in_near, start_code,
                  cap, return_stop)
-    if in_near and ct.box.shape[0] > NEAR_MAX_CLUSTERS:
+    near_boxes = ct.super_box if two_level else ct.box
+    if in_near and near_boxes.shape[0] > NEAR_MAX_CLUSTERS:
         raise ValueError(
-            f"kernel_near ranks at most {NEAR_MAX_CLUSTERS} clusters in a "
-            f"block; the tables have {ct.box.shape[0]}"
+            f"kernel_near orders at most {NEAR_MAX_CLUSTERS} "
+            f"{'superclusters' if two_level else 'clusters'} in a block; "
+            f"the tables have {near_boxes.shape[0]}"
         )
     r0 = o.shape[0]
     dev = o.device
@@ -1328,12 +1466,13 @@ def prepare_tiles(o, d, t_max, tables, active=None, excl_code=None,
         excl=excl_code.to(torch.int32).contiguous(),
     )
     if not in_near:
-        near_boxes = ct.super_box if two_level else ct.box
         near_tc = tile_nears_fused(o, inv_d, t_max, near_boxes, tile,
                                    t_start=t_start)
         snear, order = torch.sort(near_tc, dim=1, stable=True)
         args.update(snear=snear.contiguous(),
                     order=order.to(torch.int32).contiguous())
+    elif two_level:
+        args["super_box"] = ct.super_box.contiguous()
     args.update(box=ct.box.contiguous(), face_id=ct.face_id.contiguous())
     if pairs:
         args["mat_b"] = ct.mat_b.contiguous()
@@ -1341,7 +1480,7 @@ def prepare_tiles(o, d, t_max, tables, active=None, excl_code=None,
         args["tri"] = tables.tri.contiguous()
     args["tile"] = tile
     if two_level:
-        args.variant = "two_level"
+        args.variant = "near_two_level" if in_near else "two_level"
         args["group"] = ct.group
     elif in_near:
         args.variant = "near"
@@ -1415,10 +1554,12 @@ def trace_closest_clustered_cuda(
 
     The tile-scheduling kernels, routed as the JAX dispatcher routes
     them: ``kernel_near`` takes K2n (the entry distances and the order
-    inside the kernel; ``prepare_tiles`` then skips both); else
+    inside the kernel; ``prepare_tiles`` then skips both) or, on two-level
+    tables, K3 / K3p ordering their supers themselves (the JAX dispatcher
+    turns ``kernel_near`` off there, a limit of its VMEM residency); else
     ``sched_rounds`` > 0 takes K5, closest-hit and not pairs only (a pairs
     leg keeps K2p); ``pipelined`` takes K2pl, or K2n's pipelined walk,
-    and is not read by K5. With two-level tables all three raise.
+    and is not read by K5. With two-level tables those two raise.
 
     ``raw`` returns what the sorted trace unsorts, before anything is
     re-derived: (best t, face), or with ``exact_pairs`` (t1, face1,
@@ -1499,8 +1640,9 @@ def trace_any_clustered_cuda(
 ) -> torch.Tensor:
     """Shadow-ray query → (R,) bool, True where some triangle blocks the
     ray with 0 < t < t_max, through K3 for two-level tables and K1
-    otherwise; ``kernel_near`` takes K2n and ``pipelined`` K2pl (K5 has
-    no any-hit entry). Inactive rays and NaN origins are unblocked.
+    otherwise; ``kernel_near`` takes K2n (two-level: K3 ordering its
+    supers itself) and ``pipelined`` K2pl (K5 has no any-hit entry).
+    Inactive rays and NaN origins are unblocked.
     ``prepare_tiles`` (or K2n) feeds t_max into the tile distances, so
     short rays prune boxes there. ``t_start`` as in
     :func:`trace_closest_clustered_cuda` (single-level tables only)."""

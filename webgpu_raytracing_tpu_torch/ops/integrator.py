@@ -6,7 +6,9 @@ The whole ray batch advances one path segment at a time with dead lanes
 masked; RNG advances are masked per lane to replicate the SIMT draw order.
 Closest-hit legs go through the cluster kernel's closest-hit entry, or
 its exact-pairs entry and the exact adjudication with ``exact_pairs``,
-and shadow legs through its any-hit entry (ops/cluster_cuda.py). Here:
+and shadow legs through its any-hit entry (ops/cluster_cuda.py); by
+default (``kernel_near``) every tile orders its boxes inside the kernel,
+K2n on single-level tables and K3 on two-level ones. Here:
 emission/albedo accumulation, cosine-weighted bounces, Russian roulette,
 the deferred environment fetch, next-event estimation of the lights
 (``sampleLights`` → ``pointColor``, render.ts:849-869 and 1143-1157, dead
@@ -95,9 +97,9 @@ def trace_closest(o, d, t_max, tables, settings, active=None, excl=None,
     :func:`.ray_sort.binned_trace` with ``binned_sort`` (K4, then the
     drain kernel that ``kernel_near`` and ``pipeline_rounds`` pick; never
     K5), else :func:`.ray_sort.sorted_trace_multipass` with
-    ``multipass_cap`` > 0 when the kernel can cap (K1: no ``trace_sched``,
-    ``kernel_near`` or ``pipeline_rounds``). Otherwise, and always on
-    two-level tables, the plain sorted trace runs."""
+    ``multipass_cap`` > 0 when the kernel can cap (K1: ``kernel_near``
+    False, and no ``trace_sched`` or ``pipeline_rounds``). Otherwise, and
+    always on two-level tables, the plain sorted trace runs."""
     exact = settings.exact_pairs and (primary or settings.exact_pairs_bounce)
     kw = dict(sched_rounds=settings.trace_sched, **_kernel_settings(settings))
     if not (sort and settings.sort_bounce_rays):
