@@ -352,6 +352,66 @@ def test_sched_near_pipelined_kernels_match_twins_on_card(cuda, which):
               ref_pairs, cc.trace_near_pairs_tiles)
 
 
+def _warp_search_legs(dev, which):
+    """Frame 0's legs (chip_smoke.frame0_legs, as path_trace makes them)
+    of a 20,000-face stress scene at 160x96: ``slice``, single-level
+    tables, the primary, bounce, NEE and env-NEE shadow legs (a 32x64
+    equirect of the procedural sky); ``config5``, two-level tables
+    (clusters of 2, G = 64), the primary, bounce and NEE legs of the
+    third of four slabs."""
+    import chip_smoke as cs
+    from webgpu_raytracing_tpu_torch.models.stress import stress_scene
+    from webgpu_raytracing_tpu_torch.ops.env_sample import (
+        build_env_distribution,
+    )
+
+    scene = stress_scene(20_000)
+    st = RenderSettings(width=160, height=96)
+    if which == "slice":
+        tables = scene.tables(dev, group_size=0)
+        sky = build_env_distribution(
+            cs.sky_equirect(torch, 32, 64, dev).cpu().numpy(), dev)
+        return tables, st, cs.frame0_legs(torch, tables, st, 0, sky=sky)
+    tables = scene.tables(dev, cluster_size=2)
+    st = st.replace(frame_slabs=4)
+    return tables, st, cs.frame0_legs(torch, tables, st, 0, row0=48,
+                                      rows=24)
+
+
+@pytest.mark.parametrize("which", ["slice", "config5"])
+def test_warp_shared_searches_match_twins_on_card(cuda, which):
+    """The any-hit and pairs entries whose warps share their slot scans
+    (K2n; K3 and K3p with their own super order) against their twins and
+    against the kernels over the order sorted outside (K1 / K2p; K3 /
+    K3p), bit for bit (any-hit codes; t1, c1, c2, c3, amb), on every leg
+    of :func:`_warp_search_legs`."""
+    tables, st, legs = _warp_search_legs(cuda, which)
+    assert cc.is_two_level(tables.clusters) == (which == "config5")
+    found = {}
+    for key, leg in legs.items():
+        for kind, select in (("any", cc.trace_any_args),
+                             ("pairs", cc.trace_pairs_args)):
+            pairs = kind == "pairs"
+            ref_args = cc.prepare_tiles(tables=tables, tile=st.trace_tile,
+                                        pairs=pairs, **leg)
+            ref = select(ref_args)[0](**ref_args)
+            args = cc.prepare_tiles(tables=tables, tile=st.trace_tile,
+                                    pairs=pairs, near="kernel", **leg)
+            assert args.variant == ("near" if which == "slice"
+                                    else "near_two_level")
+            wrapper, twin = select(args)
+            before = wrapper.launches
+            got = wrapper(**args)
+            torch.cuda.synchronize()
+            assert wrapper.launches == before + 1
+            _assert_same(got, twin(**args))
+            _assert_same(got, ref)
+            code = got[1] if pairs else got
+            found[key, kind] = int((code >= 0).sum())
+    assert found["bounce", "pairs"] > 100 and found["nee", "any"] > 100
+    assert found["primary", "pairs"] > 1000
+
+
 def test_kernel_near_cluster_cap_on_card(cuda):
     """K2n at its cap of NEAR_MAX_CLUSTERS boxes (the scene's clusters
     and empty ones) equals K1 on the unpadded tables; one box more

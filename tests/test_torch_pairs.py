@@ -341,7 +341,11 @@ def test_flag_complete_and_sparse(tables):
 
 def test_pairs_walk_counts_its_work(tables):
     """walk_stats of a pairs walk: the estimate and magnitude terms follow
-    the slot counts, and the bytes count 19 B entries per face tested."""
+    the counts of the steps each slot needs (a gate's magnitudes only
+    outside the exact triangle, t_num past every gate, the robust test
+    only below the carried robust pair), at most those of the full test,
+    which ``ops_full_test`` counts; the bytes count 19 B entries per face
+    tested."""
     _, tt = tables["two_level"]
     o, d = _random(5, 1000)
     args = cc.prepare_tiles(_t(o), _t(d), torch.full((1000,), F32_MAX), tt,
@@ -351,10 +355,20 @@ def test_pairs_walk_counts_its_work(tables):
     w = cc.walk_stats(stats, args["face_id"], any_hit=False, pairs=True)
     past = stats["slot_tests_past_cull"]
     assert 0 < past <= w["slot_tests"]
-    assert w["estimate_terms"] == 3 * w["slot_tests"] + 16 * past
-    assert w["magnitude_terms"] == 19 * past
+    steps = [stats[f"pairs_{k}"] for k in ("u_pass", "v_pass", "gate_pass",
+                                            "valid")]
+    assert past >= steps[0] >= steps[1] >= steps[2] >= steps[3] > 0
+    assert 0 < stats["pairs_robust_tests"] <= stats["pairs_valid"]
+    assert w["estimate_terms"] == (3 * w["slot_tests"] + 6 * past
+                                   + 6 * steps[0] + 4 * steps[2])
+    assert w["estimate_terms"] <= 3 * w["slot_tests"] + 16 * past
+    assert w["magnitude_terms"] == (
+        6 * stats["pairs_magnitudes_u"] + 6 * stats["pairs_magnitudes_v"]
+        + 7 * stats["pairs_robust_tests"])
+    assert 0 < w["magnitude_terms"] < 19 * past
     assert w["bytes"] >= 80 * 1024 + 76 * w["faces_tested"]
-    assert w["ops"] > cc.PAIRS_SLOT_REST_OPS * past
+    assert w["ops_full_test"] > cc.PAIRS_SLOT_REST_OPS * past
+    assert 13 * past < w["ops"] < w["ops_full_test"]
 
 
 def test_pairs_wrappers_never_run_the_twin_for_other_devices(tables):

@@ -8,17 +8,20 @@ makes thread 0 of every K3 block add the ``clock64()`` ticks between the
 walk's block barriers to per-phase sums. Then runs frame 0's primary, first
 bounce and NEE shadow legs of one 4K slab of BASELINE config #5
 (``stress_scene(1_000_000)``, rows 1080-1349 of 3840x2160, 1,036,800 rays)
-through K3 with the super order sorted outside the kernel and with the order
-made inside it, and prints for each leg its time (CUDA events, the clocks
-included), the supers a tile visits, and the share of the block ticks in
-each phase:
+through each search of K3 that the frames run on them (closest-hit on the
+primary and bounce legs, any-hit on the NEE leg, pairs (K3p) on the
+primary and bounce legs), with the super order sorted outside the kernel
+and with the order made inside it, and prints for each leg its time (CUDA
+events, the clocks included), the supers a tile visits, and the share of
+the block ticks in each phase:
 
 * ``order``: the kernel's first half (the tile's entry distances into every
   super box and the sort); 0 with the order from outside;
 * ``vote``: the block-wide vote for the next super, which waits for the
   block's slowest walker;
 * ``cull``: the child boxes' slab pass; ``rank``: the sort of the children;
-* ``walk``: thread 0's own walk of the children (slot tests).
+* ``walk``: thread 0's walk of the children, its warp's slot scans shared
+  with it (slot tests).
 
 Prints one JSON line with the numbers and the card's name and power limit.
 Fails without a CUDA device. Imports ``chip_smoke`` for the legs.
@@ -74,11 +77,16 @@ def main() -> int:
     legs = cs.frame0_legs(torch, tables, st, a.seed,
                           row0=cs.CONFIG5_SLAB * rows, rows=rows)
     result = {"card": card, "legs": {}}
-    for key in ("primary", "bounce", "nee"):
-        select = cc.trace_any_args if key == "nee" else cc.trace_closest_args
+    searches = (("primary", "closest", cc.trace_closest_args),
+                ("bounce", "closest", cc.trace_closest_args),
+                ("nee", "any", cc.trace_any_args),
+                ("primary", "pairs", cc.trace_pairs_args),
+                ("bounce", "pairs", cc.trace_pairs_args))
+    for key, kind, select in searches:
         for near in ("outside", "kernel"):
             args = cc.prepare_tiles(tables=tables, tile=st.trace_tile,
-                                    near=near, **legs[key])
+                                    near=near, pairs=kind == "pairs",
+                                    **legs[key])
             wrapper = select(args)[0]
             wrapper(**args)
             clocks()  # zero the sums after the warm-up
@@ -87,7 +95,7 @@ def main() -> int:
             supers, total = ticks[5], sum(ticks[:5])
             n_tiles = args["t_max"].shape[0] // st.trace_tile
             shares = {p: ticks[i] / total for i, p in enumerate(PHASES)}
-            name = f"{key}, order made {near}"
+            name = f"{key} {kind}, order made {near}"
             result["legs"][name] = dict(
                 ms=ms, kernel=wrapper.__name__,
                 supers_per_tile=supers / 3 / n_tiles, shares=shares,

@@ -108,11 +108,15 @@
 // own from the tables; the block in staged rounds; the two-level one) are
 // templated on the search (`Exact<kAnyHit>` or `Pairs`) and, single-level,
 // on the source of the order, so the walks and the arithmetic are written
-// once. The closest-hit walks of K2n and K3 keep a warp in step over the
-// order and let its lanes share their slot scans (`coop_test`): the
-// (t, code) minimum does not depend on the order of the tests, so the
-// results stay K1's. The any-hit code and the pairs' carried candidates do
-// depend on it, and those searches keep the scan of one thread.
+// once. The walks of K2n and K3 keep a warp in step over the order and let
+// its lanes share their slot scans (`coop_test`), for all three searches.
+// Within one cluster no search depends on the order of its slot tests: the
+// closest-hit result is a (t, code) minimum; the any-hit ray stops at the
+// valid slot of the lowest code (a slot's validity does not change while
+// its cluster is scanned); the pairs' carried candidates are a top two and
+// a minimum of a set of distinct (t, code) pairs. So the results stay the
+// sequential scan's. What does depend on order is which clusters a ray
+// tests, and the warp in step keeps that sequence per lane exactly.
 //
 // What is NOT carried over: the TPU kernels evaluate Möller–Trumbore as a
 // bilinear-form matmul (ray matrix x cluster matrix B) because the MXU is
@@ -130,16 +134,18 @@
 // slot at a time; minima and orders are exact floats.
 //
 // What bounds them on an H100: f32 ALU work per triangle test (K1/K3: about
-// 50 operations and one IEEE divide per candidate; K2p/K3p: about 95, the
-// estimates and their magnitudes) and per box test (about 27), and L2 reads
-// of the triangle rows `tri` (F x 9 f32: 1.6 MB for the 44k stress scene,
-// 36 MB for the 1M one, inside the 50 MB L2) or of `mat_b`'s 19 nonzero
-// entries per slot (K2p/K3p: 76 B per face, 3.4 MB and 76 MB). K1 keeps the
-// reads shared: all threads of a block walk the same per-tile cluster order
-// (sorted outside the kernel, as `_kernel_sched` does), so at a given step
-// every lane that tests a cluster loads the same row and a warp's load is
-// one broadcast transaction. K2n and K3 are bound by instruction count:
-// without FMA (--fmad=false) a ray-box pair of the first half is about 25
+// 50 operations and one IEEE divide per candidate; K2p/K3p: about 35 for
+// the 90 % of the slots past the det cull that u's margined gate rejects,
+// up to 95 with every estimate and magnitude) and per box test (about 27),
+// and L2 reads of the triangle rows `tri` (F x 9 f32: 1.6 MB for the 44k
+// stress scene, 36 MB for the 1M one, inside the 50 MB L2) or of `mat_b`'s
+// 19 nonzero entries per slot (K2p/K3p: 76 B per face, 3.4 MB and 76 MB).
+// K1 keeps the reads shared: all threads of a block walk the same per-tile
+// cluster order (sorted outside the kernel, as `_kernel_sched` does), so at
+// a given step every lane that tests a cluster loads the same row and a
+// warp's load is one broadcast transaction. K2n and K3 are bound by
+// instruction count: without FMA (--fmad=false) a ray-box pair of the
+// first half is about 25
 // instructions (12 subtracts and multiplies, 4 NaN-propagating min / max, 3
 // compares, 3 integer min / max and selects, and its share of the ray
 // read), 1.33 G pairs a 1080p leg over 643 clusters; K3 adds, per super a
@@ -153,15 +159,21 @@
 // bounce leg the rays of a tile go apart, and a thread that scans a
 // cluster's 128 slots alone holds its warp for 31 lanes that skip that
 // cluster: there the shared scan (`coop_test`) does in 4 tests a lane what
-// took 128.
+// took 128. The pairs slot test (`pairs_scan`) computes each estimate and
+// each magnitude only where a gate or the robust test still needs it: a
+// slot whose exact u and v lie inside the triangle is margin-valid whatever
+// its magnitudes, and a slot that cannot enter the carried pairs needs no
+// robust test.
 //
-// Occupancy of the redesigned kernels (`__launch_bounds__(kMaxTile)`, blocks
-// of 128 threads; nvcc -Xptxas -v, sm_90a): K2n 56 registers any-hit, 64
-// closest-hit (the shared scan's second ray) and pairs, and 24 KB of shared
-// memory at 643 clusters, so 9 blocks an SM (any-hit) or 8, by registers
-// (at kMaxNearClusters 48 KB: 4, by shared memory); K3 56 registers (any-hit
-// over the outside order 48) and 8.9 KB static (+ 8 KB dynamic with its own
-// super order at 227 supers), so 9 blocks an SM, by registers.
+// Occupancy of the redesigned kernels (`__launch_bounds__`, blocks of 128
+// threads; nvcc -Xptxas -v, sm_90a, tools/torch_sass.py): K2n 56 registers
+// any-hit, 64 closest-hit (the shared scan's second ray) and pairs (548
+// bytes spilled), and 24 KB of shared memory at 643 clusters, so 9 blocks
+// an SM (any-hit) or 8, by registers (at kMaxNearClusters 48 KB: 4, by
+// shared memory); K3 56 registers (pairs
+// 64) and 8.9 KB static (pairs over the outside order 21 KB: the rays'
+// stage), + 8 KB dynamic with its own super order at 227 supers (pairs 14
+// KB), so 9 blocks an SM (pairs 8), by registers.
 //
 // Contract of K1 and K3 (matches the plain twins `_trace_closest_torch` and
 // `_walk_two_level_torch` in ops/cluster_cuda.py bit for bit; build with
@@ -242,6 +254,14 @@ constexpr int kSuperRows = 2;
 constexpr int kOctWords = 16 + 8 * (kMaxTile / 32);  // octant starts, counts
 constexpr size_t kMaxSharedBytes = 232448;  // a block's opt-in limit, sm_90
 constexpr unsigned kF32MaxBits = 0x7f7fffffu;
+// K2n and K3: the blocks of kMaxTile threads an SM must hold at once
+// (`Search::kMinBlocks`, the kernels' __launch_bounds__), i.e. registers a
+// thread: any-hit 9 (56), pairs 8 (64); closest-hit sets none (0: the
+// compiler's choice, 64 in K2n and 56 in K3). Left to the compiler, pairs
+// take about 90 (5 blocks): bounce legs 8-9 % faster, primary legs 7-10 %
+// slower; any-hit 64: within 4 % either way (PERF.md §6).
+constexpr int kMinBlocksAny = 9;
+constexpr int kMinBlocksPairs = 8;
 constexpr unsigned kBoundUlps = 1u << 9;      // (cluster_pallas.py:566)
 constexpr long long kAmbBand = 2 * (1 << 9);  // (cluster_pallas.py:389)
 
@@ -363,8 +383,17 @@ struct Exact {
   __device__ __forceinline__ float bound() const { return best; }
 
   static constexpr int kRowWords = 9;  // staged words per slot: a tri row
-  // closest-hit: a warp may share a lane's slot scan (`coop_test`)
-  static constexpr bool kCoop = !kAnyHit;
+  static constexpr int kMinBlocks = kAnyHit ? kMinBlocksAny : 0;
+
+  // The search of K2n's and K3's walks (made by `coop`): this one, its ray
+  // sent to the warp by shuffle where the warp shares a slot scan; it
+  // stages nothing (kRayVecs float4 a ray).
+  static constexpr int kRayVecs = 0;
+  __device__ __forceinline__ static Exact coop(const In& in, const Walk& w,
+                                               long long ray, float4*) {
+    return Exact(in, w, ray);
+  }
+  __device__ __forceinline__ const Ray& ray() const { return r; }
 
   // The occupied slots of a cluster, in slot order: ids `fids`, triangle
   // rows `rows` indexed by face id (the table) or, staged, by slot. Returns
@@ -463,25 +492,198 @@ __device__ __forceinline__ bool lex_less(float t, int c, float tb, int cb) {
   return t < tb || (t == tb && c < cb);
 }
 
+// One ray's carried pairs (pairs contract): (t1, c1) and (t2, c2), the two
+// smallest margin-valid (t, code) pairs in lexicographic order, and (t3,
+// c3), the smallest robust pair; all start at (t_max, -1). A candidate at
+// t >= t_max never enters: it is not below the sentinel.
+struct PairsBest {
+  float t1, t2, t3;
+  int c1, c2, c3;
+
+  __device__ explicit PairsBest(float t_max)
+      : t1(t_max), t2(t_max), t3(t_max), c1(-1), c2(-1), c3(-1) {}
+
+  // a margin-valid candidate below (t2, c2) into the top two
+  __device__ __forceinline__ void take2(float t, int code) {
+    if (lex_less(t, code, t1, c1)) {
+      t2 = t1;
+      c2 = c1;
+      t1 = t;
+      c1 = code;
+    } else {
+      t2 = t;
+      c2 = code;
+    }
+  }
+
+  // Another set's pairs (u1, d1) <= (u2, d2) and (u3, d3), none of them in
+  // this set: the top two of both sets and the smaller robust pair. Neither
+  // result depends on which set came first.
+  __device__ __forceinline__ void merge(float u1, int d1, float u2, int d2,
+                                        float u3, int d3) {
+    if (lex_less(u1, d1, t1, c1)) {
+      if (lex_less(u2, d2, t1, c1)) {
+        t2 = u2;
+        c2 = d2;
+      } else {
+        t2 = t1;
+        c2 = c1;
+      }
+      t1 = u1;
+      c1 = d1;
+    } else if (lex_less(u1, d1, t2, c2)) {
+      t2 = u1;
+      c2 = d1;
+    }
+    if (lex_less(u3, d3, t3, c3)) {
+      t3 = u3;
+      c3 = d3;
+    }
+  }
+
+  // t1, c1, c2, c3 and the flag (pairs contract)
+  __device__ __forceinline__ void store(const PairsIn& in,
+                                        long long ray) const {
+    in.t_out[ray] = t1;
+    in.c1_out[ray] = c1;
+    in.c2_out[ray] = c2;
+    in.c3_out[ray] = c3;
+    const long long gap =
+        (long long)__float_as_int(t2) - (long long)__float_as_int(t1);
+    in.amb_out[ray] = (c3 != c1) || (c2 >= 0 && gap < kAmbBand);
+  }
+};
+
+// A load that the compiler may not merge with an earlier one of the same
+// word (generic address: global or shared memory). The pairs slot test reads
+// a term of B again where a later step needs it, so that the first reading
+// need not hold a register through the steps between.
+__device__ __forceinline__ float load_again(const float* p) {
+  float v;
+  asm volatile("ld.f32 %0, [%1];" : "=f"(v) : "l"(p));
+  return v;
+}
+
+// The pairs slot test of a ray's row `a` of A against the occupied slots of
+// cluster `cid`, in slot order (kStride > 1: only the slots first, first +
+// kStride, ...), merged into `st`. `rows` is the cluster's block of mat_b
+// (10 rows of 4 * slots) or, staged, its 19 structurally nonzero rows of
+// `slots` entries in pairs_row / pairs_blk order.
+//
+// The outputs depend on a slot only through its gates, its t and, where it
+// can still enter the robust pair, its robust test, so the work is ordered
+// by what those need; every value is computed by the contract's own
+// expression, so the outputs are those of the full test bit for bit:
+//   * a gate whose estimate lies inside the exact triangle (u in [0, det],
+//     v >= 0, u + v <= det) holds whatever the magnitudes are: each margin
+//     m >= 0 only widens its bound, and rounding is monotone (det + m >=
+//     det). A NaN magnitude comes only with a NaN estimate, which fails
+//     the exact test and takes the margined one. Otherwise the gate needs
+//     its magnitudes, computed then and kept;
+//   * t_num, its divide and t > 0 come only past every gate;
+//   * a valid slot that is not below (t2, c2) and not below (t3, c3)
+//     changes nothing and takes no robust test; the robust test alone
+//     needs the magnitudes of det and t_num.
+template <bool kStaged, int kStride = 1>
+__device__ __forceinline__ void pairs_scan(const float (&a)[10], int ex,
+                                           PairsBest& st, int cid,
+                                           const int* fids, const float* rows,
+                                           const PairsIn& in, const Walk& w,
+                                           int first = 0) {
+  const int n4 = 4 * w.slots;  // a row of B
+  for (int s = first; s < w.slots; s += kStride) {
+    if (fids[s] < 0) break;  // occupied slots come first
+    const int code = cid * w.slots + s;
+    if (code == ex) continue;
+    // term k of PAIRS_ROWS: det 0..2, t_num 3..6, u_num 7..12, v_num 13..18
+    auto at = [&](int k) {
+      return rows + (kStaged ? k * w.slots + s
+                             : pairs_row(k) * n4 + pairs_blk(k) * w.slots + s);
+    };
+    auto b = [&](int k) -> float { return *at(k); };
+    auto b2 = [&](int k) -> float { return load_again(at(k)); };
+    // the magnitudes |A|·|B| of u_num (k0 = 7) and v_num (k0 = 13),
+    // margined; `again`: past the step that read the terms
+    auto margin_of = [&](int k0, bool again) {
+      auto t = [&](int k) { return fabsf(again ? b2(k) : b(k)); };
+      float m = fabsf(a[3]) * t(k0);
+#pragma unroll
+      for (int k = 4; k < 9; ++k) m = m + fabsf(a[k]) * t(k0 - 3 + k);
+      return m * in.margin;
+    };
+    const float det = (a[6] * b(0) + a[7] * b(1)) + a[8] * b(2);
+    if (!(det >= w.eps2)) continue;
+    float u = a[3] * b(7);
+#pragma unroll
+    for (int k = 4; k < 9; ++k) u = u + a[k] * b(4 + k);
+    float m_u = -1.0f, m_v = -1.0f;  // < 0: not computed yet
+    if (!(u >= 0.0f && u <= det)) {
+      m_u = margin_of(7, false);
+      if (!(u >= -m_u && u <= det + m_u)) continue;
+    }
+    float v = a[3] * b(13);
+#pragma unroll
+    for (int k = 4; k < 9; ++k) v = v + a[k] * b(10 + k);
+    if (!(v >= 0.0f)) {
+      m_v = margin_of(13, false);
+      if (!(v >= -m_v)) continue;
+    }
+    const float uv = u + v;
+    if (!(uv <= det)) {
+      if (m_u < 0.0f) m_u = margin_of(7, true);
+      if (m_v < 0.0f) m_v = margin_of(13, false);
+      if (!(uv <= (det + m_u) + m_v)) continue;
+    }
+    const float tn = ((a[0] * b(3) + a[1] * b(4)) + a[2] * b(5)) + a[9] * b(6);
+    const float t = __fdiv_rn(tn, det);
+    if (!(t > 0.0f)) continue;
+    const bool in2 = lex_less(t, code, st.t2, st.c2);
+    const bool in3 = lex_less(t, code, st.t3, st.c3);
+    if (in2) st.take2(t, code);
+    if (!in3) continue;
+    // the robust test, on few slots: u, v and their magnitudes are read and
+    // computed again (the same expressions, so the same values) rather than
+    // held in registers through the divide
+    float u2 = a[3] * b2(7), v2 = a[3] * b2(13);
+#pragma unroll
+    for (int k = 4; k < 9; ++k) {
+      u2 = u2 + a[k] * b2(4 + k);
+      v2 = v2 + a[k] * b2(10 + k);
+    }
+    const float mu = margin_of(7, true), mv = margin_of(13, true);
+    const float m_d =
+        ((fabsf(a[6]) * fabsf(b2(0)) + fabsf(a[7]) * fabsf(b2(1))) +
+         fabsf(a[8]) * fabsf(b2(2))) *
+        in.margin;
+    const float m_t =
+        (((fabsf(a[0]) * fabsf(b2(3)) + fabsf(a[1]) * fabsf(b2(4))) +
+          fabsf(a[2]) * fabsf(b2(5))) +
+         fabsf(a[9]) * fabsf(b2(6))) *
+        in.margin;
+    if (det >= w.eps2 + m_d && u2 >= mu && u2 <= det - mu && v2 >= mv &&
+        u2 + v2 <= (det - mu) - mv && tn >= m_t) {
+      st.t3 = t;
+      st.c3 = code;
+    }
+  }
+}
+
+struct PairsStaged;
+
 // The exact-pairs search of K2p and K3p (pairs contract above).
 struct Pairs {
   using In = PairsIn;
   Ray r;
-  float av[10], aa[10];  // the ray's row of A and |A|
+  float av[10];  // the ray's row of A
   int ex;
-  float t1, t2, t3;
-  int c1, c2, c3;
+  PairsBest st;
 
   __device__ Pairs(const In& in, const Walk& w, long long ray)
-      : ex(w.excl[ray]), c1(-1), c2(-1), c3(-1) {
+      : ex(w.excl[ray]), st(w.t_max[ray]) {
 #pragma unroll
-    for (int k = 0; k < 10; ++k) {
-      av[k] = in.a[10 * ray + k];
-      aa[k] = fabsf(av[k]);
-    }
+    for (int k = 0; k < 10; ++k) av[k] = in.a[10 * ray + k];
     r = Ray{av[0], av[1], av[2], av[6], av[7], av[8],
             w.inv_d[3 * ray], w.inv_d[3 * ray + 1], w.inv_d[3 * ray + 2]};
-    t1 = t2 = t3 = w.t_max[ray];
   }
 
   __device__ __forceinline__ static float3 origin(const In& in,
@@ -492,88 +694,32 @@ struct Pairs {
 
   // stop and skip bound: t3 + 2^9 ulps, capped at F32_MAX
   __device__ __forceinline__ float bound() const {
-    return __uint_as_float(min(__float_as_uint(t3) + kBoundUlps, kF32MaxBits));
+    return __uint_as_float(
+        min(__float_as_uint(st.t3) + kBoundUlps, kF32MaxBits));
   }
+  __device__ __forceinline__ const Ray& ray() const { return r; }
 
   static constexpr int kRowWords = 19;  // staged words per slot: B's terms
-  static constexpr bool kCoop = false;
+  static constexpr int kMinBlocks = kMinBlocksPairs;
 
-  // The occupied slots of a cluster, in slot order. `rows` is the cluster's
-  // block of mat_b (10 rows of 4 * slots) or, staged, its 19 structurally
-  // nonzero rows of `slots` entries in pairs_row / pairs_blk order.
-  template <bool kStaged>
-  __device__ __forceinline__ bool scan(int cid, const int* fids,
-                                       const float* rows, const In& in,
-                                       const Walk& w) {
-    const int n4 = 4 * w.slots;  // a row of B
-    for (int s = 0; s < w.slots; ++s) {
-      if (fids[s] < 0) break;  // occupied slots come first
-      const int code = cid * w.slots + s;
-      if (code == ex) continue;
-      // term k of PAIRS_ROWS: det 0..2, t_num 3..6, u_num 7..12, v_num 13..18
-      auto b = [&](int k) -> float {
-        return kStaged ? rows[k * w.slots + s]
-                       : rows[pairs_row(k) * n4 + pairs_blk(k) * w.slots + s];
-      };
-      const float bd0 = b(0), bd1 = b(1), bd2 = b(2);
-      const float det = (av[6] * bd0 + av[7] * bd1) + av[8] * bd2;
-      if (!(det >= w.eps2)) continue;
-      const float bt0 = b(3), bt1 = b(4), bt2 = b(5), bt3 = b(6);
-      const float tn =
-          ((av[0] * bt0 + av[1] * bt1) + av[2] * bt2) + av[9] * bt3;
-      float bu = b(7), bv = b(13);
-      float u = av[3] * bu, v = av[3] * bv;
-      float mu = aa[3] * fabsf(bu), mv = aa[3] * fabsf(bv);
-#pragma unroll
-      for (int k = 4; k < 9; ++k) {
-        bu = b(4 + k);
-        bv = b(10 + k);
-        u = u + av[k] * bu;
-        v = v + av[k] * bv;
-        mu = mu + aa[k] * fabsf(bu);
-        mv = mv + aa[k] * fabsf(bv);
-      }
-      const float md =
-          (aa[6] * fabsf(bd0) + aa[7] * fabsf(bd1)) + aa[8] * fabsf(bd2);
-      const float mt = ((aa[0] * fabsf(bt0) + aa[1] * fabsf(bt1)) +
-                        aa[2] * fabsf(bt2)) +
-                       aa[9] * fabsf(bt3);
-      const float m_d = md * in.margin, m_t = mt * in.margin;
-      const float m_u = mu * in.margin, m_v = mv * in.margin;
-      const float uv = u + v;
-      if (!(u >= -m_u && u <= det + m_u && v >= -m_v &&
-            uv <= (det + m_u) + m_v))
-        continue;
-      const float t = __fdiv_rn(tn, det);
-      if (!(t > 0.0f)) continue;
-      if (lex_less(t, code, t1, c1)) {
-        t2 = t1;
-        c2 = c1;
-        t1 = t;
-        c1 = code;
-      } else if (lex_less(t, code, t2, c2)) {
-        t2 = t;
-        c2 = code;
-      }
-      const bool robust = det >= w.eps2 + m_d && u >= m_u && u <= det - m_u &&
-                          v >= m_v && uv <= (det - m_u) - m_v && tn >= m_t;
-      if (robust && lex_less(t, code, t3, c3)) {
-        t3 = t;
-        c3 = code;
-      }
-    }
-    return false;
-  }
+  // the search of K2n's and K3's walks: PairsStaged
+  static constexpr int kRayVecs = 6;
+  __device__ __forceinline__ static PairsStaged coop(const In& in,
+                                                     const Walk& w,
+                                                     long long ray,
+                                                     float4* stage);
 
   __device__ __forceinline__ bool test(int cid, const In& in, const Walk& w) {
-    return scan<false>(cid, w.face_id + (long long)cid * w.slots,
-                       in.mat_b + (long long)cid * 10 * 4 * w.slots, in, w);
+    pairs_scan<false>(av, ex, st, cid, w.face_id + (long long)cid * w.slots,
+                      in.mat_b + (long long)cid * 10 * 4 * w.slots, in, w);
+    return false;
   }
 
   __device__ __forceinline__ bool test_staged(int cid, const int* fids,
                                               const float* rows, const In& in,
                                               const Walk& w) {
-    return scan<true>(cid, fids, rows, in, w);
+    pairs_scan<true>(av, ex, st, cid, fids, rows, in, w);
+    return false;
   }
 
   // The block copies cluster `cid` into shared memory: its face ids and the
@@ -595,15 +741,102 @@ struct Pairs {
   }
 
   __device__ __forceinline__ void store(const In& in, long long ray) const {
-    in.t_out[ray] = t1;
-    in.c1_out[ray] = c1;
-    in.c2_out[ray] = c2;
-    in.c3_out[ray] = c3;
-    const long long gap =
-        (long long)__float_as_int(t2) - (long long)__float_as_int(t1);
-    in.amb_out[ray] = (c3 != c1) || (c2 >= 0 && gap < kAmbBand);
+    st.store(in, ray);
   }
 };
+
+// The pairs search of K2n's and K3's walks: the ray lives in the tile's
+// stage in shared memory, Pairs::kRayVecs float4 a ray, and not in
+// registers: [a0..a3] [a4..a7] [a8, a9, t_max, exclusion
+// code] [t1, c1, t2, c2] [t3, c3, -, -] [inv_d, -]. Every lane of a warp
+// reads any lane's row of A from there (`coop_test`), and a lane's
+// registers hold only the scan it runs. With the pairs held in registers
+// through the walk, as `Pairs` holds them (only the rows staged), K2n spilled
+// 816 bytes at 64 registers (548 this way), and its primary pairs leg took
+// 2.386 ms against 2.289 (tools/torch_near_legs.py, PERF.md §6).
+struct PairsStaged {
+  using In = PairsIn;
+  float4* p;  // this ray's stage
+
+  __device__ __forceinline__ PairsBest best() const {
+    PairsBest b(0.0f);
+    const float4 x = p[3], y = p[4];
+    b.t1 = x.x;
+    b.c1 = __float_as_int(x.y);
+    b.t2 = x.z;
+    b.c2 = __float_as_int(x.w);
+    b.t3 = y.x;
+    b.c3 = __float_as_int(y.y);
+    return b;
+  }
+  __device__ __forceinline__ void keep(const PairsBest& b) const {
+    p[3] = make_float4(b.t1, __int_as_float(b.c1), b.t2, __int_as_float(b.c2));
+    p[4] = make_float4(b.t3, __int_as_float(b.c3), 0.0f, 0.0f);
+  }
+  // a staged ray's row of A and exclusion code (of this ray, or another's)
+  __device__ __forceinline__ static void row(const float4* q, float (&a)[10],
+                                             int& ex) {
+    const float4 x = q[0], y = q[1], z = q[2];
+    a[0] = x.x;
+    a[1] = x.y;
+    a[2] = x.z;
+    a[3] = x.w;
+    a[4] = y.x;
+    a[5] = y.y;
+    a[6] = y.z;
+    a[7] = y.w;
+    a[8] = z.x;
+    a[9] = z.y;
+    ex = __float_as_int(z.w);
+  }
+
+  __device__ __forceinline__ Ray ray() const {
+    const float4 o = p[0], i = p[5];
+    return Ray{o.x, o.y, o.z, 0.0f, 0.0f, 0.0f, i.x, i.y, i.z};
+  }
+  __device__ __forceinline__ float bound() const {
+    return __uint_as_float(
+        min(__float_as_uint(p[4].x) + kBoundUlps, kF32MaxBits));
+  }
+  __device__ __forceinline__ void store(const In& in, long long ray) const {
+    best().store(in, ray);
+  }
+
+  // K2n's pipelined walk (`walk_staged`): a cluster staged by the block
+  static constexpr int kRowWords = Pairs::kRowWords;
+  __device__ __forceinline__ static void stage(int cid, int* fids,
+                                               float* rows, const In& in,
+                                               const Walk& w, bool async) {
+    Pairs::stage(cid, fids, rows, in, w, async);
+  }
+  __device__ __forceinline__ bool test_staged(int cid, const int* fids,
+                                              const float* rows, const In& in,
+                                              const Walk& w) const {
+    float a[10];
+    int ex;
+    row(p, a, ex);
+    PairsBest st = best();
+    pairs_scan<true>(a, ex, st, cid, fids, rows, in, w);
+    keep(st);
+    return false;
+  }
+};
+
+__device__ __forceinline__ PairsStaged Pairs::coop(const In& in,
+                                                   const Walk& w,
+                                                   long long ray,
+                                                   float4* stage) {
+  const float* a = in.a + 10 * ray;
+  const float t_max = w.t_max[ray];
+  stage[0] = make_float4(a[0], a[1], a[2], a[3]);
+  stage[1] = make_float4(a[4], a[5], a[6], a[7]);
+  stage[2] = make_float4(a[8], a[9], t_max, __int_as_float(w.excl[ray]));
+  const PairsStaged s{stage};
+  s.keep(PairsBest(t_max));
+  stage[5] = make_float4(w.inv_d[3 * ray], w.inv_d[3 * ray + 1],
+                         w.inv_d[3 * ray + 2], 0.0f);
+  return s;
+}
 
 // A tile's cluster order: the entry distance and the cluster of each step,
 // ascending. Sorted outside the kernel (rows of snear / order) ...
@@ -637,8 +870,8 @@ struct SchedOrder {
   __device__ __forceinline__ int cid(int k) const { return k == 0 ? c0 : c1; }
 };
 
-// The walk of K1, K2p, K2n and K4: each thread on its own, clusters read from
-// the tables.
+// The walk of K1, K2p and K4 (and of K2pl's and K5's rounds): each thread on
+// its own, clusters read from the tables.
 template <class Search, class Order>
 __device__ __forceinline__ void walk_plain(Search& s, const Order& ord,
                                            const typename Search::In& in,
@@ -656,31 +889,55 @@ __device__ __forceinline__ void walk_plain(Search& s, const Order& ord,
   }
 }
 
-// Closest-hit slot scans shared by a warp (K2n's and K3's walks). A thread
-// that scans a cluster on its own runs up to `slots` triangle tests in
-// sequence while the lanes of its warp whose rays skip that cluster wait for
-// it: on a bounce leg, where a tile's rays go apart, most of a warp's
-// instruction slots are such waits. Here the lanes that `want` cluster
-// `cid` tested (they passed the bound and their own slab test) are taken
-// one at a time: the
-// lane's ray, exclusion code and best (t, code) go to the whole warp by
-// shuffle, every lane tests the slots lane, lane + 32, ... (face ids and
-// triangle rows read side by side), and a butterfly takes the (t, code)
-// lexicographic minimum, which goes back to the lane. That minimum does not
-// depend on the order of the tests, and it starts from the lane's own best,
-// so the result is the sequential scan's bit for bit. When most of the warp
-// wants the cluster (primary rays), the sequential scan is cheaper, every
-// load a broadcast: kCoopSerial lanes or more take it. All 32 lanes call
-// this together.
+// Slot scans shared by a warp (K2n's and K3's walks), one `coop_test` per
+// search. A thread that scans a cluster on its own runs up to `slots` slot
+// tests in sequence while the lanes of its warp whose rays skip that
+// cluster wait for it: on a bounce leg, where a tile's rays go apart, most
+// of a warp's instruction slots are such waits. Here the lanes that `want`
+// cluster `cid` (they passed the bound and their own slab test) are taken
+// one at a time: the lane's ray goes to the whole warp, every lane tests the
+// slots lane, lane + 32, ... (face ids and rows read side by side), and the
+// lanes' results are merged by the rule of the search, which does not depend
+// on the order of the tests (header), and go back to the lane:
+//   * closest-hit: the ray, exclusion code and best (t, code) by shuffle;
+//     each lane starts from that best, and a butterfly takes the (t, code)
+//     lexicographic minimum;
+//   * any-hit: the ray, exclusion code and t_max by shuffle; a lane stops
+//     at its first valid slot, which is its valid slot of the lowest code,
+//     and one warp reduction (redux.sync) takes the lowest code of the
+//     lanes, unsigned, so that -1 (none) is the largest; a code found ends
+//     the lane's walk. Lanes test slots past the first valid one of the
+//     cluster, which the sequential scan never reaches: work of the kernel,
+//     not of its function (ops/cluster_cuda.py `walk_stats`);
+//   * pairs: the ray's row of A, t_max and exclusion code from the tile's
+//     stage in shared memory (`PairsStaged`): three broadcast 16-byte
+//     loads, where a shuffle takes twelve instructions and keeps the row
+//     in the owner's registers for the whole walk (measured 0-2 % slower
+//     on every leg). Each lane keeps a top two and a robust minimum of its
+//     own slots from the sentinel (t_max, -1), so that the carried pairs
+//     enter the merge once; a butterfly merges the lanes' sets (not run
+//     when no lane has a candidate, as on most clusters), and the result
+//     merges once into the lane's carried pairs.
+// When many lanes want the cluster (primary rays) the sequential scan is
+// cheaper, every load a broadcast: kCoopSerial lanes or more take it
+// (closest-hit and any-hit: 24; any-hit at 16, 20 and 24 is within 2 % on
+// every leg, with no sign common to the legs), kCoopSerialPairs for pairs
+// (12: 3-8 % faster than 24 on every pairs leg, 8 and 4 no better; a pairs
+// slot test is about twice a triangle test, so sharing pays with more lanes
+// wanting; tools/torch_near_legs.py --variant, PERF.md §6). All 32 lanes
+// call this together. Returns true where the calling lane's ray is done
+// (any-hit: it has its hit).
 constexpr int kCoopSerial = 24;
+constexpr int kCoopSerialPairs = 12;
+constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ void coop_test(Exact<false>& s, bool want, int cid,
-                                          const ExactIn& in, const Walk& w) {
-  constexpr unsigned kFull = 0xffffffffu;
+__device__ __forceinline__ bool coop_test(Exact<false>& s, bool want, int cid,
+                                          const ExactIn& in, const Walk& w,
+                                          const float4*) {
   unsigned mask = __ballot_sync(kFull, want);
   if (__popc(mask) >= kCoopSerial) {
     if (want) s.test(cid, in, w);
-    return;
+    return false;
   }
   const int lane = threadIdx.x & 31;
   const int* fids = w.face_id + (long long)cid * w.slots;
@@ -708,27 +965,103 @@ __device__ __forceinline__ void coop_test(Exact<false>& s, bool want, int cid,
       s.best_code = best_code;
     }
   }
+  return false;
 }
 
-// K2n's closest-hit walk: `walk_plain` with the warp in step over the order,
-// so that its lanes can share their slot scans. A thread of `walk_plain`
-// leaves at the first entry not below its bound; the entries ascend and the
+__device__ __forceinline__ bool coop_test(Exact<true>& s, bool want, int cid,
+                                          const ExactIn& in, const Walk& w,
+                                          const float4*) {
+  unsigned mask = __ballot_sync(kFull, want);
+  if (__popc(mask) >= kCoopSerial) return want && s.test(cid, in, w);
+  const int lane = threadIdx.x & 31;
+  const int* fids = w.face_id + (long long)cid * w.slots;
+  bool done = false;
+  while (mask) {
+    const int src = __ffs(mask) - 1;
+    mask &= mask - 1;
+    auto from = [&](auto x) { return __shfl_sync(kFull, x, src); };
+    Exact<true> c(Ray{from(s.r.ox), from(s.r.oy), from(s.r.oz), from(s.r.dx),
+                      from(s.r.dy), from(s.r.dz), 0.0f, 0.0f, 0.0f},
+                  from(s.ex), from(s.best), -1);
+    c.scan<false, 32>(cid, fids, in.tri, w, lane);
+    const unsigned code = __reduce_min_sync(kFull, (unsigned)c.best_code);
+    if (lane == src && code != ~0u) {
+      s.best_code = (int)code;
+      done = true;
+    }
+  }
+  return done;
+}
+
+// `stage`: the tile's staged rays (PairsStaged)
+__device__ __forceinline__ bool coop_test(PairsStaged& s, bool want, int cid,
+                                          const PairsIn& in, const Walk& w,
+                                          const float4* stage) {
+  unsigned mask = __ballot_sync(kFull, want);
+  const int* fids = w.face_id + (long long)cid * w.slots;
+  const float* rows = in.mat_b + (long long)cid * 10 * 4 * w.slots;
+  const int lane = threadIdx.x & 31;
+  float a[10];
+  int ex;
+  if (__popc(mask) >= kCoopSerialPairs) {
+    if (want) {
+      PairsBest st = s.best();
+      PairsStaged::row(s.p, a, ex);
+      pairs_scan<false>(a, ex, st, cid, fids, rows, in, w);
+      s.keep(st);
+    }
+    return false;
+  }
+  while (mask) {
+    const int src = __ffs(mask) - 1;
+    mask &= mask - 1;
+    const float4* q = stage + Pairs::kRayVecs * (threadIdx.x - lane + src);
+    PairsStaged::row(q, a, ex);
+    PairsBest lane_best(q[2].z);  // from the sentinel (t_max, -1)
+    pairs_scan<false, 32>(a, ex, lane_best, cid, fids, rows, in, w, lane);
+    PairsBest& b = lane_best;
+    if (__any_sync(kFull, b.c1 >= 0)) {
+#pragma unroll
+      for (int off = 16; off >= 1; off >>= 1)
+        b.merge(__shfl_xor_sync(kFull, b.t1, off),
+                __shfl_xor_sync(kFull, b.c1, off),
+                __shfl_xor_sync(kFull, b.t2, off),
+                __shfl_xor_sync(kFull, b.c2, off),
+                __shfl_xor_sync(kFull, b.t3, off),
+                __shfl_xor_sync(kFull, b.c3, off));
+      if (lane == src) {
+        PairsBest st = s.best();
+        st.merge(b.t1, b.c1, b.t2, b.c2, b.t3, b.c3);
+        s.keep(st);
+      }
+    }
+  }
+  return false;
+}
+
+// The walk of K2n (and, over a super's children, of K3): `walk_plain` with
+// the warp in step over the order, so that its lanes can share their slot
+// scans (`coop_test`). A thread of `walk_plain` leaves at the first entry
+// not below its bound (any-hit: also at its hit); the entries ascend and the
 // bound only falls, so testing that rule entry by entry leaves out the same
-// clusters, and the warp leaves when no lane is left.
-template <class Order>
-__device__ __forceinline__ void walk_coop(Exact<false>& s, const Order& ord,
-                                          const ExactIn& in, const Walk& w) {
+// clusters, and the warp leaves when no lane is left. `s` is the search's
+// form for these walks (`coop`), `stage` the tile's rays as it stages them.
+template <class Search, class Order>
+__device__ __forceinline__ void walk_coop(Search& s, const Order& ord,
+                                          const typename Search::In& in,
+                                          const Walk& w, const float4* stage) {
+  bool done = false;  // any-hit: the ray has its hit
   for (int k = 0; k < ord.n; ++k) {
-    const bool alive = !(ord.near(k) >= s.bound());
-    if (!__any_sync(0xffffffffu, alive)) break;
+    const bool alive = !done && !(ord.near(k) >= s.bound());
+    if (!__any_sync(kFull, alive)) break;
     const int cid = ord.cid(k);
     bool want = alive;
     if (want) {
       float near_t, far_t;
-      slab(w.box + 6 * cid, s.r, near_t, far_t);
+      slab(w.box + 6 * cid, s.ray(), near_t, far_t);
       want = (near_t < far_t) && (far_t > 0.0f) && (near_t < s.bound());
     }
-    coop_test(s, want, cid, in, w);
+    if (coop_test(s, want, cid, in, w, stage)) done = true;
   }
 }
 
@@ -801,7 +1134,7 @@ __device__ __forceinline__ void walk_staged(Search& s, const Order& ord,
         if (ord.near(j + jj) >= tb) break;
         const int cid = ord.cid(j + jj);
         float near_t, far_t;
-        slab(w.box + 6 * cid, s.r, near_t, far_t);
+        slab(w.box + 6 * cid, s.ray(), near_t, far_t);
         if (!((near_t < far_t) && (far_t > 0.0f) && (near_t < tb))) continue;
         if (s.test_staged(cid, (const int*)(base + jj * per),
                           base + jj * per + w.slots, in, w)) {
@@ -1288,11 +1621,14 @@ __device__ __forceinline__ int tile_order(const float* box, int n_boxes,
 }
 
 // Dynamic shared memory of the first half for a tile of `tile` rays over
-// n_boxes boxes: keys, then (K2n: the rays, then) the box stage.
+// n_boxes boxes: keys, then (K2n: the rays, then) the box stage, which the
+// walk's search then takes for its rays (coop_vecs float4 a ray).
 __host__ __device__ inline size_t order_bytes(int n_boxes, int tile,
-                                              bool rays) {
+                                              bool rays, int coop_vecs) {
+  const size_t stage = 24 * (size_t)(rays ? kNearRows : kSuperRows) * tile;
+  const size_t coop = 16 * (size_t)coop_vecs * tile;
   return 8 * (size_t)key_capacity(n_boxes) + (rays ? 32 * (size_t)tile : 0) +
-         24 * (size_t)(rays ? kNearRows : kSuperRows) * tile;
+         (stage > coop ? stage : coop);
 }
 
 // K2n: the block orders its tile's cluster boxes itself (`tile_order` over
@@ -1300,11 +1636,14 @@ __host__ __device__ inline size_t order_bytes(int n_boxes, int tile,
 // them as K1 does or, `pipelined`, as K2pl does. Clusters that no ray enters
 // keep F32_MAX and are left out of the order: no bound exceeds F32_MAX, so no
 // walk would reach them. With `Walk::t_start` a ray's entry below its own
-// t_start is left out of the minimum. The search's registers are taken only
-// after the first half.
+// t_start is left out of the minimum. The search (`Search::coop`) is made
+// only after the first half, and the box stage, free then, holds what it
+// stages of its rays (Search::kRayVecs float4 a ray: pairs, all 96 bytes of
+// it). Not pipelined, the warps walk in step and share their slot scans
+// (`walk_coop`).
 template <class Search>
-__global__ void __launch_bounds__(kMaxTile)
-    trace_near_kernel(typename Search::In in, Walk w, int pipelined) {
+__device__ __forceinline__ void trace_near(const typename Search::In& in,
+                                           const Walk& w, int pipelined) {
   extern __shared__ __align__(16) float smem[];
   __shared__ int s_n;
   __shared__ int s_oct[kOctWords];
@@ -1317,14 +1656,14 @@ __global__ void __launch_bounds__(kMaxTile)
   stage_rays<Search>(rs, in, w, ray);
   const int n =
       tile_order<kNearRows>(w.box, n_boxes, rs, s_stage, s_key, &s_n);
-  Search s(in, w, ray);
+  float4* stage = (float4*)s_stage;  // free after the first half
+  auto s = Search::coop(in, w, ray, stage + Search::kRayVecs * threadIdx.x);
+  if constexpr (Search::kRayVecs > 0) __syncthreads();
   const SharedOrder ord{s_key, n};
   if (pipelined)
     walk_staged(s, ord, in, w, 1, true, s_walk);
-  else if constexpr (Search::kCoop)
-    walk_coop(s, ord, in, w);
   else
-    walk_plain(s, ord, in, w);
+    walk_coop(s, ord, in, w, stage);
   s.store(in, ray);
 }
 
@@ -1376,7 +1715,8 @@ template <class Search, class Order>
 __device__ __forceinline__ void walk_two_level(Search& s, const Order& ord,
                                                const typename Search::In& in,
                                                const Walk& w,
-                                               const TwoLevelShared& sh) {
+                                               const TwoLevelShared& sh,
+                                               const float4* stage) {
   const int group = w.group;
   const int P = key_capacity(group);
   bool found = false;  // any-hit: done at the first valid hit
@@ -1408,36 +1748,20 @@ __device__ __forceinline__ void walk_two_level(Search& s, const Order& ord,
       return ((u64)merged(sh.part, group, i) << 32) | (unsigned)i;
     });
     K3_CLOCK(kClkRank);
-    if constexpr (Search::kCoop) {
-      // the warp in step over the children, sharing slot scans (coop_test)
-      for (int q = 0; q < group; ++q) {
-        const u64 key = sh.ckey[q];
-        const bool alive =
-            live && !(__uint_as_float((unsigned)(key >> 32)) >= s.bound());
-        if (!__any_sync(0xffffffffu, alive)) break;
-        const int j = (int)(unsigned)key;
-        bool want = alive;
-        if (want) {
-          float near_t, far_t;
-          slab(sh.box + 6 * j, s.r, near_t, far_t);
-          want = (near_t < far_t) && (far_t > 0.0f) && (near_t < s.bound());
-        }
-        coop_test(s, want, c0 + j, in, w);
-      }
-    } else if (live) {
-      for (int q = 0; q < group; ++q) {
-        const u64 key = sh.ckey[q];
-        if (__uint_as_float((unsigned)(key >> 32)) >= s.bound()) break;
-        const int j = (int)(unsigned)key;
+    // the warp in step over the children, sharing slot scans (walk_coop)
+    for (int q = 0; q < group; ++q) {
+      const u64 key = sh.ckey[q];
+      const bool alive = live && !found &&
+                         !(__uint_as_float((unsigned)(key >> 32)) >= s.bound());
+      if (!__any_sync(kFull, alive)) break;
+      const int j = (int)(unsigned)key;
+      bool want = alive;
+      if (want) {
         float near_t, far_t;
-        slab(sh.box + 6 * j, s.r, near_t, far_t);
-        if (!((near_t < far_t) && (far_t > 0.0f) && (near_t < s.bound())))
-          continue;
-        if (s.test(c0 + j, in, w)) {
-          found = true;
-          break;
-        }
+        slab(sh.box + 6 * j, s.ray(), near_t, far_t);
+        want = (near_t < far_t) && (far_t > 0.0f) && (near_t < s.bound());
       }
+      if (coop_test(s, want, c0 + j, in, w, stage)) found = true;
     }
     K3_CLOCK(kClkWalk);  // thread 0's own walk; the rest waits in the vote
   }
@@ -1448,8 +1772,8 @@ __device__ __forceinline__ void walk_two_level(Search& s, const Order& ord,
 // orders the w.n_cols boxes of w.super_box itself (`tile_order`), exactly as
 // K2n orders clusters: w.snear and w.order are not read.
 template <class Search, bool kNearOrder>
-__global__ void __launch_bounds__(kMaxTile)
-    trace_two_level_kernel(typename Search::In in, Walk w) {
+__device__ __forceinline__ void trace_two_level(const typename Search::In& in,
+                                                const Walk& w) {
   extern __shared__ __align__(16) float smem[];  // kNearOrder: keys, stage
   __shared__ float4 s_ray[2 * kMaxTile];
   __shared__ float s_box[6 * kMaxGroup];
@@ -1457,25 +1781,77 @@ __global__ void __launch_bounds__(kMaxTile)
   __shared__ u64 s_ckey[kMaxGroup];
   __shared__ int s_n;
   __shared__ int s_oct[kOctWords];
+  // what the search stages of its rays (kNearOrder: in the box stage)
+  constexpr int kCoopVecs = kNearOrder ? 0 : Search::kRayVecs * kMaxTile;
+  __shared__ float4 s_coop[kCoopVecs ? kCoopVecs : 1];
   const TwoLevelShared sh{RayStage{s_ray, s_oct}, s_box, s_part, s_ckey};
   const long long tile = blockIdx.x;
   const long long ray = tile * blockDim.x + threadIdx.x;
   stage_rays<Search>(sh.rays, in, w, ray);
-  Search s(in, w, ray);
+  // the search's stage is read after the walk's first block barrier
   if constexpr (kNearOrder) {
     u64* s_key = (u64*)smem;
     float* s_stage = (float*)(s_key + key_capacity(w.n_cols));
-    K3_CLOCK_START();
-    const int n = tile_order<kSuperRows>(w.super_box, w.n_cols, sh.rays,
-                                         s_stage, s_key, &s_n);
-    K3_CLOCK(kClkOrder);
-    walk_two_level(s, SharedOrder{s_key, n}, in, w, sh);
+    auto first_half = [&] {
+      K3_CLOCK_START();
+      const int n = tile_order<kSuperRows>(w.super_box, w.n_cols, sh.rays,
+                                           s_stage, s_key, &s_n);
+      K3_CLOCK(kClkOrder);
+      return n;
+    };
+    // a search that stages its rays takes the box stage after the first
+    // half; one that stages nothing is made before it
+    int n = 0;
+    if constexpr (Search::kRayVecs > 0) n = first_half();
+    float4* stage = (float4*)s_stage;
+    auto s = Search::coop(in, w, ray, stage + Search::kRayVecs * threadIdx.x);
+    if constexpr (Search::kRayVecs == 0) n = first_half();
+    walk_two_level(s, SharedOrder{s_key, n}, in, w, sh, stage);
+    s.store(in, ray);
   } else {
+    auto s = Search::coop(in, w, ray, s_coop + Search::kRayVecs * threadIdx.x);
     walk_two_level(s, GlobalOrder{w.snear + tile * w.n_cols,
                                   w.order + tile * w.n_cols, w.n_cols},
-                   in, w, sh);
+                   in, w, sh, s_coop);
+    s.store(in, ray);
   }
-  s.store(in, ray);
+}
+
+// The kernels of K2n and K3, as many blocks an SM as their search asks
+// (Search::kMinBlocks), or as the compiler chooses (0)
+template <class Search>
+__global__ void __launch_bounds__(kMaxTile)
+    trace_near_kernel(typename Search::In in, Walk w, int pipelined) {
+  trace_near<Search>(in, w, pipelined);
+}
+template <class Search>
+__global__ void __launch_bounds__(kMaxTile, Search::kMinBlocks)
+    trace_near_kernel_min(typename Search::In in, Walk w, int pipelined) {
+  trace_near<Search>(in, w, pipelined);
+}
+template <class Search, bool kNearOrder>
+__global__ void __launch_bounds__(kMaxTile)
+    trace_two_level_kernel(typename Search::In in, Walk w) {
+  trace_two_level<Search, kNearOrder>(in, w);
+}
+template <class Search, bool kNearOrder>
+__global__ void __launch_bounds__(kMaxTile, Search::kMinBlocks)
+    trace_two_level_kernel_min(typename Search::In in, Walk w) {
+  trace_two_level<Search, kNearOrder>(in, w);
+}
+template <class Search>
+auto near_kernel() {
+  if constexpr (Search::kMinBlocks > 0)
+    return trace_near_kernel_min<Search>;
+  else
+    return trace_near_kernel<Search>;
+}
+template <class Search, bool kNearOrder>
+auto two_level_kernel() {
+  if constexpr (Search::kMinBlocks > 0)
+    return trace_two_level_kernel_min<Search, kNearOrder>;
+  else
+    return trace_two_level_kernel<Search, kNearOrder>;
 }
 
 // Dynamic shared memory of a launch, beside the kernel's own static bytes:
@@ -1505,15 +1881,15 @@ int launch(const typename Search::In& in, const Walk& w, int n_tiles,
       if (w.n_cols < 1 || w.n_cols > kMaxNearClusters ||
           (size_t)w.super_box % 16)  // the stage's 16-byte copies
         return (int)cudaErrorInvalidValue;
-      const size_t bytes = order_bytes(w.n_cols, tile, false);
-      const int err =
-          reserve_shared(trace_two_level_kernel<Search, true>, bytes);
+      const size_t bytes =
+          order_bytes(w.n_cols, tile, false, Search::kRayVecs);
+      const auto kernel = two_level_kernel<Search, true>();
+      const int err = reserve_shared(kernel, bytes);
       if (err) return err;
       if (n_tiles > 0)
-        trace_two_level_kernel<Search, true>
-            <<<n_tiles, tile, bytes, (cudaStream_t)stream>>>(in, w);
+        kernel<<<n_tiles, tile, bytes, (cudaStream_t)stream>>>(in, w);
     } else if (n_tiles > 0) {
-      trace_two_level_kernel<Search, false>
+      two_level_kernel<Search, false>()
           <<<n_tiles, tile, 0, (cudaStream_t)stream>>>(in, w);
     }
   } else if (n_tiles > 0) {
@@ -1551,13 +1927,13 @@ int launch_near(const typename Search::In& in, const Walk& w, int n_tiles,
       (size_t)w.box % 16)  // the stage's 16-byte copies
     return (int)cudaErrorInvalidValue;
   const size_t bytes =
-      order_bytes(w.n_cols, tile, true) +
+      order_bytes(w.n_cols, tile, true, Search::kRayVecs) +
       (pipelined ? staged_bytes<Search>(w, 1, true) : (size_t)0);
-  const int err = reserve_shared(trace_near_kernel<Search>, bytes);
+  const auto kernel = near_kernel<Search>();
+  const int err = reserve_shared(kernel, bytes);
   if (err) return err;
   if (n_tiles > 0)
-    trace_near_kernel<Search><<<n_tiles, tile, bytes, (cudaStream_t)stream>>>(
-        in, w, pipelined);
+    kernel<<<n_tiles, tile, bytes, (cudaStream_t)stream>>>(in, w, pipelined);
   return (int)cudaGetLastError();
 }
 

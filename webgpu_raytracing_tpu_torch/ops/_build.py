@@ -68,8 +68,11 @@ def _sources():
     return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
 
 
-def library_path() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def library_path(flags=None) -> str:
+    """The library for the current sources, built with ``flags``
+    (default NVCC_FLAGS)."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS if flags is None
+                                else flags).encode())
     for src in _sources():
         with open(src, "rb") as fh:
             h.update(os.path.basename(src).encode())
@@ -77,16 +80,18 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libwrt_torch_{h.hexdigest()[:16]}.so")
 
 
-def build() -> str:
-    """Compile the kernels if the library for the current sources is
-    missing; return its path."""
-    so = library_path()
+def build(flags=None) -> str:
+    """Compile the kernels with ``flags`` (default NVCC_FLAGS) if the
+    library for the current sources is missing; return its path. Builds
+    with different flags may run at once (threads)."""
+    flags = list(NVCC_FLAGS if flags is None else flags)
+    so = library_path(flags)
     if os.path.exists(so):
         return so
     nvcc = _nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *_sources()]
+    tmp = f"{so}.{os.getpid()}.{threading.get_ident()}.tmp"
+    cmd = [nvcc, *flags, "-o", tmp, *_sources()]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         if os.path.exists(tmp):

@@ -146,17 +146,49 @@ def _count(stats, key, n) -> None:
         stats[key] = stats.get(key, 0) + int(n)
 
 
+def _shared_scans(rays, serial: int) -> torch.Tensor:
+    """Which of the rays that want a cluster at one step of a walk with
+    the warp in step (K2n, K3) have it scanned by their whole warp
+    (``coop_test``): those of a warp (32 consecutive rays) in which fewer
+    than ``serial`` rays want it."""
+    _, inv, cnt = torch.unique(torch.div(rays, 32, rounding_mode="floor"),
+                               return_inverse=True, return_counts=True)
+    return cnt[inv] < serial
+
+
+def _lane_tests(ok, present, slot_iota):
+    """The slots an any-hit scan shared by a warp tests: lane l takes
+    the slots l, l + 32, ... and stops after the first valid one of them
+    (``ok``) → (m, S) mask."""
+    m, s = ok.shape
+    pad = (-s) % 32
+    at = torch.where(ok, slot_iota, torch.full_like(slot_iota, s))
+    at = torch.nn.functional.pad(at, (0, pad), value=s)
+    lane_first = torch.amin(at.view(m, -1, 32), dim=1)  # (m, 32)
+    return present & (slot_iota[None, :]
+                      <= lane_first[:, (slot_iota % 32).long()])
+
+
 def _test_clusters(rays, cids, o, d, excl, face_id, tri, best, best_code,
-                   any_hit: bool, chunk: int, stats) -> None:
+                   any_hit: bool, chunk: int, stats,
+                   coop: bool = False) -> None:
     """Ray ``rays[i]`` tests the occupied slots of cluster ``cids[i]``, in
     chunks of ``chunk`` rays, updating ``best`` / ``best_code`` in place.
     The closest-hit winner is the lexicographic minimum of (t, code),
     exactly what the kernel's sequential slot loop keeps; the any-hit
-    winner is the LOWEST valid slot (the kernel stops at the first one)."""
+    winner is the LOWEST valid slot (the kernel stops at the first one).
+
+    ``coop``: the kernel's warps walk in step and share their slot scans
+    (K2n, K3). ``stats`` then also counts, as ``kernel_slot_tests``, the
+    tests of an any-hit scan shared by a warp, which go past the first
+    valid slot: work of the kernel, not of its function."""
     s = face_id.shape[1]
     slot_iota = torch.arange(s, dtype=torch.int32, device=o.device)
     big = torch.iinfo(torch.int32).max
     inf = float("inf")
+    shared = None
+    if coop and any_hit and stats is not None:
+        shared = _shared_scans(rays, COOP_SERIAL)
     for c0 in range(0, rays.numel(), chunk):
         rr, cc = rays[c0 : c0 + chunk], cids[c0 : c0 + chunk]
         fid = face_id[cc]  # (m, S)
@@ -181,6 +213,13 @@ def _test_clusters(rays, cids, o, d, excl, face_id, tri, best, best_code,
             _count(stats, "slot_tests_past_cull",
                    (tested & ~(det < EPS2)).sum())
             stats["clusters_tested"][cc] = True
+            if shared is not None:
+                k_tested = torch.where(shared[c0 : c0 + chunk, None],
+                                       _lane_tests(ok, present, slot_iota),
+                                       tested)
+                _count(stats, "kernel_slot_tests", k_tested.sum())
+                _count(stats, "kernel_slot_tests_past_cull",
+                       (k_tested & ~(det < EPS2)).sum())
         if any_hit:
             first = torch.amin(
                 torch.where(ok, codes, torch.full_like(codes, big)), dim=1
@@ -310,6 +349,9 @@ def _test_clusters_pairs(rays, cids, a, excl, face_id, bcols, st, chunk,
             _count(stats, "slot_tests", present.sum())
             _count(stats, "slot_tests_past_cull", past_cull.sum())
             stats["clusters_tested"][cc] = True
+            _count_pairs_work(stats, past_cull, det, u, v, uv, m_u, m_v,
+                              valid, _lex_less(t, codes, st.t3[rr][:, None],
+                                               st.c3[rr][:, None]))
         q1t, q1c = _cluster_min(valid, t, codes, big)
         q2t, q2c = _cluster_min(valid & (codes != q1c[:, None]), t, codes,
                                 big)
@@ -331,6 +373,34 @@ def _test_clusters_pairs(rays, cids, a, excl, face_id, bcols, st, chunk,
         third = _lex_less(q3t, q3c, p3t, p3c)
         st.t3[rr] = torch.where(third, q3t, p3t)
         st.c3[rr] = torch.where(third, q3c, p3c)
+
+
+def _count_pairs_work(stats, past_cull, det, u, v, uv, m_u, m_v, valid,
+                      below_t3) -> None:
+    """What the pairs slot test needs past its cull, gate by gate (the
+    kernel's ``pairs_scan`` does just this): a gate takes its magnitudes
+    only when its estimate lies outside the exact triangle (u in [0, det],
+    v >= 0, u + v <= det), t_num and the divide come past every gate, and
+    the robust test (with the magnitudes of det and t_num) only for a
+    valid slot below the robust pair it could replace; here the pair the
+    ray carried into the cluster, which counts a few tests more than the
+    kernel's running pair."""
+    margined_u = past_cull & ~((u >= 0.0) & (u <= det))
+    u_pass = past_cull & (u >= -m_u) & (u <= det + m_u)
+    margined_v = u_pass & ~(v >= 0.0)
+    v_pass = u_pass & (v >= -m_v)
+    margined_uv = v_pass & ~(uv <= det)
+    robust_tests = valid & below_t3
+    for key, mask in (
+        ("pairs_margined_u", margined_u), ("pairs_u_pass", u_pass),
+        ("pairs_margined_v", margined_v), ("pairs_v_pass", v_pass),
+        ("pairs_margined_uv", margined_uv),
+        ("pairs_gate_pass", v_pass & (uv <= (det + m_u) + m_v)),
+        ("pairs_valid", valid), ("pairs_robust_tests", robust_tests),
+        ("pairs_magnitudes_u", margined_u | margined_uv | robust_tests),
+        ("pairs_magnitudes_v", margined_v | margined_uv | robust_tests),
+    ):
+        _count(stats, key, mask.sum())
 
 
 def _walk_setup(o, face_id, chunk, stats):
@@ -475,11 +545,13 @@ def _walk_torch(
     o, d, inv_d, t_max, excl, snear, order, box, face_id, tri, tile,
     any_hit: bool, jblk: int = 1, pipelined: bool = False,
     start_code: Optional[torch.Tensor] = None, cap: int = 0,
-    return_stop: bool = False,
+    return_stop: bool = False, coop: bool = False,
     chunk: Optional[int] = None, stats: Optional[dict] = None,
 ):
     """Plain-torch twin of K1 (both entries), of K5 (``jblk``) and of
-    K2pl (``pipelined``): :func:`_walk` with the best t (any-hit: t_max,
+    K2pl (``pipelined``), and (``coop``: the kernel's warps share their
+    slot scans; only ``stats`` differ) of K2n's walk: :func:`_walk` with the
+    best t (any-hit: t_max,
     until the ray has a hit) as its bound and the exact slot test, in
     chunks of ``chunk`` rays (default 2**18 on a GPU, 2**15 elsewhere).
     Returns (best t, code); any-hit leaves best t at t_max. ``stats`` (a
@@ -498,7 +570,7 @@ def _walk_torch(
 
     def test(rays, cids):
         _test_clusters(rays, cids, o, d, excl, face_id, tri, best, best_code,
-                       any_hit, chunk, stats)
+                       any_hit, chunk, stats, coop)
 
     _walk(o, inv_d, snear, order, box, tile, lambda r: best[r], test,
           (lambda r: best_code[r] < 0) if any_hit else None, stats, jblk,
@@ -663,7 +735,7 @@ def _walk_two_level_torch(
 
     def test(rays, cids):
         _test_clusters(rays, cids, o, d, excl, face_id, tri, best, best_code,
-                       any_hit, chunk, stats)
+                       any_hit, chunk, stats, coop=True)
 
     _walk_two_level(o, inv_d, t_max, snear, order, box, face_id, tile, group,
                     lambda r: best[r], test,
@@ -699,18 +771,33 @@ def _walk_pairs_two_level_torch(
 BOX_TEST_OPS = 25
 SLOT_CULL_OPS = 15
 SLOT_REST_OPS = 35
-# a pairs slot up to its cull (the 3 terms of det, the compare) and past
-# it (t_num, u, v: 16 terms; the magnitudes of all four: 19 terms, as
-# many products and 15 adds; 4 margins, 6 gate sums, 10 gate compares,
-# the divide, t > 0, 4 merge compares)
+# a pairs slot up to its cull (the 3 terms of det, the compare) and, with
+# every estimate and magnitude computed, past it (t_num, u, v: 16 terms;
+# the magnitudes of all four: 19 terms, as many products and 15 adds; 4
+# margins, 6 gate sums, 10 gate compares, the divide, t > 0, 4 merge
+# compares): `ops_full_test` of walk_stats
 PAIRS_SLOT_CULL_OPS = 6
 PAIRS_SLOT_REST_OPS = 29 + 34 + 4 + 6 + 10 + 1 + 1 + 4
 PAIRS_ESTIMATE_TERMS = (3, 16)  # A·B terms per slot up to / past the cull
 PAIRS_MAGNITUDE_TERMS = 19  # |A|·|B| terms per slot past the cull
+# What the pairs slot test needs past its cull (`_count_pairs_work`), by
+# step: u (6 products, 5 adds) and its exact test (2 compares); a
+# magnitude of u or v (6 products, 5 adds, the margin); a margined u gate
+# (det + m_u, 2 compares); v and v >= 0; a margined v gate; u + v and its
+# exact test; a margined u + v gate (2 adds, a compare); t_num (4
+# products, 3 adds), the divide and t > 0; the two merge tests of a valid
+# slot (4 compares); a robust test (m_d: 3 products, 2 adds, the margin;
+# m_t: 4, 3, 1; its gates: 3 sums and 6 compares)
+PAIRS_STEP_OPS = dict(
+    slot_tests_past_cull=13, pairs_magnitudes_u=12, pairs_magnitudes_v=12,
+    pairs_margined_u=3, pairs_u_pass=12, pairs_margined_v=1,
+    pairs_v_pass=2, pairs_margined_uv=3, pairs_gate_pass=9, pairs_valid=4,
+    pairs_robust_tests=23,
+)
 
 
 def walk_stats(stats: dict, face_id: torch.Tensor, any_hit: bool,
-               pairs: bool = False) -> dict:
+               pairs: bool = False, kernel: bool = False) -> dict:
     """The work a twin's walk counted in ``stats``, as f32 operations and
     the least bytes the kernel must move: each ray's inputs read once and
     its outputs written once (o, d, inv_d, t_max, excl → t, code; pairs:
@@ -725,13 +812,25 @@ def walk_stats(stats: dict, face_id: torch.Tensor, any_hit: bool,
     of K3 with its own super order the same over the super boxes. The
     counts of a K5 or K2pl twin include the speculative tests and fetches
     (see :func:`_walk`): they say what the kernel did, and the bound of
-    its function is the K1 (K2p) twin's counts on the same rays."""
+    its function is the K1 (K2p) twin's counts on the same rays.
+
+    The slot tests are those of the sequential scan, which the function
+    needs; ``kernel`` counts those of the kernel instead, where its warps
+    share any-hit scans (``kernel_slot_tests``: past the first valid
+    slot). A pairs slot past its cull counts what its gates need
+    (:func:`_count_pairs_work`, ``PAIRS_STEP_OPS``); ``ops_full_test``
+    counts every estimate and magnitude of every such slot
+    (``PAIRS_SLOT_REST_OPS``)."""
     tested = stats["clusters_tested"]
     n_faces = int((face_id[tested] >= 0).sum())
-    slot_tests = stats.get("slot_tests", 0)
-    past_cull = stats.get("slot_tests_past_cull", 0)
+    pre = "kernel_" if kernel and "kernel_slot_tests" in stats else ""
+    slot_tests = stats.get(pre + "slot_tests", 0)
+    past_cull = stats.get(pre + "slot_tests_past_cull", 0)
+    full_ops = None
     if pairs:
-        slot_ops = (PAIRS_SLOT_CULL_OPS * slot_tests
+        slot_ops = PAIRS_SLOT_CULL_OPS * slot_tests + sum(
+            n * stats.get(k, 0) for k, n in PAIRS_STEP_OPS.items())
+        full_ops = (PAIRS_SLOT_CULL_OPS * slot_tests
                     + PAIRS_SLOT_REST_OPS * past_cull)
         ray_bytes, face_bytes = 60 + 20, 4 * PAIRS_MAGNITUDE_TERMS
     else:
@@ -754,9 +853,17 @@ def walk_stats(stats: dict, face_id: torch.Tensor, any_hit: bool,
         faces_tested=n_faces,
     )
     if pairs:
-        out["estimate_terms"] = (PAIRS_ESTIMATE_TERMS[0] * slot_tests
-                                 + PAIRS_ESTIMATE_TERMS[1] * past_cull)
-        out["magnitude_terms"] = PAIRS_MAGNITUDE_TERMS * past_cull
+        # det; u; v past the u gate; t_num past every gate. |A|·|B|: u's
+        # and v's where computed, det's and t_num's in the robust tests
+        out["estimate_terms"] = (
+            3 * slot_tests + 6 * past_cull
+            + 6 * stats.get("pairs_u_pass", 0)
+            + 4 * stats.get("pairs_gate_pass", 0))
+        out["magnitude_terms"] = (
+            6 * stats.get("pairs_magnitudes_u", 0)
+            + 6 * stats.get("pairs_magnitudes_v", 0)
+            + 7 * stats.get("pairs_robust_tests", 0))
+        out["ops_full_test"] = BOX_TEST_OPS * box_tests + full_ops
     return out
 
 
@@ -794,7 +901,7 @@ def _trace_near_torch(o, d, inv_d, t_max, excl, box, face_id, tri, tile,
         _count(stats, "hook_words", o.shape[0])
     out = _walk_torch(o, d, inv_d, t_max, excl, snear, order, box, face_id,
                       tri, tile, any_hit=any_hit, pipelined=pipelined,
-                      stats=stats, **kw)
+                      coop=not pipelined, stats=stats, **kw)
     _near_stats(stats)
     return out
 
@@ -876,15 +983,27 @@ NEAR_MAX_CLUSTERS = 4096
 NEAR_MAX_TILE = 128
 NEAR_BOX_ROWS = 4
 NEAR_SUPER_ROWS = 2
+# K2n and K3: the 16-byte words a ray that the pairs search of the walks
+# with shared slot scans keeps in shared memory (csrc/cluster_trace.cu
+# Pairs::kRayVecs)
+PAIRS_STAGE_VECS = 6
+# K2n and K3: the wanting lanes of a warp from which a cluster's any-hit
+# slot scan is not shared (csrc/cluster_trace.cu kCoopSerial); the twins
+# count the shared scans' tests with it
+COOP_SERIAL = 24
 
 
-def near_order_bytes(n_boxes: int, tile: int, rays: bool) -> int:
+def near_order_bytes(n_boxes: int, tile: int, rays: bool,
+                     coop_vecs: int = 0) -> int:
     """Dynamic shared memory of the kernels' first half: 8 bytes a key for
     the next power of two of the box count (at least 64), K2n's ray stage
-    (32 bytes a ray; K3 keeps its own statically) and the box stage."""
+    (32 bytes a ray; K3 keeps its own statically) and the box stage, which
+    the walk's search then takes for its rays (``coop_vecs`` 16-byte words
+    a ray: PAIRS_STAGE_VECS for pairs)."""
     keys = max(64, 1 << max(0, n_boxes - 1).bit_length())
     rows = NEAR_BOX_ROWS if rays else NEAR_SUPER_ROWS
-    return 8 * keys + (32 * tile if rays else 0) + 24 * rows * tile
+    return (8 * keys + (32 * tile if rays else 0)
+            + max(24 * rows, 16 * coop_vecs) * tile)
 
 
 def staged_bytes(slots: int, row_words: int, jblk: int,
@@ -944,7 +1063,9 @@ def _check_walk(r, inv_d, t_max, excl, snear, order, box, face_id, tile,
                 f"a block orders at most {NEAR_MAX_CLUSTERS} boxes itself "
                 f"(K2n: clusters; K3: supers); got {n_cols}"
             )
-        shared = near_order_bytes(n_cols, tile, rays=not group)
+        shared = near_order_bytes(
+            n_cols, tile, rays=not group,
+            coop_vecs=PAIRS_STAGE_VECS if row_words == 19 else 0)
     if jblk or pipelined:
         shared += staged_bytes(face_id.shape[1], row_words, max(jblk, 1),
                                pipelined)
