@@ -140,7 +140,35 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
       closest-hit launches, with the order inside and outside; finite
       images, equal.
 
-Prints the per-kernel JSON line (seventeen kernels), then the
+8. the front door (``phase_frontend``): an OBJ/MTL scene written into a
+   temporary directory under build/ (a Cornell-style room with a
+   ``Light`` material around the spheres of ``stress_scene(22_278)``,
+   ten ``o`` groups in the reference's load order: 22,093 triangles,
+   44,180 faces two-sided in the eight models of REFERENCE_SUBSET),
+   loaded with the native loader (built with g++ from
+   webgpu_raytracing_tpu_torch/runtime/loader.cpp; the path it took is
+   printed and must be native) and with ``WRT_NO_NATIVE=1``: equal
+   tables. ``cli render`` at 1080p, 4 spp, on the card: 12 K2n launches,
+   and its PNG byte for byte the PNG of a Renderer built from
+   ``load_scene`` on the same files and seed; ``cli bench`` (1 + 4 frames,
+   30 launches; its line printed). Each per-pixel feature at 1080p
+   (``reprojection_rate=4`` with the camera moved before each frame,
+   ``use_hit_predictor``, ``debug_bvh``, ``resolution_scale=0.5``,
+   ``geometry_buffer_scale=0.5``) beside the default frame: one warm-up
+   and two timed frames, 6 K2n launches a frame, finite accumulation and
+   display images, ms/frame, Mrays/s and the display image's ms; at
+   64x64 the card's frames against the CPU twins' (equal NaN masks, RMSE
+   < 1e-5 on accumulation and display). The predictor-bounded primary
+   leg (``t_max`` from the quads of the previous G-buffer) through K2n
+   against its twin (0 mismatches) and against the same rays unbounded:
+   equal faces wherever the candidate re-hits; both timed. The viewer's
+   serve loop on a card Renderer at 1080p in a thread for 40 frames:
+   /frame.png and /stats.json over HTTP, a look input that restarts the
+   accumulation, a ``set`` of ``resolution_scale``; 240 K2n launches;
+   the smoothed ms/frame and Mrays/s printed.
+
+Prints the per-kernel JSON line (seventeen kernels; K2n's entry holds the
+predictor-bounded leg and the front door's numbers), then the
 ``nvidia-smi`` name/power line, then ``{"ok": true, "device": {...}}`` as
 the last line.
 """
@@ -1327,34 +1355,11 @@ def phase_paths(torch, scene, sky, frames, seed, card):
     return paths
 
 
-def analytic_scene():
-    """BASELINE config #1's scene (frontend/cli.py, ``--scene analytic``)."""
-    import numpy as np
-
-    from webgpu_raytracing_tpu_torch.models.scene import scene_from_facesets
-    from webgpu_raytracing_tpu_torch.models.test_models import (
-        ground_plane, uv_sphere,
-    )
-
-    return scene_from_facesets(
-        [
-            ("light", uv_sphere((0, 6, -6), 1.0, material_idx=0, lat=8,
-                                lon=12)),
-            ("sphere_a", uv_sphere((-1.4, 1.0, -6), 1.0, material_idx=1)),
-            ("sphere_b", uv_sphere((1.4, 0.8, -7), 0.8, material_idx=2)),
-            ("plane", ground_plane(0.0, 20.0, material_idx=3)),
-        ],
-        np.array([[0, 0, 0], [0.8, 0.3, 0.3], [0.3, 0.4, 0.8],
-                  [0.7, 0.7, 0.7]], np.float32),
-        np.array([[12, 12, 12], [0, 0, 0], [0, 0, 0], [0, 0, 0]],
-                 np.float32),
-    )
-
-
 def phase_direct(torch, paths, frames, seed, card):
     from webgpu_raytracing_tpu_torch.config import (
         ProjectionType, RenderSettings,
     )
+    from webgpu_raytracing_tpu_torch.frontend.cli import analytic_scene
 
     st = RenderSettings(width=256, height=256, sample_count=1,
                         bounces_depth=1,
@@ -1577,6 +1582,511 @@ def phase_config5_slabs_resume(torch, tables, seed, card):
           f"({card})", flush=True)
 
 
+# --- 8. the front door: OBJ/MTL → load_scene → CLI, features, viewer ---
+
+# the bundled OBJ's size: 22,278 triangles, 44,556 faces two-sided
+FRONTEND_TRIANGLES = 22_278
+FRONTEND_SIZE = (1920, 1080)
+FRONTEND_CHECK = 64  # side of the card-vs-CPU frames
+FRONTEND_ROUNDS = 8  # timed frames of each feature, interleaved
+FRONTEND_FEATURES = {
+    "default": {},
+    "reprojection_rate=4": dict(reprojection_rate=4),
+    "use_hit_predictor": dict(use_hit_predictor=True),
+    "debug_bvh": dict(debug_bvh=True),
+    "resolution_scale=0.5": dict(resolution_scale=0.5),
+    "geometry_buffer_scale=0.5": dict(geometry_buffer_scale=0.5),
+}
+# the spheres of stress_scene moved in front of the default camera, and
+# the room around them (x = ±6, floor, ceiling, back wall)
+FRONTEND_SHIFT = (1.25, -1.5, -6.0)
+ROOM_X, ROOM_FLOOR, ROOM_CEILING, ROOM_BACK, ROOM_FRONT = (
+    6.0, -1.5, 3.0, -14.0, 2.0)
+
+
+def _quad(a, b, c, d):
+    import numpy as np
+
+    return [np.array([a, b, c], np.float32), np.array([a, c, d], np.float32)]
+
+
+def write_obj_scene(directory: str, n_triangles: int):
+    """A Cornell-style OBJ/MTL scene in ``directory``: ten ``o`` groups in
+    the reference's load order (Light, back_wall, ceiling, Dodecahedron,
+    Floor, Ladder, left_wall, right_wall, Suzanne, TallBox), so that
+    ``load_scene``'s REFERENCE_SUBSET keeps eight of them with Light first
+    and drops Ladder and right_wall; the spheres of
+    ``stress_scene(n_triangles)`` (with their vertex normals) fill the
+    three object groups. → (obj path, mtl path, triangles written)."""
+    import numpy as np
+
+    from webgpu_raytracing_tpu_torch.models.stress import stress_scene
+
+    src = stress_scene(n_triangles)
+    spheres = [m for m in src.models if m.name.startswith("sphere_")]
+    x, fl, ce, bk, fr = ROOM_X, ROOM_FLOOR, ROOM_CEILING, ROOM_BACK, ROOM_FRONT
+    ly = ce - 0.05
+    groups = [
+        ("Light", "Light",
+         _quad([-1, ly, -9], [1, ly, -9], [1, ly, -7], [-1, ly, -7])),
+        ("back_wall", "White",
+         _quad([-x, fl, bk], [x, fl, bk], [x, ce, bk], [-x, ce, bk])),
+        ("ceiling", "White",
+         _quad([-x, ce, fr], [x, ce, fr], [x, ce, bk], [-x, ce, bk])),
+        ("Dodecahedron", None, spheres[0::3]),
+        ("Floor", "White",
+         _quad([-x, fl, bk], [-x, fl, fr], [x, fl, fr], [x, fl, bk])),
+        ("Ladder", "White",
+         [np.array([[20, 0, 20], [21, 0, 20], [20, 1, 20]], np.float32)]),
+        ("left_wall", "Red",
+         _quad([-x, fl, fr], [-x, fl, bk], [-x, ce, bk], [-x, ce, fr])),
+        ("right_wall", "Green",
+         _quad([x, fl, bk], [x, fl, fr], [x, ce, fr], [x, ce, bk])),
+        ("Suzanne", None, spheres[1::3]),
+        ("TallBox", None, spheres[2::3]),
+    ]
+    mtl = ["newmtl Light", "Kd 0.8 0.8 0.8", "Ke 1 1 1",
+           "newmtl White", "Kd 0.73 0.73 0.73",
+           "newmtl Red", "Kd 0.65 0.05 0.05",
+           "newmtl Green", "Kd 0.12 0.45 0.15"]
+    for k, m in enumerate(spheres):
+        color = src.mat_color[int(m.faces.material_idx[0])]
+        mtl += [f"newmtl Sphere{k}", "Kd %.6f %.6f %.6f" % tuple(color)]
+    shift = np.array(FRONTEND_SHIFT, np.float32)
+    lines = ["# a Cornell-style room around stress_scene's spheres",
+             "mtllib scene.mtl"]
+    nv = nn = tris = 0
+    for name, mat, body in groups:
+        lines.append(f"o {name}")
+        if mat is not None:
+            lines.append(f"usemtl {mat}")
+            for tri in body:
+                lines += ["v %.9g %.9g %.9g" % tuple(p) for p in tri]
+                lines.append(f"f {nv + 1} {nv + 2} {nv + 3}")
+                nv += 3
+                tris += 1
+            continue
+        for m in body:
+            fs = m.faces
+            f = len(fs)
+            lines.append(f"usemtl Sphere{spheres.index(m)}")
+            p = np.stack([fs.p0, fs.p0 + fs.e1, fs.p0 + fs.e2], 1) + shift
+            n = np.stack([fs.n0, fs.n1, fs.n2], 1)
+            lines += ["v %.9g %.9g %.9g" % tuple(q) for q in p.reshape(-1, 3)]
+            lines += ["vn %.9g %.9g %.9g" % tuple(q)
+                      for q in n.reshape(-1, 3)]
+            iv = nv + 1 + np.arange(3 * f).reshape(f, 3)
+            ino = nn + 1 + np.arange(3 * f).reshape(f, 3)
+            lines += ["f %d//%d %d//%d %d//%d" % (a, b, c, d, e, g)
+                      for (a, c, e), (b, d, g) in zip(iv.tolist(),
+                                                      ino.tolist())]
+            nv += 3 * f
+            nn += 3 * f
+            tris += f
+    obj_path = os.path.join(directory, "scene.obj")
+    mtl_path = os.path.join(directory, "scene.mtl")
+    with open(obj_path, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    with open(mtl_path, "w") as fh:
+        fh.write("\n".join(mtl) + "\n")
+    return obj_path, mtl_path, tris
+
+
+def _near_only(name, launches, n):
+    """Launch counts of a default-order 1080p run: ``n`` K2n closest-hit
+    launches and no other."""
+    expect = tuple(n * x for x in launches_per_frame(near_closest=1))
+    if launches != expect:
+        fail(f"{name}: launches {launches} of {WRAPPERS}, expected {expect}")
+
+
+def drive_features(torch, tables, width, height, rounds, seed, card):
+    """Every per-pixel feature of ``FRONTEND_FEATURES`` at ``width`` x
+    ``height``: one Renderer each, one warm-up frame each, then ``rounds``
+    rounds that time one frame of every Renderer in turn (the camera moved
+    before each frame where reprojection is on), so that drift between
+    rounds falls on all of them alike. Each feature's launches are counted
+    from 0 over its timed frames and must be the default order's; finite
+    accumulation and display images. Per feature: the frame times, their
+    median, ms/frame and Mrays/s over all its frames, the display image's
+    ms, and the median of its frame minus the default frame of the same
+    round. → ({name: path dict}, {name: Renderer})."""
+    import numpy as np
+
+    from webgpu_raytracing_tpu_torch.config import RenderSettings
+    from webgpu_raytracing_tpu_torch.renderer import Renderer
+
+    renderers = {}
+    for name, kw in FRONTEND_FEATURES.items():
+        st = RenderSettings(width=width, height=height, **kw)
+        renderers[name] = Renderer(Prebuilt(tables), st, base_seed=seed,
+                                   device=DEVICE)
+        renderers[name].step()
+    torch.cuda.synchronize()
+    launches = {name: np.zeros(len(WRAPPERS), np.int64) for name in renderers}
+    frame_ms = {name: [] for name in renderers}
+    rays = dict.fromkeys(renderers, 0.0)
+    for _ in range(rounds):
+        for name, r in renderers.items():
+            _zero_launch_counts()
+            t0 = time.perf_counter()
+            if r.settings.reproject:
+                r.move_camera([0.02, 0.0, 0.0])
+            r.step()
+            torch.cuda.synchronize()
+            frame_ms[name].append((time.perf_counter() - t0) * 1e3)
+            rays[name] += r.last_rays
+            launches[name] += _launch_counts()
+    paths = {}
+    for name, r in renderers.items():
+        st = r.settings
+        counts = tuple(int(n) for n in launches[name])
+        _near_only(name, counts, 6 * rounds)
+        if not bool(torch.isfinite(r.buffers.image).all()):
+            fail(f"{name}: the accumulation buffer is not finite")
+        t0 = time.perf_counter()
+        disp = r.image()
+        image_ms = (time.perf_counter() - t0) * 1e3
+        if disp.shape != (st.height, st.width, 3) or not np.isfinite(
+                disp).all():
+            fail(f"{name}: display image {disp.shape}, finite "
+                 f"{bool(np.isfinite(disp).all())}")
+        times = frame_ms[name]
+        ms = sum(times) / rounds
+        delta = float(np.median(np.subtract(times, frame_ms["default"])))
+        paths[name] = dict(
+            launches=counts, ms_per_frame=ms,
+            median_ms=float(np.median(times)), frame_ms=times,
+            delta_ms=delta, mrays=rays[name] / (ms * rounds / 1e3) / 1e6,
+            image_ms=image_ms)
+        print(f"frontend {name}: {rounds} frames of {st.width}x{st.height} "
+              f"(render {st.render_width}x{st.render_height}, G-buffer rows "
+              f"{st.geo_height}) interleaved with the other features, "
+              f"median {paths[name]['median_ms']:.1f} ms/frame (frames "
+              f"{[round(t, 1) for t in times]}), median {delta:+.1f} ms "
+              f"against the default frame of the same round, "
+              f"{paths[name]['mrays']:.3f} Mrays/s, display image "
+              f"{image_ms:.1f} ms, launches "
+              f"{ {w: n for w, n in zip(WRAPPERS, counts) if n} } ({card})",
+              flush=True)
+    return paths, renderers
+
+
+def _features_card_vs_cpu(torch, tables_cpu, tables_card, seed):
+    """Each feature on a 64x64 frame, card against the CPU twins: two
+    frames (the camera moved between them), equal NaN masks, RMSE < 1e-5
+    on the accumulation and on the display image."""
+    import numpy as np
+
+    from webgpu_raytracing_tpu_torch.config import RenderSettings
+    from webgpu_raytracing_tpu_torch.renderer import Renderer
+
+    out = {}
+    for name, kw in FRONTEND_FEATURES.items():
+        st = RenderSettings(width=FRONTEND_CHECK, height=FRONTEND_CHECK, **kw)
+        imgs = []
+        for dev, tables in ((DEVICE, tables_card), ("cpu", tables_cpu)):
+            r = Renderer(Prebuilt(tables), st, base_seed=seed, device=dev)
+            r.step()
+            r.camera.move(np.array([0.02, 0.0, 0.0], np.float32))
+            r.step()
+            imgs.append((r.buffers.image.cpu().numpy(), r.image()))
+        (card_acc, card_disp), (cpu_acc, cpu_disp) = imgs
+        rmse = []
+        for a, b in ((card_acc, cpu_acc), (card_disp, cpu_disp)):
+            nan = np.isnan(b)
+            if not (np.isnan(a) == nan).all():
+                fail(f"frontend {name}: NaN masks differ, card and CPU")
+            rmse.append(float(np.sqrt(np.mean((a[~nan] - b[~nan]) ** 2))))
+        print(f"frontend {name}: {FRONTEND_CHECK}x{FRONTEND_CHECK}, card vs "
+              f"CPU twins, RMSE accumulation {rmse[0]:.3g}, display "
+              f"{rmse[1]:.3g}", flush=True)
+        if not max(rmse) < 1e-5:
+            fail(f"frontend {name}: RMSE {max(rmse)} >= 1e-5, card vs CPU")
+        out[name] = rmse
+    return out
+
+
+def predictor_legs(torch, r, tables, seed, card):
+    """The primary leg of a frame of Renderer ``r`` (``use_hit_predictor``,
+    after its frames): ``t_max`` from the quads of its previous G-buffer,
+    through K2n against its twin (0 mismatches), and against the same rays
+    with ``t_max`` = F32_MAX: the faces must be equal wherever the
+    predictor's candidate face re-hits; both legs timed."""
+    from webgpu_raytracing_tpu_torch.ops import cluster_cuda as cc
+    from webgpu_raytracing_tpu_torch.ops import rng
+    from webgpu_raytracing_tpu_torch.ops.predictor import (
+        predict_hit_dist, quad_faces,
+    )
+    from webgpu_raytracing_tpu_torch.ops.raygen import camera_rays
+
+    st = r.settings
+    dev = torch.device(DEVICE)
+    w, h = st.render_width, st.render_height
+    ys, xs = torch.meshgrid(
+        torch.arange(h, dtype=torch.int32, device=dev),
+        torch.arange(w, dtype=torch.int32, device=dev), indexing="ij",
+    )
+    idx = (xs + ys * w).reshape(-1)
+    pos = torch.stack([xs, ys], -1).reshape(-1, 2).to(torch.float32)
+    view = torch.as_tensor(r.camera.view_matrix(), device=dev)
+    o, d, _ = camera_rays(pos, view, rng.seed_state(seed + 1, idx), st)
+    quads = quad_faces(r.buffers.prev_geo_face).reshape(-1, 4)
+    t_max = predict_hit_dist(o, d, quads, tables)
+    unbounded = torch.full_like(t_max, F32_MAX)
+    rehit = t_max < F32_MAX
+    legs = {}
+    codes = {}
+    for key, tm in (("bounded", t_max), ("unbounded", unbounded)):
+        args = cc.prepare_tiles(o, d, tm, tables, tile=st.trace_tile,
+                                near="kernel")
+        if args.variant != "near":
+            fail(f"predictor leg: variant {args.variant}, expected K2n")
+        legs[key] = _compare_leg(torch, f"K2n primary leg, t_max {key}",
+                                 args, card)
+        wrapper = cc.trace_closest_args(args)[0]
+        codes[key] = wrapper(**args)[1]
+    diff = codes["bounded"] != codes["unbounded"]
+    n_rehit = int(rehit.sum())
+    bad = int((diff & rehit).sum())
+    print(f"predictor leg: {n_rehit} of {rehit.numel()} rays re-hit a quad "
+          f"candidate (finite t_max); faces that differ from the unbounded "
+          f"leg's there: {bad}, elsewhere {int((diff & ~rehit).sum())}; K2n "
+          f"{legs['bounded']['ms']:.3f} ms bounded vs "
+          f"{legs['unbounded']['ms']:.3f} ms unbounded ({card})", flush=True)
+    if bad:
+        fail(f"predictor leg: {bad} re-hit rays changed face under the bound")
+    if n_rehit < rehit.numel() // 4:
+        fail(f"predictor leg: only {n_rehit} rays have a finite bound")
+    return dict(rehit_rays=n_rehit, rays=int(rehit.numel()),
+                rehit_face_mismatches=bad, **legs)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def serve_on_card(torch, tables, seed, card, max_frames=40):
+    """The viewer's serve loop in a thread on a card Renderer at 1080p:
+    a frame and the stats over HTTP, a look input that restarts the
+    accumulation, a ``set`` of ``resolution_scale``; the loop's launches
+    (6 K2n a frame) and its smoothed timings."""
+    import threading
+    import urllib.request
+
+    from webgpu_raytracing_tpu_torch.config import RenderSettings
+    from webgpu_raytracing_tpu_torch.frontend.viewer import serve
+    from webgpu_raytracing_tpu_torch.renderer import Renderer
+
+    def get(path):
+        with urllib.request.urlopen(base + path, timeout=30) as resp:
+            return resp.read()
+
+    def post(obj):
+        req = urllib.request.Request(base + "/input",
+                                     data=json.dumps(obj).encode())
+        with urllib.request.urlopen(req, timeout=30) as resp:
+            resp.read()
+
+    def wait(cond, what, seconds=120):
+        deadline = time.time() + seconds
+        while time.time() < deadline:
+            if cond():
+                return
+            time.sleep(0.02)
+        fail(f"viewer: timed out waiting for {what}")
+
+    w, h = FRONTEND_SIZE
+    r = Renderer(Prebuilt(tables), RenderSettings(width=w, height=h),
+                 base_seed=seed, device=DEVICE)
+    port = _free_port()
+    base = f"http://127.0.0.1:{port}"
+    _zero_launch_counts()
+    errors = []
+
+    def run():
+        try:
+            serve(r, port=port, max_frames=max_frames)
+        except BaseException as e:  # reported by the main thread
+            errors.append(e)
+            raise
+
+    t0 = time.perf_counter()
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    wait(lambda: r.counter >= 3, "three frames")
+    png = get("/frame.png")
+    if png[:8] != b"\x89PNG\r\n\x1a\n":
+        fail("viewer: /frame.png is not a PNG")
+    stats = json.loads(get("/stats.json"))
+    if (stats["width"], stats["height"]) != (w, h) or stats["counter"] < 1:
+        fail(f"viewer: stats {stats}")
+    before = stats["counter"]
+    post({"type": "look", "dx": 30.0, "dy": 0.0})
+    wait(lambda: json.loads(get("/stats.json"))["counter"] < before,
+         "the look input to restart the accumulation")
+    c0 = r.counter
+    wait(lambda: r.counter >= c0 + 2, "two frames after the look")
+    full = json.loads(get("/stats.json"))  # before the half-size frames
+    post({"type": "set", "name": "resolution_scale", "value": 0.5})
+    wait(lambda: r.settings.resolution_scale == 0.5,
+         "the set of resolution_scale")
+    last = full
+    while th.is_alive():
+        try:
+            last = json.loads(get("/stats.json"))
+        except OSError:  # the loop ended and shut its server down
+            break
+        time.sleep(0.05)
+    th.join(timeout=300)
+    wall = time.perf_counter() - t0
+    if th.is_alive() or errors:
+        fail(f"viewer: the serve loop did not end cleanly ({errors})")
+    launches = _launch_counts()
+    _near_only("viewer", launches, 6 * max_frames)
+    print(f"viewer: {max_frames} frames served from the card in {wall:.1f} "
+          f"s; at {w}x{h} smoothed {full['smoothed_ms']:.1f} ms/frame, "
+          f"{full['smoothed_mrays']:.3f} Mrays/s; after the set of "
+          f"resolution_scale 0.5 {last['smoothed_ms']:.1f} ms/frame, "
+          f"{last['smoothed_mrays']:.3f} Mrays/s ({card})", flush=True)
+    return dict(launches=launches, wall_s=wall, frames=max_frames,
+                ms_per_frame=full["smoothed_ms"],
+                mrays=full["smoothed_mrays"],
+                half_scale_ms=last["smoothed_ms"],
+                half_scale_mrays=last["smoothed_mrays"])
+
+
+def phase_frontend(torch, paths, seed, card):
+    """8. An OBJ/MTL scene written to disk, loaded natively and in Python
+    (equal tables); ``cli render`` at 1080p on the card, byte for byte the
+    PNG of a Renderer built from ``load_scene`` on the same files and
+    seed; ``cli bench``; each per-pixel feature at 1080p and, at 64x64,
+    card against CPU; the predictor-bounded K2n leg; the viewer. Each run
+    of the main path counts its launches from 0 into ``paths``. → the
+    numbers for the kernels line."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+
+    from webgpu_raytracing_tpu_torch.config import RenderSettings
+    from webgpu_raytracing_tpu_torch.frontend import cli
+    from webgpu_raytracing_tpu_torch.models.scene import (
+        load_scene, tables_to_numpy,
+    )
+    from webgpu_raytracing_tpu_torch.renderer import Renderer
+    from webgpu_raytracing_tpu_torch.utils.image import write_png
+
+    t_phase = time.perf_counter()
+    out = {}
+    w, h = FRONTEND_SIZE
+    size = f"{w}x{h}"
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        # 1. write and load
+        t0 = time.perf_counter()
+        obj, mtl, tris = write_obj_scene(tmp, FRONTEND_TRIANGLES)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        scene = load_scene(obj, mtl)
+        native_s = time.perf_counter() - t0
+        os.environ["WRT_NO_NATIVE"] = "1"
+        try:
+            t0 = time.perf_counter()
+            py_scene = load_scene(obj, mtl)
+            python_s = time.perf_counter() - t0
+        finally:
+            del os.environ["WRT_NO_NATIVE"]
+        faces = sum(len(m.faces) for m in scene.models)
+        print(f"frontend: wrote {tris} triangles ({os.path.getsize(obj)} "
+              f"bytes of OBJ) in {write_s:.1f} s; load_scene took the "
+              f"{scene.loader} path ({native_s:.2f} s), with WRT_NO_NATIVE "
+              f"the {py_scene.loader} path ({python_s:.2f} s); models "
+              f"{[m.name for m in scene.models]}, {faces} faces", flush=True)
+        if scene.loader != "native" or py_scene.loader != "python":
+            fail(f"frontend: loader paths {scene.loader} / "
+                 f"{py_scene.loader}, expected native / python")
+        tables = scene.tables(torch.device(DEVICE))
+        a = tables_to_numpy(tables)
+        b = tables_to_numpy(py_scene.tables(torch.device(DEVICE)))
+        if set(a) != set(b) or not all(np.array_equal(a[k], b[k])
+                                       for k in a):
+            fail("frontend: native and Python loads give other tables")
+        del py_scene, a, b
+        out["scene"] = dict(triangles=tris, faces=faces, loader=scene.loader,
+                            native_s=native_s, python_s=python_s)
+
+        # 2. cli render and the same frames through Renderer; cli bench
+        common = ["--obj", obj, "--mtl", mtl, "--size", size, "--seed",
+                  str(seed), "--device", DEVICE]
+        png_cli = os.path.join(tmp, "cli.png")
+        metrics = os.path.join(tmp, "m.jsonl")
+        _zero_launch_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(["render", *common, "--spp", "4", "--metrics", metrics,
+                      "-o", png_cli])
+        torch.cuda.synchronize()
+        launches = _launch_counts()
+        _near_only("cli render", launches, 12)
+        with open(metrics) as fh:
+            rows = [json.loads(line) for line in fh]
+        wall = sum(rw["frame_ms"] for rw in rows) / 1e3
+        paths["frontend_render"] = dict(
+            launches=launches, ms_per_frame=wall * 1e3 / len(rows),
+            mrays=sum(rw["rays"] for rw in rows) / wall / 1e6)
+        direct = Renderer(scene, RenderSettings(width=w, height=h),
+                          base_seed=seed, device=DEVICE)
+        png_direct = os.path.join(tmp, "direct.png")
+        write_png(png_direct, direct.render(4))
+        del direct
+        with open(png_cli, "rb") as fa, open(png_direct, "rb") as fb:
+            same = fa.read() == fb.read()
+        print(f"frontend cli render: {len(rows)} frames of {size} at "
+              f"{[rw['frame_ms'] for rw in rows]} ms, the PNG "
+              f"{'equals' if same else 'DIFFERS from'} the direct "
+              f"Renderer's byte for byte ({card})", flush=True)
+        if not same:
+            fail("frontend: the CLI's PNG differs from the Renderer's")
+        _zero_launch_counts()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["bench", *common, "--frames", "4"])
+        torch.cuda.synchronize()
+        launches = _launch_counts()
+        _near_only("cli bench", launches, 6 * 5)
+        line = json.loads(buf.getvalue().strip().splitlines()[-1])
+        print(f"frontend cli bench: {json.dumps(line)} ({card})", flush=True)
+        paths["frontend_bench"] = dict(
+            launches=launches, ms_per_frame=line["wall_s_per_frame"] * 1e3,
+            mrays=line["value"])
+        out["bench"] = line
+
+        # 3. the per-pixel features
+        features, renderers = drive_features(
+            torch, tables, w, h, FRONTEND_ROUNDS, seed, card)
+        for name, p in features.items():
+            paths["frontend " + name] = p
+        # 4. the predictor's primary leg, bounded, against the unbounded one
+        out["predictor_leg"] = predictor_legs(
+            torch, renderers["use_hit_predictor"], tables, seed, card)
+        del renderers
+        out["features"] = features
+        out["card_vs_cpu_rmse"] = _features_card_vs_cpu(
+            torch, scene.tables(torch.device("cpu")), tables, seed)
+
+        # 5. the viewer
+        paths["frontend_serve"] = serve_on_card(torch, tables, seed, card)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase_frontend: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=2)
@@ -1667,6 +2177,10 @@ def main() -> int:
         dict(near_pairs_two_level=2 * slabs,
              near_closest_two_level=4 * slabs),
         dict(pairs_two_level=2 * slabs, closest_two_level=4 * slabs))
+    del tables5
+
+    # 8. the front door
+    frontend = phase_frontend(torch, paths, a.seed, card)
 
     def by_path(i):
         return {k: v["launches"][i] for k, v in paths.items()
@@ -1732,9 +2246,15 @@ def main() -> int:
               sched_path=paths["sched"]),
         entry("trace_near_closest_clustered",
               f"{pallas}:436 (_kernel_one_tile in_near=True, :469-490)", 7,
-              closest_of(sched["K2n"]), "bounce", routes=sched["routes"],
+              {**closest_of(sched["K2n"]),
+               "predictor primary": frontend["predictor_leg"]["bounded"],
+               "predictor unbounded": frontend["predictor_leg"]["unbounded"]},
+              "bounce", routes=sched["routes"],
               pipelined_walk=closest_of(sched["K2n pipelined"]),
-              near_path=paths["default"]),
+              near_path=paths["default"],
+              predictor_leg=frontend["predictor_leg"],
+              frontend={k: v for k, v in frontend.items()
+                        if k != "predictor_leg"}),
         entry("trace_near_any_clustered",
               f"{pallas}:436 (in_near=True, any_hit=True)", 8,
               anyhit_of(sched["K2n"]), "nee",

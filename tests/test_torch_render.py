@@ -173,10 +173,21 @@ UNSUPPORTED = [
     "kw", UNSUPPORTED, ids=[next(iter(k)) for k in UNSUPPORTED]
 )
 def test_settings_outside_the_slice_raise(kw):
+    """Only ``traversal`` other than "auto" is still outside the port and
+    raises; the per-pixel features are ported (held against JAX in
+    test_torch_pixel_features.py) and render a frame."""
     st = TSettings(width=8, height=8, **kw)
+    r = _port(TSettings(width=8, height=8), 0, 0)
+    if "traversal" not in kw:
+        r.update_settings(**kw)
+        r.step()
+        assert r.image().shape == (8, 8, 3)
+        r = TRenderer(_mini(tscene, ttm), st, base_seed=0, device="cpu")
+        r.step()
+        assert r.counter == 1
+        return
     with pytest.raises(NotImplementedError):
         TRenderer(_mini(tscene, ttm), st, base_seed=0, device="cpu")
-    r = _port(TSettings(width=8, height=8), 0, 0)
     with pytest.raises(NotImplementedError):
         r.update_settings(**kw)
 

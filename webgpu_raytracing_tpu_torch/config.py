@@ -233,23 +233,15 @@ class RenderSettings:
 
 
 def check_supported(settings: RenderSettings) -> None:
-    """Raise ``NotImplementedError`` for settings this package does not
-    implement yet (each is a later slice of the port), and ``ValueError``
-    for a ``trace_sched`` that K5 does not take. ``trace_sched`` and
-    ``pipeline_rounds`` with two-level tables raise where the tables are
-    known (ops/cluster_cuda.py ``prepare_tiles``)."""
-    unsupported = {
-        "reprojection_rate > 0": settings.reprojection_rate > 0,
-        "use_hit_predictor": settings.use_hit_predictor,
-        "debug_bvh": settings.debug_bvh,
-        "resolution_scale != 1": settings.resolution_scale != 1.0,
-        "geometry_buffer_scale != 1": settings.geometry_buffer_scale != 1.0,
-        "traversal != 'auto'": settings.traversal != "auto",
-    }
-    bad = [name for name, hit in unsupported.items() if hit]
-    if bad:
+    """Raise ``NotImplementedError`` for a ``traversal`` other than
+    ``"auto"`` (the threaded and clustered oracle walks are not ported
+    yet), and ``ValueError`` for a ``trace_sched`` that K5 does not take.
+    ``trace_sched`` and ``pipeline_rounds`` with two-level tables raise
+    where the tables are known (ops/cluster_cuda.py ``prepare_tiles``)."""
+    if settings.traversal != "auto":
         raise NotImplementedError(
-            "not ported yet: " + ", ".join(bad)
+            f"not ported yet: traversal {settings.traversal!r} (only "
+            "'auto')"
         )
     if settings.trace_sched not in TRACE_SCHED_VALUES:
         raise ValueError(

@@ -1,2 +1,7 @@
-from .scene import Scene, SceneTables, scene_from_facesets  # noqa: F401
+from .scene import (  # noqa: F401
+    Scene,
+    SceneTables,
+    load_scene,
+    scene_from_facesets,
+)
 from .stress import stress_scene  # noqa: F401

@@ -54,10 +54,13 @@ def _aabbs_of(faces: FaceSet) -> tuple:
 
 
 def build_bvh(faces: FaceSet) -> BVH:
-    """Build a BVH with the numpy builder. The JAX package's native C++
-    builder (runtime/loader.cpp) produces byte-identical trees and is not
-    ported yet."""
-    return build_bvh_python(faces)
+    """Build a BVH, preferring the native C++ builder (runtime/loader.cpp,
+    models/native.py), which produces byte-identical trees; the numpy
+    builder when the library is unavailable or ``WRT_NO_NATIVE`` is set."""
+    from .native import build_bvh_native
+
+    bvh = build_bvh_native(faces)
+    return build_bvh_python(faces) if bvh is None else bvh
 
 
 def build_bvh_python(faces: FaceSet) -> BVH:

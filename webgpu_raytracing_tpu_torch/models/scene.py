@@ -13,6 +13,7 @@ Load-bearing contract preserved: **model 0 is the light source**.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -22,7 +23,18 @@ from ..ops.cluster_trace import ClusterTables, pack_cluster_tables
 from ..ops.env_sample import ENV_FIELDS, EnvDistribution
 from .bvh import BVH, build_bvh
 from .cluster import build_clusters
-from .face import FaceSet
+from .face import FaceSet, build_faces
+from .mtl import parse_mtl
+from .native import parse_obj_native
+from .obj import parse_obj
+from .test_models import triangle_model, unit_cube_model
+
+# The reference renders this hand-picked, reordered subset of the 13 loaded
+# models (render.ts:91-100). Load order is [unitCube, triangle, Light,
+# back_wall, ceiling, Dodecahedron, Floor, Ladder, left_wall, right_wall,
+# Suzanne, TallBox, Teapot], so the rendered set is Light, Suzanne, Floor,
+# TallBox, left_wall, Dodecahedron, back_wall, ceiling — Light first.
+REFERENCE_SUBSET = (2, 10, 6, 11, 8, 5, 3, 4)
 
 # SceneTables fields that hold plain arrays (the rest is ``clusters``)
 TABLE_FIELDS = (
@@ -125,13 +137,14 @@ class Scene:
     mat_color: np.ndarray  # (K, 3) f32
     mat_emission: np.ndarray  # (K, 3) f32
     mat_names: List[str]
+    # how load_scene parsed the OBJ: "native" (runtime/loader.cpp, whose
+    # BVH builder then built the trees too) or "python"; None for scenes
+    # that were not loaded from a file
+    loader: Optional[str] = None
 
     def select(self, indices: Sequence[int]) -> "Scene":
-        return Scene(
-            models=[self.models[i] for i in indices],
-            mat_color=self.mat_color,
-            mat_emission=self.mat_emission,
-            mat_names=self.mat_names,
+        return dataclasses.replace(
+            self, models=[self.models[i] for i in indices]
         )
 
     def tables(
@@ -229,3 +242,75 @@ def scene_from_facesets(
         mat_emission=np.asarray(mat_emission, np.float32).reshape(-1, 3),
         mat_names=mat_names or [f"m{i}" for i in range(len(mat_color))],
     )
+
+
+def materials_from_mtl(mtls) -> Tuple[np.ndarray, np.ndarray, List[str]]:
+    """scene.ts:92-108 — Kd → color, Ke → emission; the material named
+    'Light' is forced to color 0, emission (1,1,1)."""
+    colors, emissions, names = [], [], []
+    for m in mtls:
+        if m.name == "Light":
+            colors.append((0.0, 0.0, 0.0))
+            emissions.append((1.0, 1.0, 1.0))
+        else:
+            colors.append(m.Kd)
+            emissions.append(m.Ke)
+        names.append(m.name)
+    return (
+        np.array(colors, dtype=np.float32),
+        np.array(emissions, dtype=np.float32),
+        names,
+    )
+
+
+def load_scene(
+    obj_path: str,
+    mtl_path: str,
+    selection: Optional[Sequence[int]] = REFERENCE_SUBSET,
+) -> Scene:
+    """loadModels() (scene.ts:83-177): parse OBJ+MTL, prepend the two
+    analytic fixtures, build two-sided faces + per-model BVHs; then apply
+    the reference's 8-model subset selection (render.ts:91-100). The OBJ
+    goes through the native parser when its library is available
+    (models/native.py), else through :func:`.obj.parse_obj`, with the same
+    result; ``Scene.loader`` says which."""
+    with open(mtl_path) as fh:
+        mtls = parse_mtl(fh.read())
+    mat_color, mat_emission, mat_names = materials_from_mtl(mtls)
+    name_to_idx = {n: i for i, n in enumerate(mat_names)}
+
+    obj = parse_obj_native(os.fspath(obj_path))
+    loader = "native"
+    if obj is None:
+        with open(obj_path) as fh:
+            obj = parse_obj(fh.read())
+        loader = "python"
+
+    models: List[Model] = [
+        Model(name=name, faces=fs, bvh=build_bvh(fs))
+        for name, fs in (
+            ("unitCube", unit_cube_model()),
+            ("triangle", triangle_model()),
+        )
+    ]
+
+    for om in obj.models:
+        tris = obj.vertices[om.vertex_idx]  # (F, 3, 3)
+        has_n = om.normal_idx.size and (om.normal_idx >= 0).all()
+        nrms = obj.normals[om.normal_idx] if has_n else None
+        mats = np.array(
+            [name_to_idx.get(m, -1) for m in om.material], dtype=np.int32
+        )
+        fs = build_faces(tris, nrms, mats, two_sided=True)
+        models.append(Model(name=om.name, faces=fs, bvh=build_bvh(fs)))
+
+    scene = Scene(
+        models=models,
+        mat_color=mat_color,
+        mat_emission=mat_emission,
+        mat_names=mat_names,
+        loader=loader,
+    )
+    if selection is not None:
+        scene = scene.select(selection)
+    return scene

@@ -10,6 +10,13 @@ frame is :func:`render_frame` on that device (or
 1), and seeds are drawn on the host exactly as the JAX package draws
 them, so both packages render the same frames from the same
 ``base_seed``.
+
+The per-pixel features are the JAX package's: temporal reprojection every
+``reprojection_rate`` frames (ops/reproject.py), the quad hit predictor
+that bounds each primary ray's ``t_max`` (ops/predictor.py), a G-buffer of
+fewer rows than the image (``geometry_buffer_scale``), a render size other
+than the canvas (``resolution_scale``, resized in :func:`blit`) and the
+BVH wireframe overlay (``debug_bvh``, ops/wireframe.py).
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .camera import Camera
 from .config import F32_MAX, BlitView, RenderSettings, check_supported
@@ -28,9 +36,12 @@ from .models.scene import Scene, SceneTables
 from .ops import rng
 from .ops.env_sample import EnvDistribution
 from .ops.integrator import face_point_offset, path_trace, trace_direct
+from .ops.predictor import predict_hit_dist, quad_faces
 from .ops.raygen import camera_rays
+from .ops.reproject import reproject, reprojection_frustum
 from .ops.tonemap import apply as tonemap_apply
 from .ops.tonemap import gamma as tonemap_gamma
+from .ops.wireframe import overlay_wireframe, rasterize_bvh_wireframe
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,15 +51,21 @@ class FrameBuffers:
     frame snapshots."""
 
     image: torch.Tensor  # (H, W, 4) f32: rgb sum, sample count
-    geo_position: torch.Tensor  # (H, W, 3) f32
-    geo_face: torch.Tensor  # (H, W) i32
-    geo_object: torch.Tensor  # (H, W) i32
-    prev_image: torch.Tensor  # (H, W, 4) f32
-    prev_geo_position: torch.Tensor  # (H, W, 3) f32
-    prev_geo_face: torch.Tensor  # (H, W) i32
+    geo_position: torch.Tensor  # (GH, W, 3) f32
+    geo_face: torch.Tensor  # (GH, W) i32
+    geo_object: torch.Tensor  # (GH, W) i32
+    prev_image: torch.Tensor  # (H, W, 4) f32, whole even in slabs
+    prev_geo_position: torch.Tensor  # (GH, W, 3) f32, whole
+    prev_geo_face: torch.Tensor  # (GH, W) i32, whole
 
     @staticmethod
-    def create(width: int, height: int, device) -> "FrameBuffers":
+    def create(width: int, height: int, device,
+               geo_height: Optional[int] = None) -> "FrameBuffers":
+        """``geo_height`` (GH) mirrors the reference's geometryBufferScale
+        allocation (render.ts:141-144): the G-buffer may have fewer rows
+        than the image; the rows past it read as "no data"."""
+        gh = height if geo_height is None else geo_height
+
         def z(*shape):
             return torch.zeros(shape, dtype=torch.float32, device=device)
 
@@ -57,14 +74,14 @@ class FrameBuffers:
 
         return FrameBuffers(
             image=z(height, width, 4),
-            geo_position=z(height, width, 3),
-            geo_face=m1(height, width),
+            geo_position=z(gh, width, 3),
+            geo_face=m1(gh, width),
             geo_object=torch.zeros(
-                (height, width), dtype=torch.int32, device=device
+                (gh, width), dtype=torch.int32, device=device
             ),
             prev_image=z(height, width, 4),
-            prev_geo_position=z(height, width, 3),
-            prev_geo_face=m1(height, width),
+            prev_geo_position=z(gh, width, 3),
+            prev_geo_face=m1(gh, width),
         )
 
     def rotated(self) -> "FrameBuffers":
@@ -79,12 +96,18 @@ class FrameBuffers:
 
 @dataclasses.dataclass(frozen=True)
 class FrameInputs:
-    """Per-frame values (the reference's uniforms, render.ts:57-106)."""
+    """Per-frame values (the reference's uniforms, render.ts:57-106,
+    1658-1665); ``frustum`` and ``prev_origin`` are read only with
+    reprojection on."""
 
     view: torch.Tensor  # (4, 4) f32, on the render device
     seed: int  # 32-bit frame seed
     counter: int  # frames accumulated so far (0 clears)
     jitter: torch.Tensor  # (2,) f32, on the render device
+    # (4, 3) f32 reprojection frustum of the previous view
+    frustum: Optional[torch.Tensor] = None
+    # (3,) f32 translation column of the previous view
+    prev_origin: Optional[torch.Tensor] = None
 
 
 def _face_to_object(tables: SceneTables, face: torch.Tensor) -> torch.Tensor:
@@ -125,14 +148,53 @@ def render_tile(
     state = rng.seed_state(inputs.seed, idx)
     integrator = trace_direct if settings.bounces_depth <= 1 else path_trace
 
+    # clear on counter == 0 (render.ts:1454-1459), unless reprojection
+    # replaces the accumulation base below
     image = buffers.image
-    if inputs.counter == 0:  # clear on counter == 0 (render.ts:1454-1459)
+    if inputs.counter == 0 and not settings.reproject:
         image = torch.zeros_like(image)
+
+    # geometry_buffer_scale < 1 allocates fewer G-buffer rows than the
+    # image (render.ts:144); rows past the allocation read as "no data"
+    # (face -1 / position 0, the robust-access result), so the prev
+    # snapshots are padded back to the render height for the readers below
+    prev_geo_face = buffers.prev_geo_face
+    prev_geo_position = buffers.prev_geo_position
+    pad_rows = settings.render_height - prev_geo_face.shape[0]
+    if pad_rows > 0:
+        prev_geo_face = F.pad(prev_geo_face, (0, 0, 0, pad_rows), value=-1)
+        prev_geo_position = F.pad(prev_geo_position, (0, 0, 0, 0, 0, pad_rows))
+
+    # quad hit-distance candidates from the previous G-buffer
+    # (render.ts:1121-1141, 1440-1446), over the WHOLE prev buffer and
+    # the slab's rows sliced out after, so 2x2 blocks anchor at global row
+    # parity however the frame is cut into slabs
+    prev_quads = (
+        quad_faces(prev_geo_face)[row0:row0 + h].reshape(r, 4)
+        if settings.use_hit_predictor
+        else None
+    )
 
     def one_sample(pos, state):
         o, d, state = camera_rays(pos, inputs.view, state, settings)
-        t_max = torch.full((r,), F32_MAX, dtype=torch.float32, device=dev)
+        if prev_quads is not None:
+            t_max = predict_hit_dist(o, d, prev_quads, tables)
+        else:
+            t_max = torch.full((r,), F32_MAX, dtype=torch.float32,
+                               device=dev)
         return integrator(o, d, t_max, state, tables, env_data, settings)
+
+    def hit_point(hit):
+        face = hit.face.clamp(min=0).long()
+        return face_point_offset(
+            tables.tri[face], tables.shade_normal[face], hit.u, hit.v
+        )
+
+    def reproject_onto(point, color, state):
+        return reproject(
+            point, color, state, inputs.frustum, inputs.prev_origin,
+            buffers.prev_image, prev_geo_position, settings,
+        )
 
     # primary sample (render.ts:1464-1468)
     res = one_sample(base_pos, state)
@@ -141,15 +203,15 @@ def render_tile(
     rays = res.rays
     samples = torch.ones((r, 1), dtype=torch.float32, device=dev)
 
-    # G-buffer write from the primary hit (render.ts:1470-1475)
+    # G-buffer write from the primary hit (render.ts:1470-1475); writes
+    # past the G-buffer's rows are dropped (the reference's robust-access
+    # no-ops)
     fh = res.first_hit
-    face = fh.face.clamp(min=0).long()
-    primary_point = face_point_offset(
-        tables.tri[face], tables.shade_normal[face], fh.u, fh.v
-    )
-    geo_position = primary_point.reshape(h, w, 3)
-    geo_face = fh.face.reshape(h, w)
-    geo_object = _face_to_object(tables, fh.face).reshape(h, w)
+    primary_point = hit_point(fh)
+    g_out = buffers.geo_face.shape[0]
+    geo_position = primary_point.reshape(h, w, 3)[:g_out]
+    geo_face = fh.face.reshape(h, w)[:g_out]
+    geo_object = _face_to_object(tables, fh.face).reshape(h, w)[:g_out]
 
     # extra stratified-jittered samples (render.ts:1477-1495)
     for _ in range(settings.sample_count):
@@ -160,6 +222,24 @@ def render_tile(
         color = color + res.color
         rays = rays + res.rays
         samples = samples + 1.0
+
+        if settings.reproject:
+            # temporal merge per extra sample (render.ts:1485-1494)
+            rp, state = reproject_onto(hit_point(res.first_hit), color, state)
+            ok = rp.color[..., 3:4] > 0.0
+            color = color + torch.where(
+                ok,
+                rp.color[..., :3] / torch.clamp(rp.color[..., 3:4], min=1e-20),
+                torch.zeros_like(color),
+            )
+            samples = samples + ok.to(torch.float32)
+
+    if settings.reproject:
+        # the primary point's reprojection REPLACES the accumulation base
+        # (render.ts:1497-1500); the frame still accumulates on top
+        # (render.ts:1506-1507)
+        rp, state = reproject_onto(primary_point, color, state)
+        image = rp.color.reshape(h, w, 4)
 
     if settings.debug_reprojection:
         new_image = image
@@ -256,7 +336,27 @@ def blit(image: torch.Tensor, prev_image: torch.Tensor,
             color = color * settings.exposure
     color = tonemap_gamma(color, 1.0 / settings.gamma)
     color = tonemap_apply(color, settings.tonemapping)
-    return torch.clamp(color, 0.0, 1.0)
+    color = torch.clamp(color, 0.0, 1.0)
+    if color.shape[:2] != (settings.height, settings.width):
+        # resolution_scale != 1: the reference's fullscreen blit stretches
+        # the scaled backing store to the canvas (render.ts:109-113,
+        # 163-183) with the sampler's bilinear filtering
+        color = resize_linear(color, settings.height, settings.width)
+    return color
+
+
+def resize_linear(img: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """(h, w, C) → (height, width, C) as ``jax.image.resize(img, ...,
+    method="linear")`` computes it: the triangle kernel at half-pixel
+    centres, widened by the scale when shrinking, which is what
+    ``F.interpolate``'s antialiased bilinear mode uses. Equal to the JAX
+    function when enlarging, within about 1e-7 when shrinking (the sums
+    run in another order)."""
+    out = F.interpolate(
+        img.permute(2, 0, 1)[None], size=(height, width), mode="bilinear",
+        align_corners=False, antialias=True,
+    )
+    return out[0].permute(1, 2, 0)
 
 
 def _check_env(settings: RenderSettings, env_data) -> None:
@@ -307,11 +407,13 @@ class Renderer:
         self.counter = 0
         self.frame_counter = 0
         self.buffers = FrameBuffers.create(
-            settings.render_width, settings.render_height, self.device
+            settings.render_width, settings.render_height, self.device,
+            settings.geo_height,
         )
         self._rng = np.random.default_rng(base_seed)
         self.last_rays = 0.0  # rays traced in the last frame (metrics)
         self._prev_view = np.eye(4, dtype=np.float32)
+        self._jitter = None  # redrawn when updatePrev fires
 
     def reset(self) -> None:
         self.counter = 0
@@ -326,7 +428,8 @@ class Renderer:
             "width", "height", "resolution_scale", "geometry_buffer_scale"
         }:
             self.buffers = FrameBuffers.create(
-                settings.render_width, settings.render_height, self.device
+                settings.render_width, settings.render_height, self.device,
+                settings.geo_height,
             )
         self.reset()
 
@@ -343,18 +446,33 @@ class Renderer:
         from the host generator in the JAX package's order."""
         if seed is None:
             seed = int(self._rng.integers(0, 2**32, dtype=np.uint64))
-        # without reprojection updatePrev fires every frame, and with it
-        # the jitter uniform is redrawn (render.ts:1660-1665)
-        jitter = (
-            (self._rng.random(2).astype(np.float32) - 0.5)
-            * self.settings.jitter_strength
+        rate = self.settings.reprojection_rate
+        update_prev = rate == 0 or self.frame_counter % rate == 0
+        if rate:
+            self.frame_counter = (self.frame_counter + 1) % rate
+        if update_prev or self._jitter is None:
+            # the reference rewrites the jitter uniform only when
+            # updatePrev fires (render.ts:1660-1665), keeping intermediate
+            # frames aligned with the prev-buffer snapshot
+            self._jitter = (
+                (self._rng.random(2).astype(np.float32) - 0.5)
+                * self.settings.jitter_strength
+            )
+        frustum = reprojection_frustum(
+            self._prev_view,
+            self.settings.render_width,
+            self.settings.render_height,
+            self.settings.fov,
         )
         view = self.camera.view_matrix()
+        prev_origin = np.asarray(self._prev_view[:3, 3], np.float32)
         inputs = FrameInputs(
             view=torch.as_tensor(view, device=self.device),
             seed=seed,
             counter=self.counter,
-            jitter=torch.as_tensor(jitter, device=self.device),
+            jitter=torch.as_tensor(self._jitter, device=self.device),
+            frustum=torch.as_tensor(frustum, device=self.device),
+            prev_origin=torch.as_tensor(prev_origin, device=self.device),
         )
         frame_fn = (
             render_frame_slabs if self.settings.frame_slabs > 1
@@ -365,9 +483,9 @@ class Renderer:
         )
         self.last_rays = float(rays)
         self.counter += 1
-        # reprojection_rate == 0: updatePrev fires every frame
-        self.buffers = self.buffers.rotated()
-        self._prev_view = view
+        if update_prev:
+            self.buffers = self.buffers.rotated()
+            self._prev_view = view
 
     def render(self, spp: int) -> np.ndarray:
         """Accumulate until >= spp samples/pixel; return display image."""
@@ -380,15 +498,31 @@ class Renderer:
         """Display image, top row first (the reference's blit maps buffer
         row 0 to the bottom of the canvas, render.ts:163-183)."""
         img = blit(self.buffers.image, self.buffers.prev_image, self.settings)
+        if self.settings.debug_bvh:
+            # the debug BVH wireframe (render.ts:1685-1692) composites last
+            st = self.settings
+            vp = self.camera.view_projection_matrix(st.width, st.height,
+                                                    st.fov)
+            wire = rasterize_bvh_wireframe(
+                self.tables.node_box[:, 0:3],
+                self.tables.node_box[:, 3:6],
+                torch.as_tensor(np.asarray(vp, np.float32),
+                                device=self.device),
+                st.width,
+                st.height,
+            )
+            img = overlay_wireframe(img, wire.flip(0))
         return img.cpu().numpy()[::-1]
 
     # --- checkpoint / resume, the JAX package's npz format ---
     def save_checkpoint(self, path: str) -> None:
         """Atomic: write a sibling temp file, fsync, then os.replace.
         Beside the JAX package's keys (which that package reads back), the
-        file holds the host generator's state (``rng_state``, JSON), so a
-        resumed run draws the same frame seeds and jitter as one that was
-        never stopped."""
+        file holds the host generator's state (``rng_state``, JSON) and the
+        current jitter (``jitter``, which reprojection keeps between
+        updatePrev frames), so a resumed run draws the same frame seeds
+        and jitter as one that was never stopped."""
+        extra = {} if self._jitter is None else {"jitter": self._jitter}
         arrays = {
             f.name: getattr(self.buffers, f.name).cpu().numpy()
             for f in dataclasses.fields(FrameBuffers)
@@ -404,6 +538,7 @@ class Renderer:
                 cam_orientation=self.camera.orientation,
                 prev_view=self._prev_view,
                 rng_state=np.array(json.dumps(self._rng.bit_generator.state)),
+                **extra,
                 **arrays,
             )
             fh.flush()
@@ -425,3 +560,4 @@ class Renderer:
         self._prev_view = z["prev_view"]
         if "rng_state" in z:
             self._rng.bit_generator.state = json.loads(str(z["rng_state"]))
+        self._jitter = z["jitter"] if "jitter" in z else None
