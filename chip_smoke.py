@@ -108,6 +108,23 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
    NEE, ``bounces_depth=1`` and env-IS, the frame on the card equals the
    port's frame on the CPU (the twins the tier-1 tests hold against JAX):
    equal NaN masks, RMSE < 1e-5 over the other pixels.
+6b. the rest of the package (``phase_port_completion``, its own JSON line
+   ``{"port_completion": ...}``): 1080p sorted frames (``sort_bounce_rays``,
+   the order in the kernel) with and without ``chained_sort``, plain and
+   NEE, equal bit for bit (6 K2n closest-hit launches a frame, + 6 any-hit
+   with NEE), ms/frame of each; ``render_sharded`` over every visible card
+   (two slabs on cuda:0 when there is one) against ``render_frame``: one
+   1080p frame, and 3 frames with reprojection every 2nd frame, jitter 0.5,
+   the hit predictor and a moving camera, image and ``prev_image`` bit for
+   bit, ms/frame of both; the threaded and clustered oracles
+   (ops/traverse.py, ops/cluster_trace.py) against K2n on 65,536 rays of
+   frame 0's primary, bounce and NEE shadow legs: faces (blocked sets)
+   equal, each exception classified by exact t (K2n's face never farther;
+   the threaded walk's only at an exact tie), ms of each; 256x256 frames
+   with ``traversal`` ``"pallas"`` (6 K2n launches) and
+   ``"pallas_interpret"`` (the twins, none) equal to the default frame bit
+   for bit; the card's 12x12 frame against the WGSL-semantics simulator
+   (validation/wgsl_sim.py, seed 777): equal spp, RMSE <= 1e-2.
 7. config #5 (BASELINE.md): ``stress_scene(1_000_000)``, two-level tables
    (G = 64), set-up time printed.
    a. K3 vs twins on the rays of one 4K slab (rows 1080-1349 of
@@ -167,8 +184,9 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
    accumulation, a ``set`` of ``resolution_scale``; 240 K2n launches;
    the smoothed ms/frame and Mrays/s printed.
 
-Prints the per-kernel JSON line (seventeen kernels; K2n's entry holds the
-predictor-bounded leg and the front door's numbers), then the
+Prints the per-kernel JSON line (seventeen kernels; K2n's entries hold the
+predictor-bounded leg, the front door's numbers and the oracle checks),
+then the
 ``nvidia-smi`` name/power line, then ``{"ok": true, "device": {...}}`` as
 the last line.
 """
@@ -1446,6 +1464,390 @@ def phase_reference(torch):
     return out
 
 
+ORACLE_RAYS = 65_536  # rays of each leg the oracles walk on the card
+SHARD_FRAMES = 3  # reprojection frames through render_sharded
+COMPLETION_SIZE = 256  # side of the traversal-route frames
+WGSL_SIZE, WGSL_SEED = 12, 777
+
+
+def _exact_t(torch, leg, tables, face):
+    """The exact t of ``face`` on each ray of ``leg`` (inf for -1)."""
+    from webgpu_raytracing_tpu_torch.ops.cluster_trace import exact_face_eval
+
+    tri = tables.tri[face.clamp(min=0).long()]
+    big = torch.full_like(leg["t_max"], F32_MAX)
+    valid, t, _, _ = exact_face_eval(leg["o"], leg["d"], tri, face >= 0, big)
+    return torch.where(valid, t, torch.full_like(t, float("inf")))
+
+
+def _oracle_exceptions(torch, name, leg, tables, face, ref_face, strict):
+    """Rays where an oracle's face differs from K2n's, by class: exact
+    ties (equal exact t), K2n's face nearer (the oracle missed the nearest
+    hit), the oracle's face nearer (K2n missed it: always a failure).
+    ``strict``: any class but ties fails."""
+    diff = (face != ref_face).nonzero()[:, 0]
+    if diff.numel() == 0:
+        return dict(mismatch=0)
+    sub = {k: leg[k][diff] for k in ("o", "d", "t_max")}
+    t_or = _exact_t(torch, sub, tables, face[diff])
+    t_k = _exact_t(torch, sub, tables, ref_face[diff])
+    out = dict(mismatch=int(diff.numel()), ties=int((t_or == t_k).sum()),
+               k2n_nearer=int((t_k < t_or).sum()),
+               oracle_nearer=int((t_or < t_k).sum()))
+    for i in range(min(int(diff.numel()), 8)):
+        print(f"{name}: ray {int(diff[i])}: oracle face "
+              f"{int(face[diff[i]])} t {float(t_or[i])!r}, K2n face "
+              f"{int(ref_face[diff[i]])} t {float(t_k[i])!r}", flush=True)
+    if out["oracle_nearer"] or (strict and out["k2n_nearer"]):
+        fail(f"{name}: K2n's face is not the nearest: {out}")
+    return out
+
+
+def compare_oracles(torch, tables, legs, card):
+    """``ORACLE_RAYS`` consecutive rays from the middle of frame 0's
+    primary, bounce and NEE shadow legs through K2n and through the two
+    oracles that share none of its code: the threaded BVH walk
+    (ops/traverse.py) and the clustered trace (ops/cluster_trace.py).
+    Closest hit: faces equal, else each exception classified; the
+    threaded walk is exact, so only exact ties may differ from it, and
+    the clustered oracle may also miss a nearest hit its bilinear estimate
+    prunes (the JAX oracle's behaviour), never find a nearer one. Any
+    hit: blocked sets equal to the threaded walk's; the clustered one may
+    only miss blockers. Each timed once after a warm-up."""
+    from webgpu_raytracing_tpu_torch.ops import cluster_cuda as cc
+    from webgpu_raytracing_tpu_torch.ops import traverse
+    from webgpu_raytracing_tpu_torch.ops.cluster_trace import (
+        trace_any_clustered, trace_closest_clustered,
+    )
+
+    out = {}
+    for name in ("primary", "bounce", "nee"):
+        full = legs[name]
+        r = full["o"].shape[0]
+        s0 = (r // 2 - ORACLE_RAYS // 2) // 128 * 128
+        leg = {k: v[s0:s0 + ORACLE_RAYS] for k, v in full.items()}
+        o, d, tm = leg["o"], leg["d"], leg["t_max"]
+        act, ex = leg.get("active"), leg.get("excl_code")
+        if name == "nee":
+            runs = {
+                "K2n": lambda: cc.trace_any_clustered_cuda(
+                    o, d, tm, tables, act, excl_code=ex, kernel_near=True),
+                "threaded": lambda: traverse.trace_any(o, d, tm, tables, act),
+                "clustered": lambda: trace_any_clustered(o, d, tm, tables,
+                                                         act, tile=128),
+            }
+        else:
+            runs = {
+                "K2n": lambda: cc.trace_closest_clustered_cuda(
+                    o, d, tm, tables, act, excl_code=ex,
+                    kernel_near=True).face,
+                "threaded": lambda: traverse.trace_closest(o, d, tm, tables,
+                                                           act).face,
+                "clustered": lambda: trace_closest_clustered(
+                    o, d, tm, tables, act, tile=128).face,
+            }
+        res, ms = {}, {}
+        for k, fn in runs.items():
+            res[k] = fn()
+            ms[k] = _time_cuda(torch, fn, 1, warm=False)
+        rec = dict(rays=ORACLE_RAYS, first_ray=s0, ms=ms,
+                   hits=int((res["K2n"] >= 0).sum() if name != "nee"
+                            else res["K2n"].sum()))
+        for k in ("threaded", "clustered"):
+            label = f"oracles, {LEG_NAMES[name]} leg, {k}"
+            if name == "nee":
+                extra = int((res[k] & ~res["K2n"]).sum())
+                missed = int((res["K2n"] & ~res[k]).sum())
+                rec[k] = dict(mismatch=extra + missed,
+                              blocked_only_by_oracle=extra,
+                              blocked_only_by_k2n=missed)
+                if extra or (k == "threaded" and missed):
+                    fail(f"{label}: blocked sets differ: {rec[k]}")
+            else:
+                rec[k] = _oracle_exceptions(torch, label, leg, tables,
+                                            res[k], res["K2n"],
+                                            strict=k == "threaded")
+        print(f"oracles, {LEG_NAMES[name]} leg: {ORACLE_RAYS} rays from "
+              f"{s0}, {rec['hits']} hit/blocked by K2n; threaded "
+              f"{rec['threaded']}, clustered {rec['clustered']}; ms "
+              f"{ {k: round(v, 3) for k, v in ms.items()} } ({card})",
+              flush=True)
+        out[name] = rec
+    return out
+
+
+def _shard_inputs(torch, st, seed, frames, moving):
+    """FrameInputs of ``frames`` frames as Renderer.step makes them from
+    ``seed`` (the host generator's seeds and jitter), the camera moved
+    between frames when ``moving``."""
+    import numpy as np
+
+    from webgpu_raytracing_tpu_torch.camera import Camera
+    from webgpu_raytracing_tpu_torch.ops.reproject import (
+        reprojection_frustum,
+    )
+    from webgpu_raytracing_tpu_torch.renderer import FrameInputs
+
+    g = np.random.default_rng(seed)
+    cam, prev, out, fc = Camera(), np.eye(4, dtype=np.float32), [], 0
+    jitter = None
+    for k in range(frames):
+        frame_seed = int(g.integers(0, 2**32, dtype=np.uint64))
+        rate = st.reprojection_rate
+        update = rate == 0 or fc % rate == 0
+        if rate:
+            fc = (fc + 1) % rate
+        if update or jitter is None:
+            jitter = (g.random(2).astype(np.float32) - 0.5) * (
+                st.jitter_strength)
+        view = cam.view_matrix()
+        out.append((FrameInputs(
+            view=torch.as_tensor(view, device=DEVICE), seed=frame_seed,
+            counter=k, jitter=torch.as_tensor(jitter, device=DEVICE),
+            frustum=torch.as_tensor(reprojection_frustum(
+                prev, st.render_width, st.render_height, st.fov),
+                device=DEVICE),
+            prev_origin=torch.as_tensor(np.asarray(prev[:3, 3], np.float32),
+                                        device=DEVICE)), update))
+        if update:
+            prev = view
+        if moving:
+            cam.move(np.array([0.05, 0.0, -0.1], np.float32))
+    return out
+
+
+def compare_sharded(torch, tables, paths, seed, card):
+    """``render_sharded`` over every visible card, or two slabs on cuda:0
+    when there is one, against ``render_frame`` on one device: one 1080p
+    frame, and ``SHARD_FRAMES`` frames with reprojection every 2nd frame,
+    jitter 0.5, the hit predictor and a moving camera (``prev_image``
+    too), bit for bit; both timed, the sharded frames' launches counted
+    from 0. The single-device run rotates the prev buffers on
+    render_sharded's schedule."""
+    from webgpu_raytracing_tpu_torch.config import RenderSettings
+    from webgpu_raytracing_tpu_torch.parallel.shard import (
+        make_mesh, render_sharded,
+    )
+    from webgpu_raytracing_tpu_torch.renderer import (
+        FrameBuffers, render_frame,
+    )
+
+    n_cards = torch.cuda.device_count()
+    mesh = make_mesh() if n_cards > 1 else [DEVICE, DEVICE]
+    env = torch.zeros((1, 1, 3), device=DEVICE)
+    out = dict(mesh=[str(m) for m in mesh])
+    base = RenderSettings(**SLICE)
+    cases = {
+        "sharded": (base, 1, False),
+        "sharded_reprojection": (
+            base.replace(reprojection_rate=2, jitter_strength=0.5,
+                         use_hit_predictor=True), SHARD_FRAMES, True),
+    }
+    for key, (st, frames, moving) in cases.items():
+        inputs = _shard_inputs(torch, st, seed, frames, moving)
+
+        def single():
+            bufs = FrameBuffers.create(st.render_width, st.render_height,
+                                       DEVICE)
+            rays = 0.0
+            for inp, update in inputs:
+                bufs, r = render_frame(bufs, tables, env, inp, st)
+                rays += float(r)
+                if update and (st.reproject or st.use_hit_predictor):
+                    bufs = bufs.rotated()
+            return bufs, rays
+
+        def sharded():
+            return render_sharded(tables, env, st, frames, mesh=mesh,
+                                  inputs_fn=lambda k: inputs[k][0])
+
+        single()  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want, rays = single()
+        torch.cuda.synchronize()
+        single_ms = (time.perf_counter() - t0) / frames * 1e3
+        _zero_launch_counts()
+        t0 = time.perf_counter()
+        got, s_rays = sharded()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / frames * 1e3
+        launches = _launch_counts()
+        expect = launches_per_frame(near_closest=6 * len(mesh) * frames)
+        if launches != expect:
+            fail(f"{key}: launches {launches}, expected {expect}")
+        for f in ("image", "prev_image", "geo_face", "geo_position"):
+            if not _bits_equal(torch, getattr(got, f), getattr(want, f)):
+                fail(f"{key}: {f} differs from the single-device frames")
+        if s_rays != rays or not rays > 0:
+            fail(f"{key}: {s_rays} rays sharded, {rays} single")
+        print(f"{key}: {frames} frame(s) of {st.width}x{st.height} over "
+              f"{out['mesh']}: {ms:.1f} ms/frame sharded, {single_ms:.1f} "
+              f"ms/frame on one device, bit for bit equal (image, "
+              f"prev_image, G-buffer), launches "
+              f"{ {w: n for w, n in zip(WRAPPERS, launches) if n} } "
+              f"({card})", flush=True)
+        paths[key] = dict(launches=launches, ms_per_frame=ms,
+                          mrays=rays / frames / ms / 1e3,
+                          single_device_ms_per_frame=single_ms,
+                          frames=frames)
+        out[key] = paths[key]
+        del want, got
+    return out
+
+
+def wgsl_scene():
+    """The scene of tests/test_torch_validation.py: a light, a sphere off
+    the optical axis, the floor and a cube."""
+    import numpy as np
+
+    from webgpu_raytracing_tpu_torch.models import test_models as tm
+    from webgpu_raytracing_tpu_torch.models.scene import scene_from_facesets
+
+    return scene_from_facesets(
+        [
+            ("light", tm.uv_sphere((0, 3, -4), 0.5, material_idx=1, lat=4,
+                                   lon=6)),
+            ("sphere", tm.uv_sphere((0.35, 0.2, -4), 1.0, lat=8, lon=10)),
+            ("plane", tm.ground_plane(-1.5, 8.0)),
+            ("cube", tm.unit_cube_model()),
+        ],
+        np.array([[0.8, 0.4, 0.3], [0, 0, 0]], np.float32),
+        np.array([[0, 0, 0], [6, 6, 6]], np.float32),
+    )
+
+
+def synthetic_equirect(h=64, w=128):
+    """tests/test_reference_parity.py's stand-in sky: a gradient with a
+    bright sun patch."""
+    import numpy as np
+
+    ys = np.linspace(0.0, 1.0, h, dtype=np.float32)[:, None]
+    xs = np.linspace(0.0, 1.0, w, dtype=np.float32)[None, :]
+    r = 0.4 + 0.5 * ys + 0.05 * np.sin(xs * 12.0)
+    g = 0.5 + 0.4 * ys + 0.05 * np.cos(xs * 7.0)
+    b = 0.8 + 0.2 * ys
+    img = np.stack([np.broadcast_to(c, (h, w)) for c in (r, g, b)],
+                   axis=-1).astype(np.float32)
+    sun = np.exp(-(((ys - 0.75) * 8.0) ** 2 + ((xs - 0.3) * 8.0) ** 2))
+    return img + 20.0 * sun.astype(np.float32)[..., None] * np.array(
+        [1.0, 0.9, 0.7], np.float32)
+
+
+def compare_wgsl(torch, card):
+    """The card's 12x12 frame against the WGSL-semantics simulator
+    (validation/wgsl_sim.py) at seed 777, one sample and three bounces
+    per path: equal spp, RMSE <= 1e-2 (BASELINE.md)."""
+    import numpy as np
+
+    from webgpu_raytracing_tpu_torch.camera import Camera
+    from webgpu_raytracing_tpu_torch.config import RenderSettings
+    from webgpu_raytracing_tpu_torch.renderer import Renderer
+    from webgpu_raytracing_tpu_torch.validation.wgsl_sim import (
+        WGSLReference,
+    )
+
+    st = RenderSettings(width=WGSL_SIZE, height=WGSL_SIZE,
+                        environment="equirect", sample_count=1,
+                        bounces_depth=4)
+    env = synthetic_equirect()
+    scene = wgsl_scene()
+    t0 = time.perf_counter()
+    sim = WGSLReference(scene, st, env)
+    sim.step(WGSL_SEED, Camera().view_matrix())
+    sim_s = time.perf_counter() - t0
+    r = Renderer(scene, st, env_data=env, device=DEVICE)
+    r.step(seed=WGSL_SEED)
+    ours = r.buffers.image.cpu().numpy()
+    if not (ours[..., 3] == sim.image[..., 3]).all():
+        fail("WGSL semantics: sample counts differ from the simulator's")
+
+    def norm(img):
+        return img[..., :3] / np.maximum(img[..., 3:4], 1e-20)
+
+    rmse = float(np.sqrt(np.mean((norm(ours) - norm(sim.image)) ** 2)))
+    n_diff = int((ours[..., :3] != sim.image[..., :3]).any(-1).sum())
+    print(f"WGSL semantics: {WGSL_SIZE}x{WGSL_SIZE} frame on the card vs "
+          f"the simulator (seed {WGSL_SEED}, {sim_s:.1f} s): RMSE {rmse!r}, "
+          f"{n_diff} pixels differ ({card})", flush=True)
+    if not rmse <= 1e-2:
+        fail(f"WGSL semantics: RMSE {rmse} > 1e-2")
+    return dict(rmse=rmse, pixels_differ=n_diff, size=WGSL_SIZE)
+
+
+def phase_port_completion(torch, scene, paths, frames, seed, card):
+    """6b. What the rest of the package adds, at the slice's width:
+    ``chained_sort`` (sorted 1080p frames, plain and NEE, equal bit for
+    bit with and without the chain, 6 (+ 6) K2n launches a frame each);
+    ``render_sharded`` against ``render_frame`` (:func:`compare_sharded`);
+    the oracles against K2n on frame 0's legs (:func:`compare_oracles`);
+    ``traversal`` ``"pallas"`` (the kernels, 6 K2n launches a frame) and
+    ``"pallas_interpret"`` (the twins, none) at 256x256, equal to the
+    default frame bit for bit; the WGSL-semantics frame
+    (:func:`compare_wgsl`). → its JSON record."""
+    from webgpu_raytracing_tpu_torch.config import RenderSettings
+
+    t_phase = time.perf_counter()
+    out = {}
+    srt = RenderSettings(**SLICE).replace(sort_bounce_rays=True)
+    imgs = {}
+    for key, st, counts in (
+        ("sorted_near", srt, dict(near_closest=6)),
+        ("chained", srt.replace(chained_sort=True), dict(near_closest=6)),
+        ("sorted_near_nee", srt.replace(next_event_estimation=True),
+         dict(near_closest=6, near_any=6)),
+        ("chained_nee", srt.replace(next_event_estimation=True,
+                                    chained_sort=True),
+         dict(near_closest=6, near_any=6)),
+    ):
+        paths[key], r = drive_path(
+            torch, key.replace("_", " ") + " path", scene, st, frames, seed,
+            card, launches_per_frame(**counts),
+            finite=not st.next_event_estimation)
+        imgs[key] = r.buffers.image.clone()
+        del r
+    for a, b in (("chained", "sorted_near"), ("chained_nee",
+                                              "sorted_near_nee")):
+        if not _bits_equal(torch, imgs[a], imgs[b]):
+            fail(f"{a}: the frame differs from the {b} frame")
+        print(f"{a} vs {b}: equal bit for bit, "
+              f"{paths[a]['ms_per_frame']:.1f} vs "
+              f"{paths[b]['ms_per_frame']:.1f} ms/frame ({card})",
+              flush=True)
+    out["chained"] = {k: paths[k] for k in imgs}
+    del imgs
+
+    tables = scene.tables(torch.device(DEVICE))
+    out["sharded"] = compare_sharded(torch, tables, paths, seed, card)
+    legs = frame0_legs(torch, tables, RenderSettings(**SLICE), seed)
+    out["oracles"] = compare_oracles(torch, tables, legs, card)
+    del legs, tables
+
+    small = RenderSettings(**{**SLICE, "width": COMPLETION_SIZE,
+                              "height": COMPLETION_SIZE})
+    routes = {}
+    for trav, counts in (("auto", dict(near_closest=6)),
+                         ("pallas", dict(near_closest=6)),
+                         ("pallas_interpret", {})):
+        key = f"traversal_{trav}"
+        paths[key], r = drive_path(
+            torch, f"traversal={trav} path", scene,
+            small.replace(traversal=trav), 1, seed, card,
+            launches_per_frame(**counts))
+        routes[trav] = r.buffers.image.clone()
+        del r
+    for trav in ("pallas", "pallas_interpret"):
+        if not _bits_equal(torch, routes[trav], routes["auto"]):
+            fail(f"traversal={trav}: the frame differs from the default")
+    print(f"traversal pallas and pallas_interpret at {COMPLETION_SIZE}^2: "
+          "equal to the default frame bit for bit", flush=True)
+    out["traversal"] = {k: paths[f"traversal_{k}"] for k in routes}
+    out["wgsl"] = compare_wgsl(torch, card)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(json.dumps({"port_completion": out}), flush=True)
+    return out
+
+
 def phase_config5_kernels(torch, tables, seed, card):
     """7a/7b: K3 vs twins on one 4K slab's frame-0 legs of the 1M scene,
     then the K3 route (super entry distances + K3) against the K1 route
@@ -2119,6 +2521,8 @@ def main() -> int:
     paths = phase_paths(torch, scene, sky, a.frames, a.seed, card)
     phase_direct(torch, paths, a.frames, a.seed, card)
     reference = phase_reference(torch)
+    completion = phase_port_completion(torch, scene, paths, a.frames, a.seed,
+                                       card)
     del scene
 
     # 7. config #5
@@ -2254,11 +2658,14 @@ def main() -> int:
               near_path=paths["default"],
               predictor_leg=frontend["predictor_leg"],
               frontend={k: v for k, v in frontend.items()
-                        if k != "predictor_leg"}),
+                        if k != "predictor_leg"},
+              oracles={k: completion["oracles"][k]
+                       for k in ("primary", "bounce")}),
         entry("trace_near_any_clustered",
               f"{pallas}:436 (in_near=True, any_hit=True)", 8,
               anyhit_of(sched["K2n"]), "nee",
-              pipelined_walk=anyhit_of(sched["K2n pipelined"])),
+              pipelined_walk=anyhit_of(sched["K2n pipelined"]),
+              oracles=completion["oracles"]["nee"]),
         entry("trace_near_pairs_clustered",
               f"{pallas}:436 (in_near=True, pairs=True)", 9,
               sched["K2n pairs"], "bounce",

@@ -95,7 +95,7 @@ def test_cli_cuda_without_a_card_exits(monkeypatch):
             cli.main(argv)
 
 
-@pytest.mark.parametrize("opt", ["chained_sort=1", "trace_gang=8"])
+@pytest.mark.parametrize("opt", ["mm_passes=3", "trace_gang=8"])
 def test_cli_omitted_field_exits(opt):
     with pytest.raises(SystemExit, match=opt.split("=")[0]):
         cli.main(["render", *TINY, "--device", "cpu", "--opt", opt])

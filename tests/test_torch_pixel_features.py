@@ -414,9 +414,11 @@ def test_check_supported_refuses_only_traversal():
                dict(resolution_scale=0.5), dict(geometry_buffer_scale=0.25),
                dict(debug_reprojection=True, reprojection_rate=1)):
         check_supported(TSettings(**kw))
-    for trav in ("clustered", "threaded", "pallas_interpret"):
-        with pytest.raises(NotImplementedError, match="traversal"):
-            check_supported(TSettings(traversal=trav))
+    for trav in ("auto", "pallas", "clustered", "threaded",
+                 "pallas_interpret"):
+        check_supported(TSettings(traversal=trav))
+    with pytest.raises(ValueError, match="traversal"):
+        check_supported(TSettings(traversal="xla"))
 
 
 # --- the cases of tests/test_reproject.py, on the port ---

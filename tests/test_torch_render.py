@@ -165,7 +165,7 @@ UNSUPPORTED = [
     dict(debug_bvh=True),
     dict(resolution_scale=0.5),
     dict(geometry_buffer_scale=0.5),
-    dict(traversal="clustered"),
+    dict(traversal="xla"),
 ]
 
 
@@ -173,9 +173,10 @@ UNSUPPORTED = [
     "kw", UNSUPPORTED, ids=[next(iter(k)) for k in UNSUPPORTED]
 )
 def test_settings_outside_the_slice_raise(kw):
-    """Only ``traversal`` other than "auto" is still outside the port and
-    raises; the per-pixel features are ported (held against JAX in
-    test_torch_pixel_features.py) and render a frame."""
+    """Only a ``traversal`` that the JAX package does not have raises; the
+    per-pixel features are ported (held against JAX in
+    test_torch_pixel_features.py) and render a frame, and so do the
+    traversals (tests/test_torch_traversal.py)."""
     st = TSettings(width=8, height=8, **kw)
     r = _port(TSettings(width=8, height=8), 0, 0)
     if "traversal" not in kw:
@@ -186,9 +187,9 @@ def test_settings_outside_the_slice_raise(kw):
         r.step()
         assert r.counter == 1
         return
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         TRenderer(_mini(tscene, ttm), st, base_seed=0, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         r.update_settings(**kw)
 
 

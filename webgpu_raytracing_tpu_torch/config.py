@@ -45,18 +45,30 @@ sorted trace's results; on two-level tables, on exact-pairs legs, and for
 as in the JAX package: ``multipass_cap`` takes effect only with
 ``kernel_near=False``.
 
+``traversal`` takes the JAX package's five values (TRAVERSALS):
+``"auto"`` launches the CUDA kernels for CUDA tensors and runs their plain
+twins for CPU tensors; ``"pallas"`` launches the kernels and raises
+``ValueError`` for tensors that are not on a CUDA device; ``"pallas_interpret"``
+runs the twins on whatever device the tensors are on (the port's
+interpret mode); ``"clustered"`` and ``"threaded"`` are the plain-torch
+oracles of ops/cluster_trace.py and ops/traverse.py, which share no code
+with the kernels. The tile-scheduling settings above pick among the
+kernels and their twins only. ``"threaded"`` legs are never sorted;
+``"clustered"`` legs are, with ``sort_bounce_rays``.
+
+``chained_sort`` (the JAX field and default, off) permutes the whole
+per-lane path state into nearest-cluster order once per segment past the
+first instead of sorting each trace (ops/integrator.py); it applies only
+with ``sort_bounce_rays`` and a traversal other than ``"threaded"``, and
+gives the same frame bit for bit.
+
 Fields of the JAX ``RenderSettings`` left out of this one (OMITTED_FIELDS):
+the TPU kernel schedule knobs, which change how the Pallas kernel runs and
+never what it returns: ``tiles_per_step``, ``lockstep_tiles``,
+``trace_gang``, ``trace_gang_frac``, ``mm_passes`` and ``approx_div``.
 
-* the TPU kernel schedule knobs, which change how the Pallas kernel runs
-  and never what it returns: ``tiles_per_step``, ``lockstep_tiles``,
-  ``trace_gang``, ``trace_gang_frac``, ``mm_passes`` and ``approx_div``;
-* ``chained_sort``, the result-neutral variant of the ray sort that
-  permutes the whole path state once per segment.
-
-Settings that this package does not implement yet raise
-``NotImplementedError``, and values a kernel does not take raise
-``ValueError`` (see :func:`check_supported`); none falls back to another
-path.
+Values the port does not take raise ``ValueError`` (see
+:func:`check_supported`); none falls back to another path.
 """
 
 from __future__ import annotations
@@ -115,7 +127,6 @@ OMITTED_FIELDS = frozenset(
         "trace_gang_frac",
         "mm_passes",
         "approx_div",
-        "chained_sort",
     }
 )
 # Fields with no counterpart in the JAX RenderSettings (module docstring).
@@ -135,6 +146,8 @@ DEFAULT_DEVIATIONS = {
 }
 # ``trace_sched``: 0 (K1) or the clusters per round of K5
 TRACE_SCHED_VALUES = (0, 1, 2, 4, 8)
+# ``traversal`` (module docstring)
+TRAVERSALS = ("auto", "pallas", "pallas_interpret", "clustered", "threaded")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -197,9 +210,7 @@ class RenderSettings:
     debug_reprojection: bool = False
 
     use_hit_predictor: bool = False
-    # "auto" is the only traversal here: the cluster kernel's entries for
-    # CUDA tensors, their plain torch twins for CPU tensors
-    # (ops/cluster_cuda.py)
+    # one of TRAVERSALS (module docstring)
     traversal: str = "auto"
     # rays per tile of the cluster traces (one CUDA block per tile)
     trace_tile: int = 128
@@ -218,6 +229,7 @@ class RenderSettings:
     # the ray sort of bounce and shadow legs (ops/ray_sort.py)
     sort_bounce_rays: bool = False  # JAX: True (DEFAULT_DEVIATIONS)
     live_slice: bool = True
+    chained_sort: bool = False
     # the per-ray-scheduled sorted traces (module docstring); all off
     multipass_cap: int = 0
     multipass_passes: int = 2
@@ -233,15 +245,15 @@ class RenderSettings:
 
 
 def check_supported(settings: RenderSettings) -> None:
-    """Raise ``NotImplementedError`` for a ``traversal`` other than
-    ``"auto"`` (the threaded and clustered oracle walks are not ported
-    yet), and ``ValueError`` for a ``trace_sched`` that K5 does not take.
-    ``trace_sched`` and ``pipeline_rounds`` with two-level tables raise
-    where the tables are known (ops/cluster_cuda.py ``prepare_tiles``)."""
-    if settings.traversal != "auto":
-        raise NotImplementedError(
-            f"not ported yet: traversal {settings.traversal!r} (only "
-            "'auto')"
+    """Raise ``ValueError`` for a ``traversal`` outside TRAVERSALS and for
+    a ``trace_sched`` that K5 does not take. ``trace_sched`` and
+    ``pipeline_rounds`` with two-level tables raise where the tables are
+    known (ops/cluster_cuda.py ``prepare_tiles``), and ``"pallas"`` where
+    the tensors are (the kernel wrappers)."""
+    if settings.traversal not in TRAVERSALS:
+        raise ValueError(
+            f"traversal must be one of {TRAVERSALS}, got "
+            f"{settings.traversal!r}"
         )
     if settings.trace_sched not in TRACE_SCHED_VALUES:
         raise ValueError(

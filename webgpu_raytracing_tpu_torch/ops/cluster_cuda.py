@@ -54,7 +54,11 @@ all made by one factory
 from the launcher, the twin and the keywords that tell the entries apart)
 launch their kernel entry for CUDA tensors, counting each launch in their
 own ``launches``, and run the plain twin (their ``twin``) for CPU tensors
-only; any other device raises. There is no
+only; any other device raises. Their ``route`` (ROUTES; ``traversal``
+``"pallas"`` and ``"pallas_interpret"``) can instead ask for the kernel
+alone, which raises for tensors that are not on a CUDA device, or for the
+twin on any device. A kernel's rays must lie on the current CUDA device
+(:func:`check_current_device`). There is no
 fallback from one to the other, and what a kernel does not take (two-level
 tables for K5 and K2pl, more boxes than a block orders, tiles of more rays
 than K2n and K3 stage, rounds K5 does not run) raises.
@@ -79,6 +83,10 @@ from .intersect import Hit, safe_inv_dir
 from .strictf import scross, sdot3
 
 _INF = float(F32_MAX)
+# Which of a kernel and its twin a wrapper runs: "auto" by the tensors'
+# device (traversal "auto"), "kernel" the CUDA kernel only ("pallas"),
+# "twin" the plain twin on any device ("pallas_interpret").
+ROUTES = ("auto", "kernel", "twin")
 _F32_MAX_BITS = 0x7F7FFFFF
 # the stop of a tile that walked its whole order: no best t lies above it
 STOP_DRAINED = 0x7FFFFFFF
@@ -955,12 +963,26 @@ def _near_two_level_stats(stats, super_box) -> None:
         stats["table_steps"] = 0
 
 
+def check_current_device(dev: torch.device) -> None:
+    """Raise unless ``dev`` is the current CUDA device: a kernel of this
+    module runs where its rays are, and a caller that renders on several
+    cards works on each under ``torch.cuda.device(dev)``
+    (parallel/shard.py), so rays on another card are a caller's error."""
+    cur = torch.cuda.current_device()
+    if dev.index is not None and dev.index != cur:
+        raise ValueError(
+            f"the rays are on {dev} but the current CUDA device is cuda:"
+            f"{cur}; trace under torch.cuda.device({str(dev)!r})"
+        )
+
+
 def _check_cuda(tensors: dict) -> torch.device:
     """The device of a kernel's tensors, which must all be contiguous, of
-    their dtype and on one CUDA device."""
+    their dtype and on one CUDA device, the current one."""
     dev = next(iter(tensors.values()))[0].device
     if dev.type != "cuda":
         raise ValueError(f"the cluster trace kernel takes CUDA tensors, not {dev}")
+    check_current_device(dev)
     for name, (x, dt) in tensors.items():
         if x.device != dev or x.dtype != dt or not x.is_contiguous():
             raise ValueError(
@@ -1078,11 +1100,9 @@ def _check_walk(r, inv_d, t_max, excl, snear, order, box, face_id, tile,
 
 
 def _run(lib, entry, dev, args) -> None:
-    """Launch ``entry`` on the current stream of ``dev``; raise on a
-    launch error."""
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = entry(*args, stream)
+    """Launch ``entry`` on the current stream of ``dev``, the current
+    device (:func:`_check_cuda`); raise on a launch error."""
+    err = entry(*args, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(
             "cluster trace kernel launch failed: "
@@ -1325,29 +1345,35 @@ def _wrapper(name, twin, launch, doc, **fixed):
     """A kernel's wrapper. It takes the arguments of ``launch`` and of
     ``twin`` (the same names, so a :func:`prepare_tiles` dict fits both)
     less the keywords ``fixed``, which say what the entry is (``any_hit``,
-    ``pipelined``). CUDA tensors launch the kernel and add one to
-    ``wrapper.launches``; CPU tensors run ``wrapper.twin``, the plain
-    version (an any-hit one returns the codes alone); any other device
-    raises."""
+    ``pipelined``). With ``route="auto"`` CUDA tensors launch the kernel
+    and add one to ``wrapper.launches``, CPU tensors run ``wrapper.twin``,
+    the plain version (an any-hit one returns the codes alone), and any
+    other device raises; ``route="kernel"`` launches the kernel or
+    raises; ``route="twin"`` runs the twin on any device (ROUTES)."""
     def plain(*args, **kw):
         out = twin(*args, **fixed, **kw)
         return out[1] if fixed.get("any_hit") else out
 
-    def wrapper(*args, **kw):
+    def wrapper(*args, route: str = "auto", **kw):
         dev = (args[0] if args else next(iter(kw.values()))).device
+        if route not in ROUTES:
+            raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
+        if route == "twin" or (route == "auto" and dev.type == "cpu"):
+            return wrapper.twin(*args, **kw)
         if dev.type == "cuda":
             out = launch(*args, **fixed, **kw)
             wrapper.launches += 1
             return out
-        if dev.type == "cpu":
-            return wrapper.twin(*args, **kw)
-        raise ValueError(f"no cluster trace for device {dev}")
+        raise ValueError(
+            f"no cluster trace kernel for device {dev}"
+            + (" (route 'kernel', traversal 'pallas', runs only the CUDA "
+               "kernels)" if route == "kernel" else ""))
 
     wrapper.__name__ = wrapper.__qualname__ = name
     wrapper.__doc__ = (
         f"{doc} CUDA tensors launch the kernel (counted in "
         f"``{name}.launches``); CPU tensors run the plain twin "
-        f"(``{name}.twin``)."
+        f"(``{name}.twin``); ``route`` as in ROUTES."
     )
     wrapper.launches = 0
     wrapper.twin = plain
@@ -1662,6 +1688,7 @@ def trace_closest_clustered_cuda(
     start_code: Optional[torch.Tensor] = None,
     cap: int = 0,
     return_stop: bool = False,
+    route: str = "auto",
 ):
     """Closest hit per ray → Hit(t, u, v, face), through K3 for two-level
     tables and K1 otherwise. Inactive rays return face -1 and t 0, misses
@@ -1699,7 +1726,9 @@ def trace_closest_clustered_cuda(
     :func:`_tile_stop`): a ray is unfinished iff ``bits(t) > stop``. Only
     K1 can cap. With ``kernel_near``, ``sched_rounds`` or ``pipelined``
     the walk runs uncapped and the stop says so (STOP_DRAINED everywhere),
-    the JAX dispatcher's rule."""
+    the JAX dispatcher's rule.
+
+    ``route`` (ROUTES) picks the kernel or its twin for every launch."""
     r0 = o.shape[0]
     hooked = t_start is not None or start_code is not None
     if (hooked or cap or return_stop) and (
@@ -1727,13 +1756,13 @@ def trace_closest_clustered_cuda(
     )
     fid = tables.clusters.face_id
     if exact_pairs:
-        t1, c1, c2, c3, amb = trace_pairs_args(args)[0](**args)
+        t1, c1, c2, c3, amb = trace_pairs_args(args)[0](**args, route=route)
         faces = tuple(code_to_face(c[:r0], fid) for c in (c1, c2, c3))
         if raw:
             return (t1[:r0], *faces, amb[:r0])
         return adjudicate_compact(o, d, args["t_max"][:r0], t1[:r0], faces,
                                   amb[:r0], tables)
-    best_t, code, *stop = trace_closest_args(args)[0](**args)
+    best_t, code, *stop = trace_closest_args(args)[0](**args, route=route)
     if return_stop:
         stop = (stop[0][:r0] if can_cap else torch.full(
             (r0,), STOP_DRAINED, dtype=torch.int32, device=o.device),)
@@ -1758,6 +1787,7 @@ def trace_any_clustered_cuda(
     kernel_near: bool = False,
     pipelined: bool = False,
     t_start: Optional[torch.Tensor] = None,
+    route: str = "auto",
 ) -> torch.Tensor:
     """Shadow-ray query → (R,) bool, True where some triangle blocks the
     ray with 0 < t < t_max, through K3 for two-level tables and K1
@@ -1766,14 +1796,15 @@ def trace_any_clustered_cuda(
     Inactive rays and NaN origins are unblocked.
     ``prepare_tiles`` (or K2n) feeds t_max into the tile distances, so
     short rays prune boxes there. ``t_start`` as in
-    :func:`trace_closest_clustered_cuda` (single-level tables only)."""
+    :func:`trace_closest_clustered_cuda` (single-level tables only), and
+    ``route``."""
     r0 = o.shape[0]
     args = prepare_tiles(
         o, d, t_max, tables, active, excl_code, tile,
         near="kernel" if kernel_near else "outside", pipelined=pipelined,
         t_start=t_start,
     )
-    return trace_any_args(args)[0](**args)[:r0] >= 0
+    return trace_any_args(args)[0](**args, route=route)[:r0] >= 0
 
 
 def binned_args(o, d, t_max, tables, sched, excl_code=None, start_code=None,
@@ -1809,14 +1840,15 @@ def binned_args(o, d, t_max, tables, sched, excl_code=None, start_code=None,
 
 
 def trace_binned_pass(o, d, t_max, tables, sched, excl_code=None,
-                      start_code=None, tile: int = 128, codes: bool = False):
+                      start_code=None, tile: int = 128, codes: bool = False,
+                      route: str = "auto"):
     """One binned pass (K4; JAX ``trace_binned_pass``) over a sorted,
     padded ray stream (:func:`binned_args`) → (t, face) in the given
     order, or (t, code) with ``codes``; t is the exact best t, t_max on a
-    miss."""
+    miss. ``route`` as in ROUTES."""
     t, code = trace_binned_tiles(
         **binned_args(o, d, t_max, tables, sched, excl_code, start_code,
-                      tile))
+                      tile), route=route)
     if codes:
         return t, code
     return t, code_to_face(code, tables.clusters.face_id)

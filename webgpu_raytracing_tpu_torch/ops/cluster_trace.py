@@ -13,6 +13,18 @@ of those boxes). This module holds what runs outside the trace kernels
 A (:func:`ray_matrix`) and the exact sequential Möller–Trumbore
 evaluation (:func:`exact_face_eval`, :func:`rederive_uv`).
 
+It also holds the clustered oracle (``traversal="clustered"``; the JAX
+package's XLA trace): :func:`trace_closest_clustered` and
+:func:`trace_any_clustered`, plain torch that shares none of the kernels'
+walk. Each round, every tile takes its nearest unprocessed cluster, the
+bilinear form A·B (``torch.matmul``, as the JAX package's ``jnp.dot``
+outside any Pallas kernel) picks each ray's two nearest candidate slots
+(:func:`intersect_cluster_block_top2`), and :func:`exact_face_eval`
+settles them; rounds go on while some tile's nearest unprocessed cluster
+could still beat a ray's best t (any-hit: while a ray without a hit
+could still find one). The matmul must run in full f32: PyTorch's
+default, ``torch.backends.cuda.matmul.allow_tf32 = False``.
+
 The bilinear-form matrix ``mat_b`` gives, for a ray row A = [o | o×d | d
 | 1], det, t_num, u_num and v_num of every slot as A·B. The exact-pairs
 kernels (K2p, K3p) read it for their estimates; K1 and K3 test triangles
@@ -31,7 +43,7 @@ import torch
 
 from ..config import EPSILON, F32_MAX, MIN_DIST
 from .detmath import det_div
-from .intersect import Hit
+from .intersect import Hit, safe_inv_dir
 from .strictf import scross, sdot3
 
 _INF = float(F32_MAX)
@@ -244,3 +256,162 @@ def tile_nears_fused(
                                 torch.full_like(nears, _INF))
         out[t0_:t1_] = torch.amin(nears.view(t1_ - t0_, tile, c), dim=1)
     return out
+
+
+def _bilinear(a, b, best_t):
+    """A·B → (t masked to +inf where no valid hit beats ``best_t``, u_num,
+    v_num, det with 1 where invalid) per slot; a (..., T, 10), b
+    (..., 10, 4S), best_t (..., T)."""
+    s = b.shape[-1] // 4
+    out = torch.matmul(a, b)
+    det = out[..., 0 * s:1 * s]
+    t_num = out[..., 1 * s:2 * s]
+    u_num = out[..., 2 * s:3 * s]
+    v_num = out[..., 3 * s:4 * s]
+    valid = ((det >= EPS2) & (u_num >= 0.0) & (u_num <= det)
+             & (v_num >= 0.0) & (u_num + v_num <= det))
+    # true division, the WGSL's rounding (render.ts:406-408)
+    det_safe = torch.where(valid, det, torch.ones_like(det))
+    t = t_num / det_safe
+    valid = valid & (t > MIN_DIST) & (t < best_t.unsqueeze(-1))
+    return torch.where(valid, t, torch.full_like(t, _INF)), u_num, v_num, det_safe
+
+
+def _pick(x, slot):
+    return torch.gather(x, -1, slot.unsqueeze(-1)).squeeze(-1)
+
+
+def intersect_cluster_block(a, b, best_t):
+    """Dense ray-block × cluster Möller–Trumbore on the bilinear form
+    (JAX ``intersect_cluster_block``): a (..., T, 10), b (..., 10, 4S),
+    best_t (..., T) → (t, u, v, slot) of the best slot per ray; slot -1
+    and t = best_t where none beats best_t."""
+    t_masked, u_num, v_num, det_safe = _bilinear(a, b, best_t)
+    slot = torch.argmin(t_masked, dim=-1)
+    t_best = _pick(t_masked, slot)
+    u_best = _pick(u_num / det_safe, slot)
+    v_best = _pick(v_num / det_safe, slot)
+    hit = t_best < best_t
+    return (torch.where(hit, t_best, best_t), u_best, v_best,
+            torch.where(hit, slot, torch.full_like(slot, -1)))
+
+
+def intersect_cluster_block_top2(a, b, best_t):
+    """The slots of each ray's two nearest bilinear-valid triangles, -1
+    when absent (JAX ``intersect_cluster_block_top2``): candidate
+    selection only; :func:`exact_face_eval` adjudicates them."""
+    t_masked, _, _, _ = _bilinear(a, b, best_t)
+    slot1 = torch.argmin(t_masked, dim=-1)
+    t1 = _pick(t_masked, slot1)
+    iota = torch.arange(t_masked.shape[-1], device=a.device)
+    t_masked2 = torch.where(iota == slot1.unsqueeze(-1),
+                            torch.full_like(t_masked, _INF), t_masked)
+    slot2 = torch.argmin(t_masked2, dim=-1)
+    t2 = _pick(t_masked2, slot2)
+    none = torch.full_like(slot1, -1)
+    return (torch.where(t1 < _INF, slot1, none),
+            torch.where(t2 < _INF, slot2, none))
+
+
+def boxes_near(o, inv_d, boxes, t_max):
+    """Slab test of every ray against every box (JAX ``_boxes_near``):
+    o, inv_d (T, 3), boxes (C, 6), t_max (T,) → (T, C) entry distance
+    clamped at 0, +inf on a miss."""
+    bmin = boxes[None, :, 0:3]
+    bmax = boxes[None, :, 3:6]
+    t0 = (bmin - o[:, None, :]) * inv_d[:, None, :]
+    t1 = (bmax - o[:, None, :]) * inv_d[:, None, :]
+    near = torch.amax(torch.minimum(t0, t1), dim=-1)
+    far = torch.amin(torch.maximum(t0, t1), dim=-1)
+    hit = (near < far) & (near < t_max[:, None]) & (far > MIN_DIST)
+    return torch.where(hit, torch.clamp(near, min=0.0),
+                       torch.full_like(near, _INF))
+
+
+def trace_closest_clustered(o, d, t_max, tables, active=None,
+                            tile: int = 1024, any_hit: bool = False) -> Hit:
+    """Closest hit per ray over coherent tiles of ``tile`` rays (JAX
+    ``trace_closest_clustered``) → Hit; misses and inactive rays keep
+    their t_max (0 for inactive ones) and face -1. With ``any_hit`` a
+    tile stops once every ray of it has some valid hit: the face is then
+    a hit, not necessarily the closest.
+
+    Every round reads from the device whether some tile has work left."""
+    ct = tables.clusters
+    r0 = o.shape[0]
+    dev = o.device
+    if active is None:
+        active = torch.ones((r0,), dtype=torch.bool, device=dev)
+    pad = (-r0) % tile
+    if pad:  # inactive rays to a whole number of tiles
+        o = torch.cat([o, o.new_ones((pad, 3))])
+        d = torch.cat([d, d.new_ones((pad, 3))])
+        t_max = torch.cat([t_max, t_max.new_zeros((pad,))])
+        active = torch.cat([active, active.new_zeros((pad,))])
+    r = o.shape[0]
+    n_tiles = r // tile
+    s = ct.face_id.shape[1]
+    t_max = torch.where(active, t_max, torch.zeros_like(t_max))
+    a_mat = ray_matrix(o, d).reshape(n_tiles, tile, 10)
+    near_tc = tile_nears_fused(o, safe_inv_dir(d), t_max, ct.box, tile)
+    fid_flat = ct.face_id.reshape(-1)
+    rows = torch.arange(n_tiles, device=dev)
+
+    best_t = t_max.to(torch.float32).clone()
+    best_u = torch.zeros((r,), dtype=torch.float32, device=dev)
+    best_v = torch.zeros_like(best_u)
+    best_slot = torch.full((r,), -1, dtype=torch.int64, device=dev)
+    best_cid = torch.zeros((r,), dtype=torch.int64, device=dev)
+
+    def tile_bound():
+        """A tile's bound on useful entry distances: its rays' largest best
+        t (closest hit), or largest t_max among rays with no hit yet."""
+        if any_hit:
+            pending = torch.where(best_slot >= 0, torch.zeros_like(t_max),
+                                  t_max)
+            return pending.view(n_tiles, tile).amax(1)
+        return best_t.view(n_tiles, tile).amax(1)
+
+    def tri_of(cid_r, slot):
+        f = torch.where(slot >= 0, cid_r * s + slot.clamp(min=0),
+                        torch.zeros_like(slot))
+        return tables.tri[fid_flat[f].clamp(min=0).long()]
+
+    while True:
+        bound = tile_bound()
+        if not bool((near_tc.amin(1) < bound).any()):
+            break
+        cid = near_tc.argmin(1)
+        tile_act = near_tc[rows, cid] < bound
+        slot1, slot2 = intersect_cluster_block_top2(
+            a_mat, ct.mat_b[cid], best_t.view(n_tiles, tile))
+        cid_r = cid.repeat_interleave(tile)
+        slot1, slot2 = slot1.reshape(r), slot2.reshape(r)
+        v1, t1, u1, w1 = exact_face_eval(o, d, tri_of(cid_r, slot1),
+                                         slot1 >= 0, best_t)
+        v2, t2, u2, w2 = exact_face_eval(o, d, tri_of(cid_r, slot2),
+                                         slot2 >= 0, best_t)
+        pick2 = v2 & (~v1 | (t2 < t1))
+        improved = (v1 | v2) & tile_act.repeat_interleave(tile)
+        best_t = torch.where(improved, torch.where(pick2, t2, t1), best_t)
+        best_u = torch.where(improved, torch.where(pick2, u2, u1), best_u)
+        best_v = torch.where(improved, torch.where(pick2, w2, w1), best_v)
+        best_slot = torch.where(improved, torch.where(pick2, slot2, slot1),
+                                best_slot)
+        best_cid = torch.where(improved, cid_r, best_cid)
+        # processed, also for tiles with no work: the bound only falls
+        near_tc[rows, cid] = _INF
+
+    face = torch.where(
+        best_slot >= 0, fid_flat[best_cid * s + best_slot.clamp(min=0)],
+        torch.full_like(fid_flat[:1], -1),
+    ).to(torch.int32)
+    return Hit(t=best_t[:r0], u=best_u[:r0], v=best_v[:r0], face=face[:r0])
+
+
+def trace_any_clustered(o, d, t_max, tables, active=None,
+                        tile: int = 1024) -> torch.Tensor:
+    """Shadow-ray query (JAX ``trace_any_clustered``) → (R,) bool, True
+    where some triangle blocks the ray with 0 < t < t_max."""
+    return trace_closest_clustered(o, d, t_max, tables, active, tile,
+                                   any_hit=True).face >= 0

@@ -21,7 +21,16 @@ past the first go through the ray sort (ops/ray_sort.py), a pure
 reordering with identical results; on single-level tables ``binned_sort``,
 ``binned_any_sort`` and ``multipass_cap`` route those legs through the
 per-ray-scheduled traces of that module instead, again with identical
-results.
+results. With ``chained_sort`` as well, the whole path state is permuted
+once per segment instead and one scatter restores pixel order at the end
+(:func:`path_trace`).
+
+``traversal`` picks the backend of every leg, as the JAX dispatch does
+(``_resolve_backend``, ``_trace_closest``, ``_trace_any``): the kernels or
+their twins (``"auto"``, ``"pallas"``, ``"pallas_interpret"``: ROUTES of
+ops/cluster_cuda.py), the clustered oracle (ops/cluster_trace.py) or the
+threaded one (ops/traverse.py), which returns before any sort or
+exact-pairs step.
 """
 
 from __future__ import annotations
@@ -32,13 +41,17 @@ from typing import NamedTuple
 import torch
 
 from ..config import F32_MAX, INV_PI, RenderSettings, ShadingType
-from . import detmath, rng
+from . import detmath, ray_sort, rng, traverse
 from .adjudicate import adjudicate_compact
 from .cluster_cuda import (
     trace_any_clustered_cuda,
     trace_closest_clustered_cuda,
 )
-from .cluster_trace import rederive_uv
+from .cluster_trace import (
+    rederive_uv,
+    trace_any_clustered,
+    trace_closest_clustered,
+)
 from .env_sample import (
     EnvDistribution,
     balance_weight,
@@ -61,10 +74,16 @@ _FLOAT_SCALE = 1.0 / 65536.0
 _INT_SCALE = 256.0
 
 
+# traversal → the kernel wrappers' route (ops/cluster_cuda.py ROUTES)
+_ROUTES = {"auto": "auto", "pallas": "kernel", "pallas_interpret": "twin"}
+
+
 def _kernel_settings(settings) -> dict:
-    """The tile-scheduling settings as the dispatchers take them."""
+    """The tile-scheduling settings and the route as the dispatchers take
+    them."""
     return dict(tile=settings.trace_tile, kernel_near=settings.kernel_near,
-                pipelined=settings.pipeline_rounds)
+                pipelined=settings.pipeline_rounds,
+                route=_ROUTES[settings.traversal])
 
 
 def _per_ray_schedulable(tables) -> bool:
@@ -99,7 +118,20 @@ def trace_closest(o, d, t_max, tables, settings, active=None, excl=None,
     K5), else :func:`.ray_sort.sorted_trace_multipass` with
     ``multipass_cap`` > 0 when the kernel can cap (K1: ``kernel_near``
     False, and no ``trace_sched`` or ``pipeline_rounds``). Otherwise, and
-    always on two-level tables, the plain sorted trace runs."""
+    always on two-level tables, the plain sorted trace runs.
+
+    ``traversal="threaded"`` walks the BVH (ops/traverse.py) with no sort,
+    exclusion or exact-pairs step; ``"clustered"`` runs the clustered
+    oracle, sorted on bounce legs with ``sort_bounce_rays`` (every output
+    unsorted, no live slice) and never exact, as in the JAX package."""
+    if settings.traversal == "threaded":
+        return traverse.trace_closest(o, d, t_max, tables, active)
+    if settings.traversal == "clustered":
+        fn = functools.partial(trace_closest_clustered,
+                               tile=settings.trace_tile)
+        if sort and settings.sort_bounce_rays:
+            return Hit(*sorted_trace(fn, o, d, t_max, tables, active))
+        return fn(o, d, t_max, tables, active)
     exact = settings.exact_pairs and (primary or settings.exact_pairs_bounce)
     kw = dict(sched_rounds=settings.trace_sched, **_kernel_settings(settings))
     if not (sort and settings.sort_bounce_rays):
@@ -130,7 +162,7 @@ def trace_closest(o, d, t_max, tables, settings, active=None, excl=None,
                                   **_kernel_settings(settings))
         if settings.binned_sort:
             t, face = binned_trace(drain, o, d, t_max, tables, active,
-                                   extra=excl)
+                                   extra=excl, route=kw["route"])
             return rederive_uv(o, d, t, face, tables)
         if settings.multipass_cap > 0 and not (
             settings.trace_sched or settings.kernel_near
@@ -161,23 +193,32 @@ def trace_any(o, d, t_max, tables, settings, active=None, excl=None,
     ``live_slice`` segment 1 traces the leading 0.375 of the sorted rays
     and later segments 0.25; the rest is unblocked. With ``binned_sort``
     or ``binned_any_sort``, on single-level tables, a sorted leg takes
-    :func:`.ray_sort.binned_trace_any` instead."""
-    kw = _kernel_settings(settings)
+    :func:`.ray_sort.binned_trace_any` instead. ``traversal`` as in
+    :func:`trace_closest`; the clustered oracle takes no exclusion codes
+    (exact arithmetic rejects the duplicate by t > 0)."""
+    if settings.traversal == "threaded":
+        return traverse.trace_any(o, d, t_max, tables, active)
+    if settings.traversal == "clustered":
+        excl = None
+
+        def fn(o_, d_, tm_, tb_, act_, ex_=None):
+            return trace_any_clustered(o_, d_, tm_, tb_, act_,
+                                       tile=settings.trace_tile)
+    else:
+        kw = _kernel_settings(settings)
+
+        def fn(o_, d_, tm_, tb_, act_, ex_=None):
+            return trace_any_clustered_cuda(o_, d_, tm_, tb_, act_,
+                                            excl_code=ex_, **kw)
+
+        if (sort and settings.sort_bounce_rays
+                and (settings.binned_sort or settings.binned_any_sort)
+                and _per_ray_schedulable(tables)):
+            return binned_trace_any(
+                functools.partial(trace_any_clustered_cuda, **kw), o, d,
+                t_max, tables, active, extra=excl, route=kw["route"])
     if not (sort and settings.sort_bounce_rays):
-        return trace_any_clustered_cuda(
-            o, d, t_max, tables, active, excl_code=excl, **kw
-        )
-
-    def fn(o_, d_, tm_, tb_, act_, ex_=None):
-        return trace_any_clustered_cuda(o_, d_, tm_, tb_, act_,
-                                        excl_code=ex_, **kw)
-
-    if (settings.binned_sort or settings.binned_any_sort) and (
-        _per_ray_schedulable(tables)
-    ):
-        return binned_trace_any(
-            functools.partial(trace_any_clustered_cuda, **kw), o, d, t_max,
-            tables, active, extra=excl)
+        return fn(o, d, t_max, tables, active, excl)
     ls = None
     if settings.live_slice and seg > 0:
         ls = 0.375 if seg == 1 else 0.25
@@ -200,6 +241,17 @@ def offset_ray(p: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     p_int = (p_i + torch.where(p < 0.0, of_i, -of_i)).view(torch.float32)
     p_float = p + _FLOAT_SCALE * n
     return torch.where(torch.abs(p) < _ORIGIN, p_int, p_float)
+
+
+def offset_ray_paper(p: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """The Ray Tracing Gems ch. 6 offset as published, both selects the
+    paper's way round: not the reference's behaviour; kept for tests and
+    as the record of the reference's bug."""
+    of_i = (_INT_SCALE * n).to(torch.int32)
+    p_i = p.contiguous().view(torch.int32)
+    p_int = (p_i + torch.where(p < 0.0, -of_i, of_i)).view(torch.float32)
+    p_float = p + _FLOAT_SCALE * n
+    return torch.where(torch.abs(p) < _ORIGIN, p_float, p_int)
 
 
 def face_point(tri_row, u, v):
@@ -313,7 +365,16 @@ def path_trace(
     ``next_event_estimation`` each vertex also samples the lights; with
     ``env_importance_sampling`` (``env_data`` an :class:`EnvDistribution`)
     each vertex up to ``env_nee_depth`` also samples the environment, and
-    both environment strategies are MIS-combined (balance heuristic)."""
+    both environment strategies are MIS-combined (balance heuristic).
+
+    ``chained_sort`` (with ``sort_bounce_rays``, and a traversal other than
+    ``"threaded"``; JAX ``path_trace``): before every segment past the
+    first the whole per-lane state is permuted into nearest-cluster order
+    (:func:`.ray_sort.nearest_cluster_key` over the live lanes, a stable
+    sort, :func:`.ray_sort.permute_rows`); the traces inside the segment
+    are not sorted again, and one scatter restores pixel order of color
+    and state at the end. Every step is per lane, so the result is the
+    unchained one's bit for bit."""
     env_is = settings.env_importance_sampling
     dist = env_data if env_is else None
     env_img = env_data.img if isinstance(env_data, EnvDistribution) else env_data
@@ -335,6 +396,10 @@ def path_trace(
     pc = tables.clusters.partner_code
     excl = None
 
+    chained = (settings.chained_sort and settings.sort_bounce_rays
+               and settings.traversal != "threaded")
+    orig = None  # the pixel of each lane, once the lanes are permuted
+
     for seg in range(max(settings.bounces_depth - 1, 0)):
         rays = rays + alive.to(torch.float32).sum()
         t_max = (
@@ -342,7 +407,28 @@ def path_trace(
             if seg == 0
             else torch.full((r,), F32_MAX, dtype=torch.float32, device=dev)
         )
-        sort_here = seg > 0
+        if chained and seg > 0:
+            key = ray_sort.nearest_cluster_key(
+                o, d, torch.where(alive, t_max, torch.zeros_like(t_max)),
+                tables.clusters.sort_box)
+            perm = ray_sort.sort_keys(key)[1]
+            if orig is None:
+                orig = torch.arange(r, device=dev)
+            st = dict(o=o, d=d, state=state, color=color,
+                      throughput=throughput, alive=alive, env_dir=env_dir,
+                      env_w=env_w, env_mis_pdf=env_mis_pdf, orig=orig)
+            if env_is:
+                st["prev_bsdf_pdf"] = prev_bsdf_pdf
+            if excl is not None:
+                st["excl"] = excl
+            st = ray_sort.permute_rows(perm, st)
+            o, d, state, color = st["o"], st["d"], st["state"], st["color"]
+            throughput, alive = st["throughput"], st["alive"]
+            env_dir, env_w = st["env_dir"], st["env_w"]
+            env_mis_pdf, orig = st["env_mis_pdf"], st["orig"]
+            prev_bsdf_pdf = st.get("prev_bsdf_pdf", prev_bsdf_pdf)
+            excl = st.get("excl")
+        sort_here = seg > 0 and not chained
         hit = trace_closest(o, d, t_max, tables, settings, alive, excl,
                             primary=seg == 0, sort=sort_here, seg=seg)
         if seg == 0:
@@ -446,6 +532,8 @@ def path_trace(
         )
         env = env * torch.where(env_mis_pdf >= 0.0, w_bsdf, 1.0).unsqueeze(-1)
     color = color + env * env_w
+    if orig is not None:  # back to pixel order: the chain's one scatter
+        color, state = ray_sort.unsort(orig, (color, state))
 
     if first_hit is None:
         first_hit = Hit(

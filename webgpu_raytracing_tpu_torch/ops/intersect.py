@@ -3,7 +3,10 @@
 
 Möller–Trumbore with backface culling (``det < EPSILON²`` rejects), the
 barycentric gates tested against ``det`` before the division, a true f32
-division and a strict ``t`` interval.
+division and a strict ``t`` interval; and the AABB slab test of the
+threaded walk (ops/traverse.py), with the JAX package's fix of the
+reference's ``intervalOverlap`` OR-quirk (``far > MIN_DIST`` is required
+too; ops/interval.py keeps the quirk).
 """
 
 from __future__ import annotations
@@ -12,7 +15,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..config import EPSILON, F32_MAX
+from ..config import EPSILON, F32_MAX, MIN_DIST
 from .strictf import scross, sdot3
 
 
@@ -58,6 +61,19 @@ def ray_triangle(o, d, p0, e1, e2, t_min, t_max) -> TriangleHit:
         u=torch.where(hit, uu, torch.zeros_like(uu)),
         v=torch.where(hit, vv, torch.zeros_like(vv)),
     )
+
+
+def ray_aabb(o, inv_d, bmin, bmax, t_max):
+    """Branchless slab test (render.ts:419-430) of (R, 3) rays against
+    (R, 3) boxes → (hit, near): the box is entered before ``t_max`` and
+    left after ``MIN_DIST``. ``inv_d`` is :func:`safe_inv_dir` of the
+    directions."""
+    t0 = (bmin - o) * inv_d
+    t1 = (bmax - o) * inv_d
+    near = torch.amax(torch.minimum(t0, t1), dim=-1)
+    far = torch.amin(torch.maximum(t0, t1), dim=-1)
+    hit = (near < far) & (near < t_max) & (far > MIN_DIST)
+    return hit, near
 
 
 def safe_inv_dir(d: torch.Tensor) -> torch.Tensor:

@@ -33,7 +33,10 @@ results scattered back through its inverse. Each ``lax.cond`` of the JAX
 package on a count of rays becomes one device-to-host read of that count
 (:func:`live_count`, :func:`survivor_count`).
 
-Not here: ``chained_sort``.
+The chained sort (``chained_sort``, ops/integrator.py) permutes the whole
+path state with :func:`nearest_cluster_key`, :func:`sort_keys` and
+:func:`permute_rows` once per segment, and :func:`unsort` by the composed
+permutation restores pixel order once at the end.
 """
 
 from __future__ import annotations
@@ -274,7 +277,7 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
 
 
 def _mid_pass(o_s, d_s, ex_s, t_in, code_in, cid2, surv1, w1, tables, tile,
-              c):
+              c, route):
     """The second binned pass: the leading ``w1`` lanes of the
     survivors-first order, re-sorted by their second-nearest cluster, run
     K4 once more from the best they carry (``t_in`` as t_max, ``code_in``
@@ -289,12 +292,13 @@ def _mid_pass(o_s, d_s, ex_s, t_in, code_in, cid2, surv1, w1, tables, tile,
     sched2, flag2 = _block_schedules(cid2_ss, w1 // tile, tile, c)
     t2, c2 = trace_binned_pass(
         o_m, d_m, torch.where(sv, t_m, torch.zeros_like(t_m)), tables,
-        sched2, excl_code=ex_m, start_code=c_m, tile=tile, codes=True)
+        sched2, excl_code=ex_m, start_code=c_m, tile=tile, codes=True,
+        route=route)
     return rows, sv, torch.where(sv, t2, t_m), c2, flag2
 
 
 def binned_trace(fn, o, d, t_max, tables, active=None, extra=None,
-                 surv_frac: int = 3, tile: int = 128):
+                 surv_frac: int = 3, tile: int = 128, route: str = "auto"):
     """Per-ray-scheduled sorted trace, closest-hit (JAX ``binned_trace``)
     → (t, face) in the original ray order, equal to the plain sorted
     trace's.
@@ -326,7 +330,7 @@ def binned_trace(fn, o, d, t_max, tables, active=None, extra=None,
 
     ``fn(o, d, t_max, tables, None, excl_code=, t_start=, start_code=)``
     → (t, code) is the single-level closest-hit dispatcher with
-    ``raw="code"``."""
+    ``raw="code"``; ``route`` (cluster_cuda.ROUTES) is K4's."""
     r0 = o.shape[0]
     if active is not None:
         t_max = torch.where(active, t_max, torch.zeros_like(t_max))
@@ -343,7 +347,8 @@ def binned_trace(fn, o, d, t_max, tables, active=None, extra=None,
         perm, (o, d, t_max, k2, k3, extra))
     sched, flag = _block_schedules(cid_s, r // tile, tile, c)
     t1, c1 = trace_binned_pass(o_s, d_s, tm_s, tables, sched,
-                               excl_code=ex_s, tile=tile, codes=True)
+                               excl_code=ex_s, tile=tile, codes=True,
+                               route=route)
 
     live = tm_s > 0.0
     zero = torch.zeros_like(k2_s)
@@ -356,7 +361,7 @@ def binned_trace(fn, o, d, t_max, tables, active=None, extra=None,
     if w1 >= r or survivor_count(surv1) <= w1:
         rows, sv, t2, c2, fl2 = _mid_pass(
             o_s, d_s, ex_s, t1, c1, _cid_of(k2_s, c), surv1, w1, tables,
-            tile, c)
+            tile, c, route)
         t1, c1 = t1.clone(), c1.clone()
         t1[rows] = t2
         c1[rows] = torch.where(sv, c2, c1[rows])
@@ -374,7 +379,8 @@ def binned_trace(fn, o, d, t_max, tables, active=None, extra=None,
 
 
 def binned_trace_any(fn, o, d, t_max, tables, active=None, extra=None,
-                     surv_frac: int = 4, tile: int = 128, mid: bool = False):
+                     surv_frac: int = 4, tile: int = 128, mid: bool = False,
+                     route: str = "auto"):
     """Any-hit :func:`binned_trace` (JAX ``binned_trace_any``) → (R,) bool
     blocked, in the original ray order: exactly the plain sorted any-hit
     trace's set, since "blocked" is existence and any order proves it.
@@ -387,7 +393,8 @@ def binned_trace_any(fn, o, d, t_max, tables, active=None, extra=None,
     survivors, compacted to ``1 / surv_frac`` of the width (else the full
     width), run the any-hit drain ``fn(o, d, t_max, tables, None,
     excl_code=, t_start=)`` → blocked, with ``t_start`` = the truncated
-    entry of the first cluster not proven run (0: none is)."""
+    entry of the first cluster not proven run (0: none is). ``route`` is
+    K4's, as in :func:`binned_trace`."""
     r0 = o.shape[0]
     if active is not None:
         t_max = torch.where(active, t_max, torch.zeros_like(t_max))
@@ -404,7 +411,7 @@ def binned_trace_any(fn, o, d, t_max, tables, active=None, extra=None,
     k3_s = ks_s[2] if mid else k2_s
     sched, flag = _block_schedules(cid_s, r // tile, tile, c)
     hit = trace_binned_pass(o_s, d_s, tm_s, tables, sched, excl_code=ex_s,
-                            tile=tile, codes=True)[1] >= 0
+                            tile=tile, codes=True, route=route)[1] >= 0
 
     live = tm_s > 0.0
     entered1, entered2, entered3 = (
@@ -417,7 +424,7 @@ def binned_trace_any(fn, o, d, t_max, tables, active=None, extra=None,
         if w1 >= r or survivor_count(surv1) <= w1:
             rows, sv, _, c2, fl2 = _mid_pass(
                 o_s, d_s, ex_s, tm_s, None, _cid_of(k2_s, c), surv1, w1,
-                tables, tile, c)
+                tables, tile, c, route)
             hit = hit.clone()
             hit[rows] |= sv & (c2 >= 0)
             flag2[rows] = fl2

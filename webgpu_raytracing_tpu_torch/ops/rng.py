@@ -18,10 +18,11 @@ from typing import Tuple
 
 import torch
 
-from ..config import TWO_PI
+from ..config import PI, TWO_PI
 
 UINT_MAX_F = 4294967295.0  # f32(0xffffffffu) == 2**32
 _MASK = 0xFFFFFFFF
+THIRD = 0.3333333432674408  # f32(1/3), the exponent of sample_insphere
 
 
 def seed_state(seed: int, idx: torch.Tensor) -> torch.Tensor:
@@ -56,6 +57,14 @@ def random_2(state):
     return torch.stack([x, y], dim=-1), state
 
 
+def random_3(state):
+    """vec3 of three draws, x first."""
+    x, state = random_1(state)
+    y, state = random_1(state)
+    z, state = random_1(state)
+    return torch.stack([x, y, z], dim=-1), state
+
+
 def masked_advance(state, new_state, active):
     """Advance the state only where ``active``."""
     return torch.where(active, new_state, state)
@@ -87,6 +96,13 @@ def sample_sphere(t):
     return torch.stack([sin_theta * cphi, u, sin_theta * sphi], dim=-1)
 
 
+def sample_hemisphere(t, n):
+    """rng.ts:111-119 — uniform on the hemisphere around n (WGSL
+    ``faceForward(v, v, -n)``: v where dot(v, n) > 0, else -v)."""
+    v = sample_sphere(t)
+    return torch.where((v * n).sum(-1, keepdim=True) > 0, v, -v)
+
+
 def sample_cosine_weighted_hemisphere(t, n):
     """rng.ts:88-100 — normalize(n + sample_sphere(t)); n is not
     normalized first (reference behaviour)."""
@@ -111,3 +127,42 @@ def sample_intriangle(t):
         [torch.where(flip, 1.0 - u, u), torch.where(flip, 1.0 - v, v)],
         dim=-1,
     )
+
+
+def sample_insphere(t):
+    """rng.ts:121-123 — uniform in the unit ball; t is (..., 3). The cube
+    root is ``pow(|x|, f32(1/3))`` in double, rounded to f32 and given
+    x's sign: within 1 ulp of ``jnp.cbrt`` (XLA's own approximation),
+    which no library function here reproduces bit for bit."""
+    x = t[..., 2]
+    root = torch.pow(torch.abs(x).double(), THIRD).float()
+    return sample_sphere(t[..., :2]) * torch.copysign(root, x).unsqueeze(-1)
+
+
+# 1/pdf of the samplers (rng.ts:133-167)
+def pdf_inv_sphere():
+    return 2.0 * TWO_PI
+
+
+def pdf_inv_hemisphere():
+    return TWO_PI
+
+
+def pdf_inv_circle():
+    return TWO_PI
+
+
+def pdf_inv_incircle():
+    return PI
+
+
+def pdf_inv_insphere():
+    return PI * 4.0 / 3.0
+
+
+def pdf_inv_intriangle():
+    return 0.5
+
+
+def pdf_inv_insquare():
+    return 4.0

@@ -109,6 +109,19 @@ class FrameInputs:
     # (3,) f32 translation column of the previous view
     prev_origin: Optional[torch.Tensor] = None
 
+    @staticmethod
+    def simple(view, seed: int, counter: int, device) -> "FrameInputs":
+        """A static camera's inputs: no jitter, zero frustum and previous
+        origin (JAX ``FrameInputs.simple``)."""
+        return FrameInputs(
+            view=torch.as_tensor(np.asarray(view, np.float32), device=device),
+            seed=int(seed),
+            counter=int(counter),
+            jitter=torch.zeros((2,), dtype=torch.float32, device=device),
+            frustum=torch.zeros((4, 3), dtype=torch.float32, device=device),
+            prev_origin=torch.zeros((3,), dtype=torch.float32, device=device),
+        )
+
 
 def _face_to_object(tables: SceneTables, face: torch.Tensor) -> torch.Tensor:
     """Global face index → model index via the model face offsets."""
