@@ -22,12 +22,12 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
    codes). Any-hit: the NEE shadow set (light samples, t_max = distance
    to the light point) and the env-NEE set (``sample_env`` directions on
    a 1024x2048 equirect of the procedural sky, t_max = F32_MAX, active =
-   hit & facing). Codes must agree on all but 1e-5 of the rays. Both are
+   hit & facing). Codes must agree on every ray. Both are
    timed with CUDA events; the twin also counts the leg's work, which
    gives the kernel's bound (f32 operations over 67 TFLOP/s, bytes over
    3.35 TB/s, the larger).
    K2p vs twin on the primary and first-bounce sets: t1, the three codes
-   and the flag agree on all but 1e-5 of the rays; after
+   and the flag agree on every ray; after
    ``adjudicate_compact`` the faces equal K1's on the same rays (each
    exception printed, with whether it is an exact tie; fail above 1e-5);
    the flag rate; kernel, twin and adjudication timed with CUDA events;
@@ -331,8 +331,9 @@ def _bound(name, work, needs=None):
 def _compare_leg(torch, name, args, card, any_hit=False, ref_code=None,
                  needs=None, wrapper=None, ref_out=None):
     """One leg through the kernel entry that ``args`` is for (its
-    ``variant``) and its twin on the same device tensors: codes must
-    agree; closest-hit t must be bit-equal where they do. The twin counts
+    ``variant``) and its twin on the same device tensors: codes (any-hit:
+    flags too) must agree on every ray; closest-hit t must be bit-equal
+    where they do. The twin counts
     the leg's work, which bounds the kernel, unless ``needs`` names the
     leg whose counts do (:func:`_bound`). ``ref_code``: K1's codes on the
     same rays, which the kernel's must equal. ``ref_out``: (its name, the
@@ -340,9 +341,7 @@ def _compare_leg(torch, name, args, card, any_hit=False, ref_code=None,
     rays), which this kernel's must equal bit for bit, t included, on
     every ray. ``wrapper``: the kernel, where ``args`` is no
     ``prepare_tiles`` dict (K4). A capped leg (``return_stop``) also
-    returns its stop, which must be equal too. The kernels that order
-    their tiles themselves (K2n; K3 with its own super order) must equal
-    the twin, and ``ref_code`` / ``ref_out``, on every ray."""
+    returns its stop, which must be equal too."""
     from webgpu_raytracing_tpu_torch.ops import cluster_cuda as cc
 
     if wrapper is None:
@@ -387,7 +386,6 @@ def _compare_leg(torch, name, args, card, any_hit=False, ref_code=None,
     if needs is None and "kernel_slot_tests" in stats:
         needs = cc.walk_stats(stats, args["face_id"], any_hit)
     bound = _bound(name, work, needs)
-    exact = getattr(args, "variant", None) in ("near", "near_two_level")
     extra = {k: v for k, v in bound.items() if k.startswith("extra_")}
     what = "blocked" if any_hit else "hits"
     print(f"{name}: {n_rays} rays ({live} live), {hits} {what}, code "
@@ -399,10 +397,9 @@ def _compare_leg(torch, name, args, card, any_hit=False, ref_code=None,
           + (f", beyond what the function needs {extra}" if extra else "")
           + f" -> bound {bound['bound_ms']:.4f} ms by {bound['bound_by']} "
           f"({card})", flush=True)
-    if max(mismatch, flag_mismatch) > (0 if exact else
-                                       MISMATCH_LIMIT * n_rays):
-        fail(f"{name}: {mismatch} code mismatches > "
-             f"{0 if exact else MISMATCH_LIMIT:g} of the rays")
+    if max(mismatch, flag_mismatch):
+        fail(f"{name}: {mismatch} code mismatches, {flag_mismatch} flag "
+             "mismatches against the twin")
     if not any_hit and max_abs != 0.0:
         fail(f"{name}: kernel and twin t differ where faces agree")
     vs_k1 = None
@@ -410,7 +407,7 @@ def _compare_leg(torch, name, args, card, any_hit=False, ref_code=None,
         vs_k1 = int((code_k != ref_code).sum())
         print(f"{name}: codes that differ from K1's on the same rays: "
               f"{vs_k1}", flush=True)
-        if vs_k1 > (0 if exact else MISMATCH_LIMIT * n_rays):
+        if vs_k1:
             fail(f"{name}: {vs_k1} codes differ from K1's")
     if ref_out is not None:
         ref_name, ref = ref_out
@@ -432,9 +429,9 @@ def _compare_pairs_leg(torch, name, leg, tables, card, tile, needs=None,
                        **prep_kw):
     """One closest-hit leg through its pairs entry (K3p for two-level
     tables, K2n or K2pl with ``prep_kw``, else K2p) and its twin on the
-    same device tensors: t1, c1, c2, c3 and the flag must agree (with
-    ``prep_kw`` also with K2p's, or K3p's over the order sorted outside,
-    those bit for bit on every ray); then ``adjudicate_compact`` on the
+    same device tensors: t1, c1, c2, c3 and the flag must agree bit for
+    bit on every ray (with ``prep_kw`` also with K2p's, or K3p's over the
+    order sorted outside); then ``adjudicate_compact`` on the
     kernel's candidates, whose faces must equal the K1/K3 route's on the
     same rays (each exception printed, with its exact t for both faces).
     ``needs``: the leg whose counts bound this one (:func:`_bound`)."""
@@ -445,7 +442,6 @@ def _compare_pairs_leg(torch, name, leg, tables, card, tile, needs=None,
     args = cc.prepare_tiles(tables=tables, tile=tile, pairs=True, **leg,
                             **prep_kw)
     wrapper, twin = cc.trace_pairs_args(args)
-    exact = args.variant in ("near", "near_two_level")  # every ray equal
     n_rays = args["a"].shape[0]
     if n_rays != leg["o"].shape[0]:
         fail(f"{name}: the leg is not a whole number of tiles")
@@ -487,7 +483,7 @@ def _compare_pairs_leg(torch, name, leg, tables, card, tile, needs=None,
         del ref, off, ref_args
         print(f"{name}: outputs that differ from {ref_wrapper.__name__}'s "
               f"on the same rays: {vs_k2p}", flush=True)
-        if vs_k2p > MISMATCH_LIMIT * n_rays or (vs_k2p and exact):
+        if vs_k2p:
             fail(f"{name}: {vs_k2p} outputs differ from "
                  f"{ref_wrapper.__name__}'s")
 
@@ -544,9 +540,8 @@ def _compare_pairs_leg(torch, name, leg, tables, card, tile, needs=None,
           f"(with every estimate and magnitude "
           f"{bound['bound_ms_full_test']:.4f} ms); slot test steps {steps} "
           f"({card})", flush=True)
-    if mismatch > (0 if exact else MISMATCH_LIMIT * n_rays):
-        fail(f"{name}: {mismatch} pairs output mismatches > "
-             f"{0 if exact else MISMATCH_LIMIT:g} of the rays")
+    if mismatch:
+        fail(f"{name}: {mismatch} pairs output mismatches against the twin")
     if max_abs != 0.0:
         fail(f"{name}: kernel and twin t1 differ where c1 agrees")
     if bad.numel() > MISMATCH_LIMIT * n_rays:

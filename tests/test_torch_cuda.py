@@ -412,6 +412,79 @@ def test_warp_shared_searches_match_twins_on_card(cuda, which):
     assert found["primary", "pairs"] > 1000
 
 
+# the walks over an order sorted outside whose warps share their slot scans
+# (and K2n's pipelined walk, which shares the staged form): prepare_tiles
+# keywords, searches
+OUTSIDE_WALKS = {
+    "K1": (dict(), ("closest", "any", "pairs")),
+    "K5x1": (dict(sched_rounds=1), ("closest",)),
+    "K5x4": (dict(sched_rounds=4), ("closest",)),
+    "K5x8": (dict(sched_rounds=8), ("closest",)),
+    "K2pl": (dict(pipelined=True), ("closest", "any", "pairs")),
+    "K2n_pipelined": (dict(near="kernel", pipelined=True),
+                      ("closest", "any", "pairs")),
+}
+SEARCH_ARGS = {"closest": cc.trace_closest_args, "any": cc.trace_any_args,
+               "pairs": cc.trace_pairs_args}
+
+
+@pytest.mark.parametrize("walk", sorted(OUTSIDE_WALKS) + ["K1c"])
+def test_outside_walks_share_scans_on_card(cuda, walk):
+    """K1 (closest-hit, any-hit; pairs: K2p), K5 in rounds of 1, 4 and 8,
+    K2pl's three searches and K2n's pipelined walk on the bounce and
+    env-NEE shadow legs of :func:`_warp_search_legs` (slice), where fewer
+    than kCoopSerial lanes of a warp want most clusters and the shared
+    scans run: each against its twin and against K2n on the same rays,
+    bit for bit. ``K1c``: K1 capped at 1 and 4 entries with its stop on
+    the bounce leg, then the survivors drained by K1 with ``t_start`` and
+    the carried ``start_code``: the twin's outputs and stops, and K2n's
+    result once drained."""
+    tables, st, legs = _warp_search_legs(cuda, "slice")
+    tile = st.trace_tile
+
+    def launch(args, select):
+        wrapper, twin = select(args)
+        before = wrapper.launches
+        got = wrapper(**args)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1
+        _assert_same(got, twin(**args))
+        return got
+
+    if walk == "K1c":
+        leg = legs["bounce"]
+        ref = cc.trace_near_closest_tiles(**cc.prepare_tiles(
+            tables=tables, tile=tile, near="kernel", **leg))
+        for cap in (1, 4):
+            t, code, stop = launch(cc.prepare_tiles(
+                tables=tables, tile=tile, cap=cap, return_stop=True, **leg),
+                cc.trace_closest_args)
+            surv = t.view(torch.int32) > stop
+            assert 0 < int(surv.sum())
+            t2, c2 = launch(cc.prepare_tiles(
+                leg["o"], leg["d"], torch.where(surv, t, torch.zeros_like(t)),
+                tables, None, leg["excl_code"], tile,
+                t_start=stop.view(torch.float32), start_code=code),
+                cc.trace_closest_args)
+            _assert_same((torch.where(surv, t2, t),
+                          torch.where(surv, c2, code)), ref)
+        return
+    kw, searches = OUTSIDE_WALKS[walk]
+    for key in ("bounce", "env"):
+        for kind in searches:
+            pairs = kind == "pairs"
+            near = cc.prepare_tiles(tables=tables, tile=tile, pairs=pairs,
+                                    near="kernel", **legs[key])
+            ref = SEARCH_ARGS[kind](near)[0](**near)
+            args = cc.prepare_tiles(tables=tables, tile=tile, pairs=pairs,
+                                    **legs[key], **kw)
+            _assert_same(launch(args, SEARCH_ARGS[kind]), ref)
+            if kind == "any":  # the twin's model: scans shared
+                stats = {}
+                SEARCH_ARGS[kind](args)[1](**args, stats=stats)
+                assert stats["kernel_slot_tests"] > stats["slot_tests"]
+
+
 def test_kernel_near_cluster_cap_on_card(cuda):
     """K2n at its cap of NEAR_MAX_CLUSTERS boxes (the scene's clusters
     and empty ones) equals K1 on the unpadded tables; one box more

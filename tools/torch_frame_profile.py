@@ -2,11 +2,13 @@
 
     python3 tools/torch_frame_profile.py [--frames 2] [--width 1920 --height 1080]
         [--trace-sched J] [--order-outside] [--pipeline-rounds] [--sort]
-        [--binned] [--multipass-cap N] [--config5]
+        [--binned] [--multipass-cap N] [--nee] [--config5]
 
 Renders the main-path slice (``stress_scene(44_556)``, default path
 settings, procedural sky) on the first CUDA device: one warm-up frame,
-then ``--frames`` frames under ``torch.profiler`` with the frame's layers
+``--frames`` frames timed on the host clock alone (the frame's wall time
+without the profiler, which slows a host-bound frame), then ``--frames``
+frames under ``torch.profiler`` with the frame's layers
 marked as named ranges (raygen, trace prep = ray padding and, with the
 order made outside the kernel, tile entry distances + sort; kernel,
 rederive, environment, the ray sort = key, sort, gathers, live
@@ -19,7 +21,9 @@ flags set ``trace_sched``, ``pipeline_rounds`` and
 table; ``--binned`` and ``--multipass-cap`` (both imply ``--sort``) set
 ``binned_sort`` and ``multipass_cap``, whose keys, sorts, gathers, count
 reads and unsorts fall into the ray sort's range and whose K4 launches
-into the kernel's. ``--config5`` renders BASELINE config #5 instead
+into the kernel's. ``--nee`` sets ``next_event_estimation`` (its shadow
+legs' any-hit launches fall into the kernel's range). ``--config5``
+renders BASELINE config #5 instead
 (``stress_scene(1_000_000)``, 3840x2160 in 8 slabs, two-level tables).
 Prints the
 GPU span of each layer, the kernels' busy share of the frame's GPU span,
@@ -74,6 +78,7 @@ def main() -> int:
     ap.add_argument("--sort", action="store_true")
     ap.add_argument("--binned", action="store_true")
     ap.add_argument("--multipass-cap", type=int, default=0)
+    ap.add_argument("--nee", action="store_true")
     a = ap.parse_args()
     a.sort = a.sort or a.binned or a.multipass_cap > 0
 
@@ -114,11 +119,17 @@ def main() -> int:
                         kernel_near=not a.order_outside,
                         pipeline_rounds=a.pipeline_rounds,
                         sort_bounce_rays=a.sort, live_slice=True,
-                        binned_sort=a.binned, multipass_cap=a.multipass_cap)
+                        binned_sort=a.binned, multipass_cap=a.multipass_cap,
+                        next_event_estimation=a.nee)
     r = Renderer(stress_scene(1_000_000 if a.config5 else 44_556), st,
                  base_seed=a.seed, device="cuda")
     r.step()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(a.frames):
+        r.step()
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) / a.frames * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(a.frames):
@@ -151,6 +162,8 @@ def main() -> int:
     busy_ms = sum(kernels.values()) / 1e3 / a.frames
     frame_ms = wall / a.frames * 1e3
     print(f"card: {card}")
+    print(f"{a.frames} frames without the profiler: {plain_ms:.1f} ms/frame "
+          "wall")
     print(f"{a.frames} frames of {a.width}x{a.height}: {frame_ms:.1f} ms/frame "
           f"wall, GPU span {layer_ms['frame']:.1f} ms/frame, kernels busy "
           f"{busy_ms:.1f} ms/frame (idle share "
@@ -170,7 +183,8 @@ def main() -> int:
         "kernel_near": not a.order_outside, "config5": a.config5,
         "pipeline_rounds": a.pipeline_rounds,
         "sort": a.sort, "binned": a.binned,
-        "multipass_cap": a.multipass_cap, "frame_ms": frame_ms,
+        "multipass_cap": a.multipass_cap, "nee": a.nee,
+        "frame_ms_unprofiled": plain_ms, "frame_ms": frame_ms,
         "gpu_span_ms": layer_ms["frame"], "gpu_busy_ms": busy_ms,
         "layers_ms": {k: layer_ms[k] for k in LAYERS}, "other_ms": rest,
         "rays_per_frame": r.last_rays,

@@ -44,12 +44,13 @@
 // .trace_sched): closest-hit, not pairs, over the order sorted outside, in
 // rounds of jblk = 1, 2, 4 or 8 clusters with ONE look at the bound per
 // round. The block copies the round's triangle rows into shared memory and
-// every thread tests them from there: what K1 reads per cluster through L2
-// broadcasts, K5 reads per round from shared memory, with jblk times fewer
-// barriers than a round per cluster would need. A round runs past the bound
-// on purpose; its extra candidates lose the (t, code) merge. A round that
-// would run past the end of the order is cut short (the TPU kernel clamps
-// and re-tests the last cluster, :912-915, to the same effect).
+// the warps test them from there, sharing their slot scans as K1 does: what
+// K1 reads per cluster through L2, K5 reads per round from shared memory,
+// with jblk times fewer barriers than a round per cluster would need. A
+// round runs past the bound on purpose; its extra candidates lose the (t,
+// code) merge. A round that would run past the end of the order is cut
+// short (the TPU kernel clamps and re-tests the last cluster, :912-915, to
+// the same effect).
 //
 // K2n (`wrt_trace_near_{closest,any,pairs}`, `trace_near_kernel`) replaces
 // `_kernel_one_tile` with `in_near=True` (:469-490; the dispatcher's
@@ -83,8 +84,12 @@
 // (s0, s1; -1 = skip) and every thread tests s0's slots, then s1's on top of
 // the best it carries, by K1's own gate and slot test (`walk_plain` over a
 // two-entry order with no entry distances, so the walk never stops early).
-// No loop over a shortlist, no bound from the tile: the rays that need more
-// than these two clusters are the caller's survivors (ops/ray_sort.py).
+// K4 alone keeps each thread on its own (`walk_plain`): its rays are sorted
+// by nearest cluster, so the lanes of a warp want the same one or two
+// clusters, and the serial scan, every load a broadcast, is the one a
+// shared scan would pick anyway (kCoopSerial). No loop over a shortlist, no
+// bound from the tile: the rays that need more than these two clusters are
+// the caller's survivors (ops/ray_sort.py).
 // What is not carried over from the TPU kernel: its blocks_per_step grid
 // folding, the bf16 split of the matmul, and the packed (t | slot) key that
 // rides its output refs between the two rounds. A K4 leg reads each ray once
@@ -104,18 +109,22 @@
 // (t_max, -1): a later pass that carries an earlier pass's best (t, code) in
 // keeps K1's tie rule, the lower code at equal t.
 //
-// One slab test serves every entry point, and the walks (each thread on its
-// own from the tables; the block in staged rounds; the two-level one) are
-// templated on the search (`Exact<kAnyHit>` or `Pairs`) and, single-level,
-// on the source of the order, so the walks and the arithmetic are written
-// once. The walks of K2n and K3 keep a warp in step over the order and let
-// its lanes share their slot scans (`coop_test`), for all three searches.
-// Within one cluster no search depends on the order of its slot tests: the
-// closest-hit result is a (t, code) minimum; the any-hit ray stops at the
-// valid slot of the lowest code (a slot's validity does not change while
-// its cluster is scanned); the pairs' carried candidates are a top two and
-// a minimum of a set of distinct (t, code) pairs. So the results stay the
-// sequential scan's. What does depend on order is which clusters a ray
+// One slab test serves every entry point, and the walks (over the tables;
+// in the block's staged rounds; each thread on its own for K4; the
+// two-level one) are templated on the search (`Exact<kAnyHit>` or `Pairs`)
+// and, single-level, on the source of the order, so the walks and the
+// arithmetic are written once. Every walk but K4's keeps a warp in step
+// over the order and lets its lanes share their slot scans (`coop_test`),
+// for all three searches: K1, K2p and K2n (`walk_coop`) and K3 / K3p
+// (`walk_two_level`) over the tables; K5, K2pl and K2n's pipelined walk
+// (`walk_staged`) over the round's rows in shared memory, where a lane's
+// slots lie in distinct banks (described there). Within one cluster no
+// search depends on the order of its slot tests: the closest-hit result is
+// a (t, code) minimum; the any-hit ray stops at the valid slot of the
+// lowest code (a slot's validity does not change while its cluster is
+// scanned); the pairs' carried candidates are a top two and a minimum of
+// a set of distinct (t, code) pairs. So the results stay the sequential
+// scan's. What does depend on order is which clusters a ray
 // tests, and the warp in step keeps that sequence per lane exactly.
 //
 // What is NOT carried over: the TPU kernels evaluate Möller–Trumbore as a
@@ -142,8 +151,9 @@
 // 19 nonzero entries per slot (K2p/K3p: 76 B per face, 3.4 MB and 76 MB).
 // K1 keeps the reads shared: all threads of a block walk the same per-tile
 // cluster order (sorted outside the kernel, as `_kernel_sched` does), so at
-// a given step every lane that tests a cluster loads the same row and a
-// warp's load is one broadcast transaction. K2n and K3 are bound by
+// a given step the lanes that test a cluster load the same row (the serial
+// scan: one broadcast transaction) or the rows of neighbouring slots of it
+// (a shared scan). K2n and K3 are bound by
 // instruction count: without FMA (--fmad=false) a ray-box pair of the
 // first half is about 25
 // instructions (12 subtracts and multiplies, 4 NaN-propagating min / max, 3
@@ -165,15 +175,22 @@
 // its magnitudes, and a slot that cannot enter the carried pairs needs no
 // robust test.
 //
-// Occupancy of the redesigned kernels (`__launch_bounds__`, blocks of 128
-// threads; nvcc -Xptxas -v, sm_90a, tools/torch_sass.py): K2n 56 registers
-// any-hit, 64 closest-hit (the shared scan's second ray) and pairs (548
-// bytes spilled), and 24 KB of shared memory at 643 clusters, so 9 blocks
-// an SM (any-hit) or 8, by registers (at kMaxNearClusters 48 KB: 4, by
-// shared memory); K3 56 registers (pairs
-// 64) and 8.9 KB static (pairs over the outside order 21 KB: the rays'
-// stage), + 8 KB dynamic with its own super order at 227 supers (pairs 14
-// KB), so 9 blocks an SM (pairs 8), by registers.
+// Occupancy (blocks of 128 threads; nvcc -Xptxas -v, sm_90a,
+// tools/torch_sass.py): K2n 56 registers any-hit, 64 closest-hit (the
+// shared scan's second ray) and pairs (772 bytes spilled; 548 before its
+// pipelined walk shared its scans), and 24 KB of shared memory at 643
+// clusters, so 9 blocks an SM (any-hit) or 8, by registers (at
+// kMaxNearClusters 48 KB: 4, by shared memory); K2n's pipelined walk, in
+// the kernel without a minimum, 64 (pairs 116, no spill); K3 56 registers
+// (pairs 64) and 8.9 KB static (pairs over the outside order 21 KB: the
+// rays' stage), + 8 KB dynamic with its own super order at 227 supers
+// (pairs 14 KB), so 9 blocks an SM (pairs 8), by registers. K1 56
+// registers (before its shared scans 40), any-hit 48 (39), K2p 64 with 76
+// bytes spilled (71) and 12 KB of dynamic shared memory (the rays' stage),
+// so 9, 10 and 8 blocks an SM; K5 and K2pl closest-hit 63 (56), any-hit 56
+// (48), pairs 96 (92) with 12 KB beside the rounds' buffers (5 KB a
+// cluster, 10 KB for pairs, two of them when pipelined), so 8, 9 and 5
+// blocks, by registers.
 //
 // Contract of K1 and K3 (matches the plain twins `_trace_closest_torch` and
 // `_walk_two_level_torch` in ops/cluster_cuda.py bit for bit; build with
@@ -254,12 +271,13 @@ constexpr int kSuperRows = 2;
 constexpr int kOctWords = 16 + 8 * (kMaxTile / 32);  // octant starts, counts
 constexpr size_t kMaxSharedBytes = 232448;  // a block's opt-in limit, sm_90
 constexpr unsigned kF32MaxBits = 0x7f7fffffu;
-// K2n and K3: the blocks of kMaxTile threads an SM must hold at once
-// (`Search::kMinBlocks`, the kernels' __launch_bounds__), i.e. registers a
-// thread: any-hit 9 (56), pairs 8 (64); closest-hit sets none (0: the
-// compiler's choice, 64 in K2n and 56 in K3). Left to the compiler, pairs
-// take about 90 (5 blocks): bounce legs 8-9 % faster, primary legs 7-10 %
-// slower; any-hit 64: within 4 % either way (PERF.md §6).
+// K2n, K3, K1 and K2p: the blocks of kMaxTile threads an SM must hold at
+// once (`Search::kMinBlocks`, the kernels' __launch_bounds__; which staged
+// kernels take it is said where they stand), i.e. registers a thread:
+// any-hit 9 (56), pairs 8 (64); closest-hit sets none (0: the compiler's
+// choice, 64 in K2n and 56 in K3 and K1). Left to the compiler, K2n's
+// pairs take about 90 (5 blocks): bounce legs 8-9 % faster, primary legs
+// 7-10 % slower; any-hit 64: within 4 % either way (PERF.md §6).
 constexpr int kMinBlocksAny = 9;
 constexpr int kMinBlocksPairs = 8;
 constexpr unsigned kBoundUlps = 1u << 9;      // (cluster_pallas.py:566)
@@ -353,6 +371,14 @@ struct ExactIn {
   int* code_out;
 };
 
+// A cluster as a slot scan reads it: its face ids and its rows. From the
+// tables (`table`: triangle rows by face id, or the cluster's block of
+// mat_b), or from a round staged in shared memory (`stage`, rows by slot).
+struct Slots {
+  const int* fids;
+  const float* rows;
+};
+
 // The exact search of K1 and K3 (contracts above). Closest-hit: the best
 // (t, code). Any-hit: done at the first valid slot with t < t_max.
 template <bool kAnyHit>
@@ -384,16 +410,23 @@ struct Exact {
 
   static constexpr int kRowWords = 9;  // staged words per slot: a tri row
   static constexpr int kMinBlocks = kAnyHit ? kMinBlocksAny : 0;
+  static constexpr int kMinBlocksStaged = kMinBlocks;  // K5, K2pl
 
-  // The search of K2n's and K3's walks (made by `coop`): this one, its ray
-  // sent to the warp by shuffle where the warp shares a slot scan; it
-  // stages nothing (kRayVecs float4 a ray).
+  // The search of the walks with the warp in step (made by `coop`): this
+  // one, its ray sent to the warp by shuffle where the warp shares a slot
+  // scan; it stages nothing (kRayVecs float4 a ray).
   static constexpr int kRayVecs = 0;
   __device__ __forceinline__ static Exact coop(const In& in, const Walk& w,
                                                long long ray, float4*) {
     return Exact(in, w, ray);
   }
   __device__ __forceinline__ const Ray& ray() const { return r; }
+
+  // cluster `cid` in the tables: face ids, triangle rows by face id
+  __device__ __forceinline__ static Slots table(int cid, const In& in,
+                                                const Walk& w) {
+    return Slots{w.face_id + (long long)cid * w.slots, in.tri};
+  }
 
   // The occupied slots of a cluster, in slot order: ids `fids`, triangle
   // rows `rows` indexed by face id (the table) or, staged, by slot. Returns
@@ -442,16 +475,10 @@ struct Exact {
     return false;
   }
 
-  // cluster `cid` from the tables
+  // cluster `cid` from the tables, by this thread alone (K4's walk)
   __device__ __forceinline__ bool test(int cid, const In& in, const Walk& w) {
-    return scan<false>(cid, w.face_id + (long long)cid * w.slots, in.tri, w);
-  }
-
-  // cluster `cid` from a staged copy (stage)
-  __device__ __forceinline__ bool test_staged(int cid, const int* fids,
-                                              const float* rows, const In&,
-                                              const Walk& w) {
-    return scan<true>(cid, fids, rows, w);
+    const Slots c = table(cid, in, w);
+    return scan<false>(cid, c.fids, c.rows, w);
   }
 
   // The block copies cluster `cid` into shared memory: its face ids and,
@@ -670,21 +697,11 @@ __device__ __forceinline__ void pairs_scan(const float (&a)[10], int ex,
 
 struct PairsStaged;
 
-// The exact-pairs search of K2p and K3p (pairs contract above).
+// The exact-pairs search of K2p, K3p and K2n (pairs contract above), as
+// the kernels name it; every walk runs it in the form `coop` makes,
+// PairsStaged.
 struct Pairs {
   using In = PairsIn;
-  Ray r;
-  float av[10];  // the ray's row of A
-  int ex;
-  PairsBest st;
-
-  __device__ Pairs(const In& in, const Walk& w, long long ray)
-      : ex(w.excl[ray]), st(w.t_max[ray]) {
-#pragma unroll
-    for (int k = 0; k < 10; ++k) av[k] = in.a[10 * ray + k];
-    r = Ray{av[0], av[1], av[2], av[6], av[7], av[8],
-            w.inv_d[3 * ray], w.inv_d[3 * ray + 1], w.inv_d[3 * ray + 2]};
-  }
 
   __device__ __forceinline__ static float3 origin(const In& in,
                                                    long long ray) {
@@ -692,38 +709,17 @@ struct Pairs {
                        in.a[10 * ray + 2]);
   }
 
-  // stop and skip bound: t3 + 2^9 ulps, capped at F32_MAX
-  __device__ __forceinline__ float bound() const {
-    return __uint_as_float(
-        min(__float_as_uint(st.t3) + kBoundUlps, kF32MaxBits));
-  }
-  __device__ __forceinline__ const Ray& ray() const { return r; }
-
   static constexpr int kRowWords = 19;  // staged words per slot: B's terms
   static constexpr int kMinBlocks = kMinBlocksPairs;
-
-  // the search of K2n's and K3's walks: PairsStaged
-  static constexpr int kRayVecs = 6;
+  static constexpr int kMinBlocksStaged = 0;  // K2pl: the compiler's choice
+  static constexpr int kRayVecs = 6;  // the ray's stage, float4 (PairsStaged)
   __device__ __forceinline__ static PairsStaged coop(const In& in,
                                                      const Walk& w,
                                                      long long ray,
                                                      float4* stage);
 
-  __device__ __forceinline__ bool test(int cid, const In& in, const Walk& w) {
-    pairs_scan<false>(av, ex, st, cid, w.face_id + (long long)cid * w.slots,
-                      in.mat_b + (long long)cid * 10 * 4 * w.slots, in, w);
-    return false;
-  }
-
-  __device__ __forceinline__ bool test_staged(int cid, const int* fids,
-                                              const float* rows, const In& in,
-                                              const Walk& w) {
-    pairs_scan<true>(av, ex, st, cid, fids, rows, in, w);
-    return false;
-  }
-
   // The block copies cluster `cid` into shared memory: its face ids and the
-  // 19 structurally nonzero rows of its block of mat_b.
+  // 19 structurally nonzero rows of its block of mat_b, term by term.
   __device__ __forceinline__ static void stage(int cid, int* fids,
                                                float* rows, const In& in,
                                                const Walk& w, bool async) {
@@ -739,21 +735,17 @@ struct Pairs {
               bm + pairs_row(k) * n4 + pairs_blk(k) * w.slots + s, async);
     }
   }
-
-  __device__ __forceinline__ void store(const In& in, long long ray) const {
-    st.store(in, ray);
-  }
 };
 
-// The pairs search of K2n's and K3's walks: the ray lives in the tile's
-// stage in shared memory, Pairs::kRayVecs float4 a ray, and not in
-// registers: [a0..a3] [a4..a7] [a8, a9, t_max, exclusion
-// code] [t1, c1, t2, c2] [t3, c3, -, -] [inv_d, -]. Every lane of a warp
-// reads any lane's row of A from there (`coop_test`), and a lane's
-// registers hold only the scan it runs. With the pairs held in registers
-// through the walk, as `Pairs` holds them (only the rows staged), K2n spilled
-// 816 bytes at 64 registers (548 this way), and its primary pairs leg took
-// 2.386 ms against 2.289 (tools/torch_near_legs.py, PERF.md §6).
+// The pairs search of every walk: the ray lives in the tile's stage in
+// shared memory, Pairs::kRayVecs float4 a ray, and not in registers:
+// [a0..a3] [a4..a7] [a8, a9, t_max, exclusion code] [t1, c1, t2, c2] [t3,
+// c3, -, -] [inv_d, -]. Every lane of a warp reads any lane's row of A from
+// there (`coop_test`), and a lane's registers hold only the scan it runs.
+// With the pairs held in registers through the walk (only the rows staged),
+// K2n spilled 816 bytes at 64 registers (548 this way), and its primary
+// pairs leg took 2.386 ms against 2.289 (tools/torch_near_legs.py, PERF.md
+// §6).
 struct PairsStaged {
   using In = PairsIn;
   float4* p;  // this ray's stage
@@ -802,23 +794,19 @@ struct PairsStaged {
     best().store(in, ray);
   }
 
-  // K2n's pipelined walk (`walk_staged`): a cluster staged by the block
+  // cluster `cid` in the tables: face ids, its block of mat_b
+  __device__ __forceinline__ static Slots table(int cid, const In& in,
+                                                const Walk& w) {
+    return Slots{w.face_id + (long long)cid * w.slots,
+                 in.mat_b + (long long)cid * 10 * 4 * w.slots};
+  }
+
+  // the staged walk (`walk_staged`): a cluster staged by the block
   static constexpr int kRowWords = Pairs::kRowWords;
   __device__ __forceinline__ static void stage(int cid, int* fids,
                                                float* rows, const In& in,
                                                const Walk& w, bool async) {
     Pairs::stage(cid, fids, rows, in, w, async);
-  }
-  __device__ __forceinline__ bool test_staged(int cid, const int* fids,
-                                              const float* rows, const In& in,
-                                              const Walk& w) const {
-    float a[10];
-    int ex;
-    row(p, a, ex);
-    PairsBest st = best();
-    pairs_scan<true>(a, ex, st, cid, fids, rows, in, w);
-    keep(st);
-    return false;
   }
 };
 
@@ -870,8 +858,7 @@ struct SchedOrder {
   __device__ __forceinline__ int cid(int k) const { return k == 0 ? c0 : c1; }
 };
 
-// The walk of K1, K2p and K4 (and of K2pl's and K5's rounds): each thread on
-// its own, clusters read from the tables.
+// The walk of K4: each thread on its own, clusters read from the tables.
 template <class Search, class Order>
 __device__ __forceinline__ void walk_plain(Search& s, const Order& ord,
                                            const typename Search::In& in,
@@ -889,11 +876,12 @@ __device__ __forceinline__ void walk_plain(Search& s, const Order& ord,
   }
 }
 
-// Slot scans shared by a warp (K2n's and K3's walks), one `coop_test` per
-// search. A thread that scans a cluster on its own runs up to `slots` slot
-// tests in sequence while the lanes of its warp whose rays skip that
-// cluster wait for it: on a bounce leg, where a tile's rays go apart, most
-// of a warp's instruction slots are such waits. Here the lanes that `want`
+// Slot scans shared by a warp (every walk but K4's), one `coop_test` per
+// search, over a cluster in the tables or staged in shared memory. A
+// thread that scans a cluster on its own runs up to `slots` slot tests in
+// sequence while the lanes of its warp whose rays skip that cluster wait
+// for it: on a bounce leg, where a tile's rays go apart, most of a warp's
+// instruction slots are such waits. Here the lanes that `want`
 // cluster `cid` (they passed the bound and their own slab test) are taken
 // one at a time: the lane's ray goes to the whole warp, every lane tests the
 // slots lane, lane + 32, ... (face ids and rows read side by side), and the
@@ -931,16 +919,17 @@ constexpr int kCoopSerial = 24;
 constexpr int kCoopSerialPairs = 12;
 constexpr unsigned kFull = 0xffffffffu;
 
+// `cl`: the cluster from the tables or (kStaged) from a staged round
+template <bool kStaged>
 __device__ __forceinline__ bool coop_test(Exact<false>& s, bool want, int cid,
-                                          const ExactIn& in, const Walk& w,
-                                          const float4*) {
+                                          const Slots& cl, const ExactIn&,
+                                          const Walk& w, const float4*) {
   unsigned mask = __ballot_sync(kFull, want);
   if (__popc(mask) >= kCoopSerial) {
-    if (want) s.test(cid, in, w);
+    if (want) s.scan<kStaged>(cid, cl.fids, cl.rows, w);
     return false;
   }
   const int lane = threadIdx.x & 31;
-  const int* fids = w.face_id + (long long)cid * w.slots;
   while (mask) {
     const int src = __ffs(mask) - 1;
     mask &= mask - 1;
@@ -948,7 +937,7 @@ __device__ __forceinline__ bool coop_test(Exact<false>& s, bool want, int cid,
     Exact<false> c(Ray{from(s.r.ox), from(s.r.oy), from(s.r.oz), from(s.r.dx),
                        from(s.r.dy), from(s.r.dz), 0.0f, 0.0f, 0.0f},
                    from(s.ex), from(s.best), from(s.best_code));
-    c.scan<false, 32>(cid, fids, in.tri, w, lane);
+    c.scan<kStaged, 32>(cid, cl.fids, cl.rows, w, lane);
     float best = c.best;
     int best_code = c.best_code;
 #pragma unroll
@@ -968,13 +957,14 @@ __device__ __forceinline__ bool coop_test(Exact<false>& s, bool want, int cid,
   return false;
 }
 
+template <bool kStaged>
 __device__ __forceinline__ bool coop_test(Exact<true>& s, bool want, int cid,
-                                          const ExactIn& in, const Walk& w,
-                                          const float4*) {
+                                          const Slots& cl, const ExactIn&,
+                                          const Walk& w, const float4*) {
   unsigned mask = __ballot_sync(kFull, want);
-  if (__popc(mask) >= kCoopSerial) return want && s.test(cid, in, w);
+  if (__popc(mask) >= kCoopSerial)
+    return want && s.scan<kStaged>(cid, cl.fids, cl.rows, w);
   const int lane = threadIdx.x & 31;
-  const int* fids = w.face_id + (long long)cid * w.slots;
   bool done = false;
   while (mask) {
     const int src = __ffs(mask) - 1;
@@ -983,7 +973,7 @@ __device__ __forceinline__ bool coop_test(Exact<true>& s, bool want, int cid,
     Exact<true> c(Ray{from(s.r.ox), from(s.r.oy), from(s.r.oz), from(s.r.dx),
                       from(s.r.dy), from(s.r.dz), 0.0f, 0.0f, 0.0f},
                   from(s.ex), from(s.best), -1);
-    c.scan<false, 32>(cid, fids, in.tri, w, lane);
+    c.scan<kStaged, 32>(cid, cl.fids, cl.rows, w, lane);
     const unsigned code = __reduce_min_sync(kFull, (unsigned)c.best_code);
     if (lane == src && code != ~0u) {
       s.best_code = (int)code;
@@ -994,12 +984,12 @@ __device__ __forceinline__ bool coop_test(Exact<true>& s, bool want, int cid,
 }
 
 // `stage`: the tile's staged rays (PairsStaged)
+template <bool kStaged>
 __device__ __forceinline__ bool coop_test(PairsStaged& s, bool want, int cid,
-                                          const PairsIn& in, const Walk& w,
+                                          const Slots& cl, const PairsIn& in,
+                                          const Walk& w,
                                           const float4* stage) {
   unsigned mask = __ballot_sync(kFull, want);
-  const int* fids = w.face_id + (long long)cid * w.slots;
-  const float* rows = in.mat_b + (long long)cid * 10 * 4 * w.slots;
   const int lane = threadIdx.x & 31;
   float a[10];
   int ex;
@@ -1007,7 +997,7 @@ __device__ __forceinline__ bool coop_test(PairsStaged& s, bool want, int cid,
     if (want) {
       PairsBest st = s.best();
       PairsStaged::row(s.p, a, ex);
-      pairs_scan<false>(a, ex, st, cid, fids, rows, in, w);
+      pairs_scan<kStaged>(a, ex, st, cid, cl.fids, cl.rows, in, w);
       s.keep(st);
     }
     return false;
@@ -1018,7 +1008,8 @@ __device__ __forceinline__ bool coop_test(PairsStaged& s, bool want, int cid,
     const float4* q = stage + Pairs::kRayVecs * (threadIdx.x - lane + src);
     PairsStaged::row(q, a, ex);
     PairsBest lane_best(q[2].z);  // from the sentinel (t_max, -1)
-    pairs_scan<false, 32>(a, ex, lane_best, cid, fids, rows, in, w, lane);
+    pairs_scan<kStaged, 32>(a, ex, lane_best, cid, cl.fids, cl.rows, in, w,
+                            lane);
     PairsBest& b = lane_best;
     if (__any_sync(kFull, b.c1 >= 0)) {
 #pragma unroll
@@ -1039,9 +1030,10 @@ __device__ __forceinline__ bool coop_test(PairsStaged& s, bool want, int cid,
   return false;
 }
 
-// The walk of K2n (and, over a super's children, of K3): `walk_plain` with
-// the warp in step over the order, so that its lanes can share their slot
-// scans (`coop_test`). A thread of `walk_plain` leaves at the first entry
+// The walk of K1, K2p and K2n (and, over a super's children, of K3):
+// `walk_plain` with the warp in step over the order, so that its lanes can
+// share their slot scans (`coop_test`) over the tables (`Search::table`). A
+// thread of `walk_plain` leaves at the first entry
 // not below its bound (any-hit: also at its hit); the entries ascend and the
 // bound only falls, so testing that rule entry by entry leaves out the same
 // clusters, and the warp leaves when no lane is left. `s` is the search's
@@ -1061,7 +1053,9 @@ __device__ __forceinline__ void walk_coop(Search& s, const Order& ord,
       slab(w.box + 6 * cid, s.ray(), near_t, far_t);
       want = (near_t < far_t) && (far_t > 0.0f) && (near_t < s.bound());
     }
-    if (coop_test(s, want, cid, in, w, stage)) done = true;
+    if (coop_test<false>(s, want, cid, Search::table(cid, in, w), in, w,
+                         stage))
+      done = true;
   }
 }
 
@@ -1088,17 +1082,31 @@ __device__ __forceinline__ void walk_coop(Search& s, const Order& ord,
 // dropped, not merged. (The pairs search could not merge it: a candidate
 // beyond the bound can still enter the second carried slot.)
 //
+// Within a round the warp goes over the entries in step, as `walk_coop`
+// does, and shares its slot scans over the staged rows (`coop_test`): a
+// lane keeps its own sequence of entries (it leaves at the first entry not
+// below the bound it tests by, and at its any-hit hit), and the warp leaves
+// the round when no lane is left. A lane reads slots lane, lane + 32, ...
+// of the round's buffer: a triangle row is 9 words and a face id 1, so 32
+// consecutive slots lie in 32 different banks (9 is odd); the pairs rows
+// are staged term by term, so the lanes read 32 consecutive words. No
+// padding is needed. The serial scan (many lanes want the cluster) reads
+// one address a step for the whole warp: a broadcast.
+//
 // An any-hit thread that has its hit neither votes nor tests again. Every
 // barrier is reached by the whole block: the loop's exit is the
-// block-uniform vote, and a finished thread stays in the loop.
+// block-uniform vote, and a finished thread stays in the loop. `stage`: the
+// search's staged rays, written before the call (the first vote is the
+// barrier before they are read).
 template <class Search, class Order>
 __device__ __forceinline__ void walk_staged(Search& s, const Order& ord,
                                             const typename Search::In& in,
                                             const Walk& w, int jblk,
-                                            bool pipelined, float* smem) {
+                                            bool pipelined, float* smem,
+                                            const float4* stage) {
   const int per = w.slots * (1 + Search::kRowWords);  // words per cluster
   float* buf[2] = {smem, smem + (pipelined ? jblk * per : 0)};
-  auto stage = [&](int j, float* dst) {
+  auto fetch = [&](int j, float* dst) {
     const int nb = min(jblk, ord.n - j);
     for (int jj = 0; jj < nb; ++jj)
       Search::stage(ord.cid(j + jj), (int*)(dst + jj * per),
@@ -1109,7 +1117,7 @@ __device__ __forceinline__ void walk_staged(Search& s, const Order& ord,
   float rb = s.bound();
   bool live = ord.n > 0 && !(ord.near(0) >= rb);
   bool go = __syncthreads_or(live);
-  if (go && pipelined) stage(0, buf[0]);
+  if (go && pipelined) fetch(0, buf[0]);
   int j = 0, cur = 0;
   while (go) {
     const int nb = min(jblk, ord.n - j);
@@ -1117,7 +1125,7 @@ __device__ __forceinline__ void walk_staged(Search& s, const Order& ord,
     if (pipelined)
       __pipeline_wait_prior(0);
     else
-      stage(j, buf[0]);
+      fetch(j, buf[0]);
     __syncthreads();  // the round's copy is whole; the last round is tested
     float rb_n = rb;
     bool live_n = false, go_n = false;
@@ -1125,22 +1133,26 @@ __device__ __forceinline__ void walk_staged(Search& s, const Order& ord,
       rb_n = s.bound();
       live_n = !found && jn < ord.n && !(ord.near(jn) >= rb_n);
       go_n = __syncthreads_or(live_n);
-      if (go_n) stage(jn, buf[cur ^ 1]);
+      if (go_n) fetch(jn, buf[cur ^ 1]);
     }
     const float tb = pipelined ? rb_n : rb;  // the bound this round tests by
-    if (live && !found) {
-      const float* base = buf[cur];
-      for (int jj = 0; jj < nb; ++jj) {
-        if (ord.near(j + jj) >= tb) break;
-        const int cid = ord.cid(j + jj);
+    const float* base = buf[cur];
+    bool on = live && !found;
+    for (int jj = 0; jj < nb; ++jj) {
+      on = on && !(ord.near(j + jj) >= tb);
+      if (!__any_sync(kFull, on)) break;
+      const int cid = ord.cid(j + jj);
+      bool want = on;
+      if (want) {
         float near_t, far_t;
         slab(w.box + 6 * cid, s.ray(), near_t, far_t);
-        if (!((near_t < far_t) && (far_t > 0.0f) && (near_t < tb))) continue;
-        if (s.test_staged(cid, (const int*)(base + jj * per),
-                          base + jj * per + w.slots, in, w)) {
-          found = true;
-          break;
-        }
+        want = (near_t < far_t) && (far_t > 0.0f) && (near_t < tb);
+      }
+      const float* c = base + jj * per;
+      if (coop_test<true>(s, want, cid, Slots{(const int*)c, c + w.slots},
+                          in, w, stage)) {
+        found = true;
+        on = false;
       }
     }
     if (!pipelined) {
@@ -1157,15 +1169,20 @@ __device__ __forceinline__ void walk_staged(Search& s, const Order& ord,
 }
 
 // K1 / K2p: one block per tile, one thread per ray, over the tile's cluster
-// order.
+// order, the warps in step (`walk_coop`). The search's staged rays (pairs:
+// Search::kRayVecs float4 a ray) are the block's dynamic shared memory.
 template <class Search>
-__global__ void trace_kernel(typename Search::In in, Walk w) {
+__device__ __forceinline__ void trace_outside(const typename Search::In& in,
+                                              const Walk& w) {
+  extern __shared__ __align__(16) float smem[];
   const long long tile = blockIdx.x;
   const long long ray = tile * blockDim.x + threadIdx.x;
-  Search s(in, w, ray);
+  float4* stage = (float4*)smem;
+  auto s = Search::coop(in, w, ray, stage + Search::kRayVecs * threadIdx.x);
+  if constexpr (Search::kRayVecs > 0) __syncthreads();
   const float* srow = w.snear + tile * w.n_cols;
   const int n = (w.cap > 0 && w.cap < w.n_cols) ? w.cap : w.n_cols;
-  walk_plain(s, GlobalOrder{srow, w.order + tile * w.n_cols, n}, in, w);
+  walk_coop(s, GlobalOrder{srow, w.order + tile * w.n_cols, n}, in, w, stage);
   s.store(in, ray);
   if (w.stop_out) {
     // the first entry distance the tile did not walk (-0 made +0), as bits
@@ -1194,16 +1211,21 @@ __global__ void trace_binned_kernel(typename Search::In in, Walk w,
 }
 
 // K5 / K2pl: as K1, over the same order, in staged rounds (walk_staged).
+// Dynamic shared memory: the search's staged rays (as K1's), then the
+// rounds' buffers.
 template <class Search>
-__global__ void trace_staged_kernel(typename Search::In in, Walk w, int jblk,
-                                    int pipelined) {
+__device__ __forceinline__ void trace_staged(const typename Search::In& in,
+                                             const Walk& w, int jblk,
+                                             int pipelined) {
   extern __shared__ __align__(16) float smem[];
   const long long tile = blockIdx.x;
   const long long ray = tile * blockDim.x + threadIdx.x;
-  Search s(in, w, ray);
+  float4* stage = (float4*)smem;
+  auto s = Search::coop(in, w, ray, stage + Search::kRayVecs * threadIdx.x);
   walk_staged(s, GlobalOrder{w.snear + tile * w.n_cols,
                              w.order + tile * w.n_cols, w.n_cols}, in, w,
-              jblk, pipelined != 0, smem);
+              jblk, pipelined != 0,
+              (float*)(stage + Search::kRayVecs * blockDim.x), stage);
   s.store(in, ray);
 }
 
@@ -1661,7 +1683,7 @@ __device__ __forceinline__ void trace_near(const typename Search::In& in,
   if constexpr (Search::kRayVecs > 0) __syncthreads();
   const SharedOrder ord{s_key, n};
   if (pipelined)
-    walk_staged(s, ord, in, w, 1, true, s_walk);
+    walk_staged(s, ord, in, w, 1, true, s_walk, stage);
   else
     walk_coop(s, ord, in, w, stage);
   s.store(in, ray);
@@ -1761,7 +1783,9 @@ __device__ __forceinline__ void walk_two_level(Search& s, const Order& ord,
         slab(sh.box + 6 * j, s.ray(), near_t, far_t);
         want = (near_t < far_t) && (far_t > 0.0f) && (near_t < s.bound());
       }
-      if (coop_test(s, want, c0 + j, in, w, stage)) found = true;
+      if (coop_test<false>(s, want, c0 + j, Search::table(c0 + j, in, w), in,
+                           w, stage))
+        found = true;
     }
     K3_CLOCK(kClkWalk);  // thread 0's own walk; the rest waits in the vote
   }
@@ -1839,12 +1863,12 @@ __global__ void __launch_bounds__(kMaxTile, Search::kMinBlocks)
     trace_two_level_kernel_min(typename Search::In in, Walk w) {
   trace_two_level<Search, kNearOrder>(in, w);
 }
+// K2n's pipelined walk takes the kernel without a minimum (below)
 template <class Search>
-auto near_kernel() {
+auto near_kernel(int pipelined) {
   if constexpr (Search::kMinBlocks > 0)
-    return trace_near_kernel_min<Search>;
-  else
-    return trace_near_kernel<Search>;
+    if (!pipelined) return trace_near_kernel_min<Search>;
+  return trace_near_kernel<Search>;
 }
 template <class Search, bool kNearOrder>
 auto two_level_kernel() {
@@ -1852,6 +1876,52 @@ auto two_level_kernel() {
     return trace_two_level_kernel_min<Search, kNearOrder>;
   else
     return trace_two_level_kernel<Search, kNearOrder>;
+}
+
+// The kernels of K1 / K2p and of K5 / K2pl, in the same two forms. K1
+// any-hit and K2p take their search's Search::kMinBlocks (K2p at 64
+// registers, 76 bytes spilled, 6-9 % faster on every slice leg than at the
+// compiler's 80; K1 any-hit within 2 %), and so does K2pl any-hit
+// (Search::kMinBlocksStaged, 2-5 % faster).
+// Closest-hit and K2pl's pairs keep the compiler's choice: capped, K2pl's
+// pairs spill and lose 7-10 % on bounce legs, and K5 and K2pl closest-hit
+// under launch bounds took 72 registers for 63 and lost 3-7 %. K2n's
+// pipelined walk takes K2n's kernel without a minimum: capped at 64, its
+// pairs spilled 648 bytes and lost 8-38 % (tools/torch_near_legs.py
+// --variant, PERF.md §6).
+template <class Search>
+__global__ void trace_kernel(typename Search::In in, Walk w) {
+  trace_outside<Search>(in, w);
+}
+template <class Search>
+__global__ void __launch_bounds__(kMaxTile, Search::kMinBlocks)
+    trace_kernel_min(typename Search::In in, Walk w) {
+  trace_outside<Search>(in, w);
+}
+template <class Search>
+__global__ void trace_staged_kernel(typename Search::In in, Walk w, int jblk,
+                                    int pipelined) {
+  trace_staged<Search>(in, w, jblk, pipelined);
+}
+template <class Search>
+__global__ void __launch_bounds__(kMaxTile, Search::kMinBlocksStaged)
+    trace_staged_kernel_min(typename Search::In in, Walk w, int jblk,
+                            int pipelined) {
+  trace_staged<Search>(in, w, jblk, pipelined);
+}
+template <class Search>
+auto outside_kernel() {
+  if constexpr (Search::kMinBlocks > 0)
+    return trace_kernel_min<Search>;
+  else
+    return trace_kernel<Search>;
+}
+template <class Search>
+auto staged_kernel() {
+  if constexpr (Search::kMinBlocksStaged > 0)
+    return trace_staged_kernel_min<Search>;
+  else
+    return trace_staged_kernel<Search>;
 }
 
 // Dynamic shared memory of a launch, beside the kernel's own static bytes:
@@ -1866,6 +1936,12 @@ int reserve_shared(Kernel kernel, size_t bytes) {
   if (total <= 48 * 1024) return 0;
   return (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// What K1 / K2p, K5 and K2pl stage of their rays (pairs: PairsStaged)
+template <class Search>
+size_t ray_stage_bytes(int tile) {
+  return (size_t)16 * Search::kRayVecs * tile;
 }
 
 // K1 / K2p, or (w.group > 0) K3 / K3p with the super order from outside or
@@ -1892,8 +1968,16 @@ int launch(const typename Search::In& in, const Walk& w, int n_tiles,
       two_level_kernel<Search, false>()
           <<<n_tiles, tile, 0, (cudaStream_t)stream>>>(in, w);
     }
-  } else if (n_tiles > 0) {
-    trace_kernel<Search><<<n_tiles, tile, 0, (cudaStream_t)stream>>>(in, w);
+  } else {
+    // the warps walk in step: whole warps, at most kMaxTile rays
+    if (tile % 32 != 0 || tile < 32 || tile > kMaxTile)
+      return (int)cudaErrorInvalidValue;
+    const size_t bytes = ray_stage_bytes<Search>(tile);
+    const auto kernel = outside_kernel<Search>();
+    const int err = reserve_shared(kernel, bytes);
+    if (err) return err;
+    if (n_tiles > 0)
+      kernel<<<n_tiles, tile, bytes, (cudaStream_t)stream>>>(in, w);
   }
   return (int)cudaGetLastError();
 }
@@ -1908,13 +1992,17 @@ size_t staged_bytes(const Walk& w, int jblk, bool pipelined) {
 template <class Search>
 int launch_staged(const typename Search::In& in, const Walk& w, int n_tiles,
                   int tile, int jblk, int pipelined, void* stream) {
-  if (jblk < 1 || jblk > kMaxJblk) return (int)cudaErrorInvalidValue;
-  const size_t bytes = staged_bytes<Search>(w, jblk, pipelined != 0);
-  const int err = reserve_shared(trace_staged_kernel<Search>, bytes);
+  if (jblk < 1 || jblk > kMaxJblk || tile % 32 != 0 || tile < 32 ||
+      tile > kMaxTile)
+    return (int)cudaErrorInvalidValue;
+  const size_t bytes = ray_stage_bytes<Search>(tile) +
+                       staged_bytes<Search>(w, jblk, pipelined != 0);
+  const auto kernel = staged_kernel<Search>();
+  const int err = reserve_shared(kernel, bytes);
   if (err) return err;
   if (n_tiles > 0)
-    trace_staged_kernel<Search><<<n_tiles, tile, bytes, (cudaStream_t)stream>>>(
-        in, w, jblk, pipelined);
+    kernel<<<n_tiles, tile, bytes, (cudaStream_t)stream>>>(in, w, jblk,
+                                                           pipelined);
   return (int)cudaGetLastError();
 }
 
@@ -1929,7 +2017,7 @@ int launch_near(const typename Search::In& in, const Walk& w, int n_tiles,
   const size_t bytes =
       order_bytes(w.n_cols, tile, true, Search::kRayVecs) +
       (pipelined ? staged_bytes<Search>(w, 1, true) : (size_t)0);
-  const auto kernel = near_kernel<Search>();
+  const auto kernel = near_kernel<Search>(pipelined);
   const int err = reserve_shared(kernel, bytes);
   if (err) return err;
   if (n_tiles > 0)

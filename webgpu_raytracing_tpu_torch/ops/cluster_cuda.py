@@ -60,8 +60,10 @@ alone, which raises for tensors that are not on a CUDA device, or for the
 twin on any device. A kernel's rays must lie on the current CUDA device
 (:func:`check_current_device`). There is no
 fallback from one to the other, and what a kernel does not take (two-level
-tables for K5 and K2pl, more boxes than a block orders, tiles of more rays
-than K2n and K3 stage, rounds K5 does not run) raises.
+tables for K5 and K2pl, more boxes than a block orders, tiles of more
+than 128 rays or of a part of a warp, rounds K5 does not run) raises.
+Every walk but K4's keeps a warp in step and lets its lanes share their
+slot scans; that changes the kernels' work, never their results.
 """
 
 from __future__ import annotations
@@ -156,7 +158,7 @@ def _count(stats, key, n) -> None:
 
 def _shared_scans(rays, serial: int) -> torch.Tensor:
     """Which of the rays that want a cluster at one step of a walk with
-    the warp in step (K2n, K3) have it scanned by their whole warp
+    the warp in step (all but K4's) have it scanned by their whole warp
     (``coop_test``): those of a warp (32 consecutive rays) in which fewer
     than ``serial`` rays want it."""
     _, inv, cnt = torch.unique(torch.div(rays, 32, rounding_mode="floor"),
@@ -187,9 +189,10 @@ def _test_clusters(rays, cids, o, d, excl, face_id, tri, best, best_code,
     winner is the LOWEST valid slot (the kernel stops at the first one).
 
     ``coop``: the kernel's warps walk in step and share their slot scans
-    (K2n, K3). ``stats`` then also counts, as ``kernel_slot_tests``, the
-    tests of an any-hit scan shared by a warp, which go past the first
-    valid slot: work of the kernel, not of its function."""
+    (every walk but K4's). ``stats`` then also counts, as
+    ``kernel_slot_tests``, the tests of an any-hit scan shared by a warp,
+    which go past the first valid slot: work of the kernel, not of its
+    function."""
     s = face_id.shape[1]
     slot_iota = torch.arange(s, dtype=torch.int32, device=o.device)
     big = torch.iinfo(torch.int32).max
@@ -553,17 +556,18 @@ def _walk_torch(
     o, d, inv_d, t_max, excl, snear, order, box, face_id, tri, tile,
     any_hit: bool, jblk: int = 1, pipelined: bool = False,
     start_code: Optional[torch.Tensor] = None, cap: int = 0,
-    return_stop: bool = False, coop: bool = False,
+    return_stop: bool = False, coop: bool = True,
     chunk: Optional[int] = None, stats: Optional[dict] = None,
 ):
-    """Plain-torch twin of K1 (both entries), of K5 (``jblk``) and of
-    K2pl (``pipelined``), and (``coop``: the kernel's warps share their
-    slot scans; only ``stats`` differ) of K2n's walk: :func:`_walk` with the
-    best t (any-hit: t_max,
-    until the ray has a hit) as its bound and the exact slot test, in
-    chunks of ``chunk`` rays (default 2**18 on a GPU, 2**15 elsewhere).
-    Returns (best t, code); any-hit leaves best t at t_max. ``stats`` (a
-    dict) accumulates the work this walk does (see :func:`walk_stats`).
+    """Plain-torch twin of K1 (both entries), of K5 (``jblk``), of K2pl
+    (``pipelined``) and of K2n's walk: :func:`_walk` with the best t
+    (any-hit: t_max, until the ray has a hit) as its bound and the exact
+    slot test, in chunks of ``chunk`` rays (default 2**18 on a GPU, 2**15
+    elsewhere). Returns (best t, code); any-hit leaves best t at t_max.
+    ``stats`` (a dict) accumulates the work this walk does (see
+    :func:`walk_stats`). ``coop``: the kernels' warps share their slot
+    scans, as every one of these kernels does; False counts the scans of
+    one thread each instead. Only ``stats`` differ.
 
     The drain hooks (closest-hit): the search starts from (t_max,
     ``start_code``), the best an earlier pass carried in, instead of
@@ -909,7 +913,7 @@ def _trace_near_torch(o, d, inv_d, t_max, excl, box, face_id, tri, tile,
         _count(stats, "hook_words", o.shape[0])
     out = _walk_torch(o, d, inv_d, t_max, excl, snear, order, box, face_id,
                       tri, tile, any_hit=any_hit, pipelined=pipelined,
-                      coop=not pipelined, stats=stats, **kw)
+                      stats=stats, **kw)
     _near_stats(stats)
     return out
 
@@ -998,20 +1002,20 @@ def _check_cuda(tensors: dict) -> torch.device:
 # its own super order: supers) and the most rays of such a block and of
 # every K3 one (the ray stage); the boxes a thread of the first half holds
 # at a time, clusters and supers (csrc/cluster_trace.cu kMaxNearClusters,
-# kMaxTile, kNearRows, kSuperRows).
+# kMaxTile, kNearRows, kSuperRows). NEAR_MAX_TILE bounds every walk's tile
+# but K4's.
 SCHED_ROUNDS = TRACE_SCHED_VALUES[1:]
 SHARED_LIMIT = 232448 - 1024
 NEAR_MAX_CLUSTERS = 4096
 NEAR_MAX_TILE = 128
 NEAR_BOX_ROWS = 4
 NEAR_SUPER_ROWS = 2
-# K2n and K3: the 16-byte words a ray that the pairs search of the walks
-# with shared slot scans keeps in shared memory (csrc/cluster_trace.cu
-# Pairs::kRayVecs)
+# the 16-byte words a ray that the pairs search of the walks with shared
+# slot scans keeps in shared memory (csrc/cluster_trace.cu Pairs::kRayVecs)
 PAIRS_STAGE_VECS = 6
-# K2n and K3: the wanting lanes of a warp from which a cluster's any-hit
-# slot scan is not shared (csrc/cluster_trace.cu kCoopSerial); the twins
-# count the shared scans' tests with it
+# the wanting lanes of a warp from which a cluster's any-hit slot scan is
+# not shared (csrc/cluster_trace.cu kCoopSerial); the twins count the shared
+# scans' tests with it
 COOP_SERIAL = 24
 
 
@@ -1063,10 +1067,11 @@ def _check_walk(r, inv_d, t_max, excl, snear, order, box, face_id, tile,
             f"{n_cols} supers of {group}, or G = {group} exceeds "
             f"min(tile, 128)"
         )
-    if (group or near) and (tile % 32 or tile > NEAR_MAX_TILE):
+    if tile % 32 or tile > NEAR_MAX_TILE:
         raise ValueError(
-            "K2n and K3 stage their tile's rays in shared memory: the tile "
-            f"must be a multiple of 32 up to {NEAR_MAX_TILE}, got {tile}"
+            "the warps of every walk go in step over the order, and a block "
+            f"holds at most {NEAR_MAX_TILE} rays: the tile must be a "
+            f"multiple of 32 up to {NEAR_MAX_TILE}, got {tile}"
         )
     if group and (jblk or pipelined):
         raise ValueError(
@@ -1088,6 +1093,8 @@ def _check_walk(r, inv_d, t_max, excl, snear, order, box, face_id, tile,
         shared = near_order_bytes(
             n_cols, tile, rays=not group,
             coop_vecs=PAIRS_STAGE_VECS if row_words == 19 else 0)
+    elif row_words == 19 and not group:  # K2p, K2pl: the rays' stage
+        shared = 16 * PAIRS_STAGE_VECS * tile
     if jblk or pipelined:
         shared += staged_bytes(face_id.shape[1], row_words, max(jblk, 1),
                                pipelined)
