@@ -6,7 +6,7 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
 
 1. environment: torch/CUDA/nvcc versions, the card's name and power limit;
    fails when no CUDA device is visible. TF32 is switched off.
-2. build: compiles the seventeen entries of the cluster trace kernels
+2. build: compiles the eighteen entries of the cluster trace kernels
    (``wrt_trace_closest``, ``wrt_trace_any``: K1; ``wrt_trace_binned``: K4;
    ``wrt_trace_closest_two_level``, ``wrt_trace_any_two_level``: K3;
    ``wrt_trace_pairs``: K2p; ``wrt_trace_pairs_two_level``: K3p;
@@ -14,7 +14,8 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
    ``_pairs``: K2n; ``wrt_trace_pipelined_closest`` / ``_any`` /
    ``_pairs``: K2pl; ``wrt_trace_near_closest_two_level`` / ``_any_`` /
    ``_pairs_two_level``: K3 and K3p ordering their supers themselves;
-   csrc/cluster_trace.cu) from the checkout into build/kernels/.
+   ``wrt_top_keys``: the ray sort's coherence key; csrc/cluster_trace.cu)
+   from the checkout into build/kernels/.
 3. K1 vs twins: on 1080p ray sets of ``stress_scene(44_556)`` made
    from frame 0 exactly as ``path_trace`` makes them, each CUDA entry and
    its plain-torch twin run on the same device tensors. Closest-hit: the
@@ -61,6 +62,10 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
    mid pass, drain, unsort), the device-to-host reads counted, and the
    survivor share after pass 1 and after the mid pass; and
    ``sorted_trace_multipass`` (cap 4) the same way.
+   The key kernel vs its twin (every int32 key equal, both timed; bound:
+   every ray-box slab test, or the bytes) on the bounce leg (top 3), the
+   two shadow legs (top 2) and the bounce rays K1 capped at 4 leaves
+   unfinished, with ``t_start`` (a multipass leg).
 4. the 1080p paths through ``Renderer`` (one warm-up frame, then
    ``--frames`` timed frames; every launch count zeroed just before the
    timed frames and read just after). The default order is made inside
@@ -98,7 +103,9 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
    with ``binned_any_sort`` (4 K4, 6 + 6 K1); ``multipass_cap=4`` (10 K1:
    two passes per sorted leg; only K1 can cap); ``binned_sort`` under
    ``kernel_near`` (8 K4 + 6 K2n); each against the default or NEE
-   frame: equal NaN masks, RMSE < 1e-5.
+   frame: equal NaN masks, RMSE < 1e-5. Every sorted leg computes its
+   keys with the key kernel: 4 launches per sorted frame, 8 per NEE
+   sorted, binned, binned any-hit or multipass frame.
    Every pixel must hold 2 samples per frame.
 5. direct integrator (config #1): the analytic spheres-and-plane scene at
    256x256, ``bounces_depth=1``, perspective: 2 + 2 launches per frame of
@@ -134,6 +141,7 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
       The same legs through the entries that order the supers inside the
       kernel, against their twins and against K3 / K3p over the order
       sorted outside: every output bit-equal on every ray.
+   The key kernel vs its twin on the slab's bounce rays over the supers.
    b. K3 route vs K1 route on the same primary and bounce rays: the tile
       entry distances over the 227 supers + K3 against those over all
       14,528 clusters + K1; face ids must be identical; both timed, and
@@ -184,7 +192,7 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
    accumulation, a ``set`` of ``resolution_scale``; 240 K2n launches;
    the smoothed ms/frame and Mrays/s printed.
 
-Prints the per-kernel JSON line (seventeen kernels; K2n's entries hold the
+Prints the per-kernel JSON line (eighteen kernels; K2n's entries hold the
 predictor-bounded leg, the front door's numbers and the oracle checks),
 then the
 ``nvidia-smi`` name/power line, then ``{"ok": true, "device": {...}}`` as
@@ -722,9 +730,10 @@ def compare_legs(torch, tables, legs, card, tile, label=""):
 
 
 def phase_kernel_vs_twin(torch, scene, sky, seed, card):
-    """K1, K2p, K5, K2n and K2pl vs twins on frame 0's 1080p legs of the
-    slice scene → (closest, any-hit, pairs, scheduling kernels, K4, the
-    hooked drain entries, the whole per-ray-scheduled legs)."""
+    """K1, K2p, K5, K2n, K2pl, K4 and the key vs twins on frame 0's 1080p
+    legs of the slice scene → (closest, any-hit, pairs, scheduling kernels,
+    K4, the hooked drain entries, the whole per-ray-scheduled legs, the
+    key)."""
     from webgpu_raytracing_tpu_torch.config import RenderSettings
 
     st = RenderSettings(**SLICE)
@@ -735,8 +744,9 @@ def phase_kernel_vs_twin(torch, scene, sky, seed, card):
     sched = compare_scheduling_legs(torch, tables, legs, card, st.trace_tile,
                                     {**closest, **anyhit}, pairs)
     k4, hooked = compare_binned_legs(torch, tables, legs, card, st.trace_tile)
+    keys = compare_key_legs(torch, tables, legs, card, st.trace_tile)
     binned = profile_binned_legs(torch, tables, legs, card, st.trace_tile)
-    return closest, anyhit, pairs, sched, k4, hooked, binned
+    return closest, anyhit, pairs, sched, k4, hooked, binned, keys
 
 
 def _fold(torch, leg):
@@ -821,6 +831,79 @@ def compare_binned_legs(torch, tables, legs, card, tile):
                 o, d, tm2, tables, None, ex, tile,
                 t_start=stop.view(torch.float32), start_code=c1, **kw), card)
     return k4, hooked
+
+
+def _compare_keys(torch, name, o, d, tm, boxes, n, card, t_start=None):
+    """The key kernel against its twin on one leg's rays: every key equal
+    (int32), both timed (CUDA events) → its record. The bound: every
+    ray-box slab test (cluster_cuda.BOX_TEST_OPS f32 operations) over 67
+    TFLOP/s, or each ray's o, inv_d, t_max (and t_start) read once, the
+    boxes read once and its n keys written once over 3.35 TB/s."""
+    from webgpu_raytracing_tpu_torch.ops import cluster_cuda as cc
+    from webgpu_raytracing_tpu_torch.ops.intersect import safe_inv_dir
+
+    wrapper = cc.top_keys_tiles
+    args = (o.contiguous(), safe_inv_dir(d).contiguous(), tm.contiguous(),
+            boxes.contiguous(), n)
+    kw = dict(t_start=None if t_start is None else t_start.contiguous())
+    before = wrapper.launches
+    got = wrapper(*args, **kw)
+    torch.cuda.synchronize()
+    if wrapper.launches != before + 1:
+        fail(f"{name}: kernel launch was not counted")
+    want = wrapper.twin(*args, **kw)
+    mismatch = sum(int((g != w).sum()) for g, w in zip(got, want))
+    max_abs = max(float((g.long() - w.long()).abs().max())
+                  for g, w in zip(got, want))
+    ms_k = _time_cuda(torch, lambda: wrapper(*args, **kw), 5)
+    ms_w = _time_cuda(torch, lambda: wrapper.twin(*args, **kw), 1,
+                      warm=False)
+    r, c = o.shape[0], boxes.shape[0]
+    kmask, miss_th = cc.key_masks(c)
+    entered = [int(((k & ~kmask) < miss_th).sum()) for k in want]
+    ops = r * c * cc.BOX_TEST_OPS
+    nbytes = 4 * r * (7 + (t_start is not None) + n) + 24 * c
+    ops_ms, bytes_ms = ops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    out = dict(n=r, live=int((tm > 0).sum()), boxes=c, keys=n,
+               mismatch=mismatch, max_abs=max_abs, ms=ms_k, plain_ms=ms_w,
+               bound_ms=max(ops_ms, bytes_ms),
+               bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+               ops=ops, bytes=nbytes, rays_entering=entered)
+    print(f"{name}: {r} rays ({out['live']} live) over {c} boxes, top {n} "
+          f"keys, rays entering 1..{n} boxes {entered}, key mismatches "
+          f"{mismatch}, max abs err {max_abs:g}; kernel {ms_k:.3f} ms, twin "
+          f"{ms_w:.3f} ms; {ops} f32 ops, {nbytes} bytes -> bound "
+          f"{out['bound_ms']:.4f} ms by {out['bound_by']} ({card})",
+          flush=True)
+    if mismatch:
+        fail(f"{name}: {mismatch} keys differ from the twin's")
+    return out
+
+
+def compare_key_legs(torch, tables, legs, card, tile):
+    """The key kernel against its twin on frame 0's legs of the slice: the
+    bounce leg's top 3 (``binned_trace``), the two shadow legs' top 2
+    (``binned_trace_any``; the sorted trace's key takes the same two), and
+    a multipass leg: the bounce rays that K1 capped at 4 clusters leaves
+    unfinished, with ``t_start`` = its stop (``_recompact_final_pass``'s
+    key, at the full width) → records by leg."""
+    from webgpu_raytracing_tpu_torch.ops import cluster_cuda as cc
+
+    boxes = tables.clusters.sort_box
+    out = {}
+    for key, n in (("bounce", 3), ("nee", 2), ("env", 2)):
+        o, d, tm, _ = _fold(torch, legs[key])
+        out[key] = _compare_keys(torch, f"key, {LEG_NAMES[key]}", o, d, tm,
+                                 boxes, n, card)
+    o, d, tm, ex = _fold(torch, legs["bounce"])
+    t1, _, stop = cc.trace_closest_tiles(**cc.prepare_tiles(
+        o, d, tm, tables, None, ex, tile, cap=4, return_stop=True))
+    surv = t1.view(torch.int32) > stop
+    out["multipass"] = _compare_keys(
+        torch, "key, bounce survivors of K1 capped at 4, t_start", o, d,
+        torch.where(surv, t1, torch.zeros_like(t1)), boxes, 2, card,
+        t_start=stop.view(torch.float32))
+    return out
 
 
 def _face_exceptions(torch, name, leg, tables, face, ref_face, what):
@@ -1034,13 +1117,14 @@ WRAPPERS = ("trace_closest_tiles", "trace_any_tiles",
             "trace_pipelined_pairs_tiles", "trace_binned_tiles",
             "trace_near_closest_two_level_tiles",
             "trace_near_any_two_level_tiles",
-            "trace_near_pairs_two_level_tiles")
+            "trace_near_pairs_two_level_tiles", "top_keys_tiles")
 
 
 def launches_per_frame(**counts):
     """Launches per frame in the order of WRAPPERS, from
     ``<wrapper without trace_ and _tiles>=n`` keywords; the rest 0."""
-    names = [w[len("trace_"):-len("_tiles")] for w in WRAPPERS]
+    names = [w.removeprefix("trace_").removesuffix("_tiles")
+             for w in WRAPPERS]
     unknown = set(counts) - set(names)
     if unknown:
         raise KeyError(unknown)
@@ -1283,8 +1367,8 @@ def phase_scheduling_paths(torch, scene, base, default_img, nee_st, nee_img,
         outside.replace(pipeline_rounds=True), dict(pipelined_closest=6),
         default_img, "default frame")
     sorted_st = outside.replace(sort_bounce_rays=True, live_slice=True)
-    r = run("sorted", "sorted path", sorted_st, dict(closest=6), default_img,
-            "default frame")
+    r = run("sorted", "sorted path", sorted_st, dict(closest=6, top_keys=4),
+            default_img, "default frame")
     legs = profile_sorted_legs(torch, r)
     del r
     for i, rec in enumerate(legs):
@@ -1297,7 +1381,8 @@ def phase_scheduling_paths(torch, scene, base, default_img, nee_st, nee_img,
     paths["sorted"]["legs"] = legs
     run("nee_sorted", "NEE path, sorted",
         nee_outside.replace(sort_bounce_rays=True, live_slice=True),
-        dict(closest=6, any=6), nee_img, "NEE frame", finite=False)
+        dict(closest=6, any=6, top_keys=8), nee_img, "NEE frame",
+        finite=False)
     exact_nee = nee_st.replace(sort_bounce_rays=False, exact_pairs=True)
     run("near_nee_exact", "kernel_near path, NEE and exact primary legs",
         exact_nee.replace(kernel_near=True),
@@ -1314,19 +1399,22 @@ def phase_scheduling_paths(torch, scene, base, default_img, nee_st, nee_img,
         dict(near_pairs=2, near_closest=4, near_any=6), nee_img, "NEE frame",
         finite=False)
     # the per-ray-scheduled traces: per sorted leg (4 a frame) two K4
-    # passes and one drain; any-hit one K4 pass and one drain; multipass
-    # a capped and a final pass
+    # passes and one drain, and two keys (top 3, then the drain's with
+    # t_start); any-hit one K4 pass and one drain after one key; multipass
+    # a capped and a final pass, a key before each
     run("binned", "binned_sort path", sorted_st.replace(binned_sort=True),
-        dict(closest=6, binned=8), default_img, "default frame")
+        dict(closest=6, binned=8, top_keys=8), default_img, "default frame")
     run("binned_any_nee", "NEE path, sorted, binned_any_sort",
         nee_outside.replace(sort_bounce_rays=True, binned_any_sort=True),
-        dict(closest=6, any=6, binned=4), nee_img, "NEE frame", finite=False)
+        dict(closest=6, any=6, binned=4, top_keys=8), nee_img, "NEE frame",
+        finite=False)
     run("multipass", "multipass_cap=4 path",
-        sorted_st.replace(multipass_cap=4), dict(closest=10), default_img,
-        "default frame")
+        sorted_st.replace(multipass_cap=4), dict(closest=10, top_keys=8),
+        default_img, "default frame")
     run("binned_near", "binned_sort path under kernel_near",
         sorted_st.replace(binned_sort=True, kernel_near=True),
-        dict(near_closest=6, binned=8), default_img, "default frame")
+        dict(near_closest=6, binned=8, top_keys=8), default_img,
+        "default frame")
     return paths
 
 
@@ -1786,14 +1874,17 @@ def phase_port_completion(torch, scene, paths, frames, seed, card):
     out = {}
     srt = RenderSettings(**SLICE).replace(sort_bounce_rays=True)
     imgs = {}
+    # a key per sorted leg (4 closest-hit, 4 shadow a frame); chained, a
+    # key per segment past the first (4 a frame)
     for key, st, counts in (
-        ("sorted_near", srt, dict(near_closest=6)),
-        ("chained", srt.replace(chained_sort=True), dict(near_closest=6)),
+        ("sorted_near", srt, dict(near_closest=6, top_keys=4)),
+        ("chained", srt.replace(chained_sort=True),
+         dict(near_closest=6, top_keys=4)),
         ("sorted_near_nee", srt.replace(next_event_estimation=True),
-         dict(near_closest=6, near_any=6)),
+         dict(near_closest=6, near_any=6, top_keys=8)),
         ("chained_nee", srt.replace(next_event_estimation=True,
                                     chained_sort=True),
-         dict(near_closest=6, near_any=6)),
+         dict(near_closest=6, near_any=6, top_keys=4)),
     ):
         paths[key], r = drive_path(
             torch, key.replace("_", " ") + " path", scene, st, frames, seed,
@@ -1809,6 +1900,14 @@ def phase_port_completion(torch, scene, paths, frames, seed, card):
               f"{paths[a]['ms_per_frame']:.1f} vs "
               f"{paths[b]['ms_per_frame']:.1f} ms/frame ({card})",
               flush=True)
+    for a, b in (("sorted_near", "default"), ("chained", "default"),
+                 ("sorted_near_nee", "nee"), ("chained_nee", "nee")):
+        faster = paths[a]["ms_per_frame"] < paths[b]["ms_per_frame"]
+        print(f"{a} path {paths[a]['ms_per_frame']:.1f} ms/frame, peak "
+              f"{paths[a]['peak_gib']:.2f} GiB, against the {b} path's "
+              f"{paths[b]['ms_per_frame']:.1f} ms/frame, peak "
+              f"{paths[b]['peak_gib']:.2f} GiB: "
+              f"{'faster' if faster else 'not faster'} ({card})", flush=True)
     out["chained"] = {k: paths[k] for k in imgs}
     del imgs
 
@@ -1847,7 +1946,8 @@ def phase_config5_kernels(torch, tables, seed, card):
     """7a/7b: K3 vs twins on one 4K slab's frame-0 legs of the 1M scene,
     then the K3 route (super entry distances + K3) against the K1 route
     (entry distances over every cluster + K1) on the primary and bounce
-    rays: identical face ids, both timed."""
+    rays: identical face ids, both timed; the key kernel against its twin
+    on the bounce rays over the 227 supers."""
     from webgpu_raytracing_tpu_torch.config import RenderSettings
     from webgpu_raytracing_tpu_torch.ops import cluster_cuda as cc
 
@@ -1929,7 +2029,10 @@ def phase_config5_kernels(torch, tables, seed, card):
             fail(f"config #5 {key}: K3 and K1 routes differ on {mismatch} "
                  "faces")
         routes[key] = dict(mismatch=mismatch, **ms)
-    return closest, anyhit, pairs, routes, near, near_pairs
+    o, d, tm, _ = _fold(torch, legs["bounce"])  # the sorted trace's key
+    key = _compare_keys(torch, "key, config #5 slab bounce over the supers",
+                        o, d, tm, tables.clusters.sort_box, 2, card)
+    return closest, anyhit, pairs, routes, near, near_pairs, key
 
 
 def _bits_equal(torch, a, b) -> bool:
@@ -2511,7 +2614,7 @@ def main() -> int:
     print(f"scene: stress_scene({N_TRIANGLES}) and the {SKY_SHAPE[0]}x"
           f"{SKY_SHAPE[1]} sky distribution built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    closest, anyhit, pairs, sched, k4, hooked, binned_legs = (
+    closest, anyhit, pairs, sched, k4, hooked, binned_legs, keys = (
         phase_kernel_vs_twin(torch, scene, sky, a.seed, card))
     paths = phase_paths(torch, scene, sky, a.frames, a.seed, card)
     phase_direct(torch, paths, a.frames, a.seed, card)
@@ -2551,7 +2654,7 @@ def main() -> int:
     if not (is_two_level(ct) and g == 64 and c == c2 * g):
         fail(f"config #5: tables are not two-level with G = 64 (C {c}, C2 "
              f"{c2}, G {g})")
-    closest5, anyhit5, pairs5, routes, near5, near_pairs5 = (
+    closest5, anyhit5, pairs5, routes, near5, near_pairs5, key5 = (
         phase_config5_kernels(torch, tables5, a.seed, card))
     del scene5
     slabs = CONFIG5["frame_slabs"]
@@ -2695,6 +2798,15 @@ def main() -> int:
               f"{pallas}:1379 (pairs=True) with the in-kernel super order",
               16, near_pairs5, "bounce",
               config5_exact_frame=paths["config5_exact"]),
+        entry("top_keys",
+              "webgpu_raytracing_tpu/ops/ray_sort.py:37 (nearest_cluster_key"
+              "), :143 (nearest_cluster_key_fused), :183 "
+              "(nearest_cluster_keys2): XLA code, no pallas_call", 17,
+              {**keys, "config5 bounce": key5}, "bounce",
+              paths={k: paths[k] for k in (
+                  "sorted", "nee_sorted", "binned", "binned_any_nee",
+                  "multipass", "binned_near", "sorted_near", "chained",
+                  "sorted_near_nee", "chained_nee")}),
     ]}), flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all",
           flush=True)

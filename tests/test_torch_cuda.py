@@ -823,3 +823,152 @@ def test_two_level_frames_on_card(cuda):
         np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
         ok = ~np.isnan(want)
         assert float(np.sqrt(np.mean((got[ok] - want[ok]) ** 2))) < 1e-5
+
+
+def _key_boxes(rng, c, pads):
+    """``c`` random boxes around the origin, flat ones among them, the
+    last ``pads`` inverted-empty (min 3e38 > max -3e38), box 1 a copy of
+    box 0 (near ties); one box: the cube [-2, 2]^3."""
+    if c == 1:
+        return np.array([[-2, -2, -2, 2, 2, 2]], np.float32)
+    lo = rng.uniform(-3, 2, (c, 3)).astype(np.float32)
+    hi = lo + rng.uniform(0.05, 1.5, (c, 3)).astype(np.float32)
+    hi[1::7, 1] = lo[1::7, 1]
+    b = np.concatenate([lo, hi], 1)
+    b[1] = b[0]
+    b[c - pads:, :3] = np.float32(3.0e38)
+    b[c - pads:, 3:] = np.float32(-3.0e38)
+    return b
+
+
+@pytest.mark.parametrize("t_start", [False, True], ids=["", "t_start"])
+@pytest.mark.parametrize("n", [2, 3])
+@pytest.mark.parametrize("which", ["clusters", "supers", "c700", "c1"])
+def test_key_kernel_matches_twin_on_card(cuda, which, n, t_start):
+    """The key kernel against its twin, every int32 key equal: the
+    clusters and the supers of the small scene, 700 random boxes (more
+    than one staging chunk, with pads and ties) and a single box; rays
+    with dead lanes, NaN origins, zero and tiny direction components, and
+    rays that start on a box face (a near of -0, which the key makes +0);
+    ``t_start`` with zeros and NaN (a dead lane's stop)."""
+    from webgpu_raytracing_tpu_torch.ops.intersect import safe_inv_dir
+
+    rng = np.random.default_rng(61 + n)
+    if which in ("clusters", "supers"):
+        tables = _small_scene().tables(cuda, cluster_size=8, group_size=4)
+        boxes = (tables.clusters.box if which == "clusters"
+                 else tables.clusters.super_box)
+    else:
+        c = 700 if which == "c700" else 1
+        boxes = torch.as_tensor(_key_boxes(rng, c, 4 if c > 1 else 0),
+                                device=cuda)
+    o, d, tmax, active, _ = _mixed_rays(6000, 62 + n, 10)
+    if which in ("clusters", "supers"):
+        o = o + np.array([0.0, 0.0, -3.0], np.float32)
+    d[::11, 0] = 3e-13
+    d[1::13, 1] = 0.0
+    # rays that start on a box's max-x face going -x: a near of -0 there
+    bx = boxes.cpu().numpy()
+    idx = np.arange(3, o.shape[0], 7)
+    b = bx[idx % bx.shape[0]]
+    o[idx] = np.stack([b[:, 3], (b[:, 1] + b[:, 4]) / 2,
+                       (b[:, 2] + b[:, 5]) / 2], 1)
+    d[idx] = np.float32([-0.6, 0.0, 0.8])
+    tm = np.where(active, tmax, 0.0).astype(np.float32)
+    ts = rng.uniform(0.0, 6.0, o.shape[0]).astype(np.float32)
+    ts[::5] = 0.0
+    ts[::9] = np.int32(0x7FFFFFFF).view(np.float32)
+
+    def t(a):
+        return torch.as_tensor(a, device=cuda).contiguous()
+
+    args = (t(o), safe_inv_dir(t(d)), t(tm), boxes.contiguous(), n)
+    kw = dict(t_start=t(ts) if t_start else None)
+    before = cc.top_keys_tiles.launches
+    got = cc.top_keys_tiles(*args, **kw)
+    torch.cuda.synchronize()
+    assert cc.top_keys_tiles.launches == before + 1
+    want = cc.top_keys_tiles.twin(*args, **kw)
+    _assert_same(tuple(got), tuple(want))
+    kmask, miss_th = cc.key_masks(boxes.shape[0])
+    assert bool(((want[0] & ~kmask) < miss_th).any())
+    with pytest.raises(ValueError):
+        cc.top_keys_tiles(*args[:4], 4, **kw)
+
+
+@pytest.mark.parametrize("tile", [32, 100, 128, 256])
+def test_binned_pass_staged_blocks_on_card(cuda, tile):
+    """K4, which stages each block's clusters in shared memory, against the
+    twin, bit for bit: 35 blocks of ``tile`` rays (a tile of no whole
+    number of warps too), schedules with a run of equal ones, missing and
+    equal entries and (-1, -1) blocks (their rays keep (t_max, the carried
+    code)), exclusion codes and a carried (t, code)."""
+    tables = _small_scene().tables(cuda, cluster_size=16, group_size=0)
+    c = tables.clusters.box.shape[0]
+    n_blocks = 35
+    r = n_blocks * tile
+    o, d, tmax, active, excl = _mixed_rays(r, 71, tables.clusters.face_id
+                                           .numel())
+    rng = np.random.default_rng(72)
+    sched = rng.integers(0, c, (n_blocks, 2))
+    sched[:, 1] = np.where(rng.uniform(size=n_blocks) < 0.3, -1,
+                           sched[:, 1])
+    sched[3:9] = sched[2]  # a run of blocks with the same schedule
+    sched[10, 0] = -1  # only s1
+    sched[11] = (5, 5)  # the same cluster twice
+    sched[12:20] = -1  # blocks with nothing scheduled
+    code0 = rng.integers(-1, tables.clusters.face_id.numel(), r)
+
+    def t(a, dt=None):
+        return torch.as_tensor(a, dtype=dt, device=cuda)
+
+    tm = torch.where(t(active), t(tmax), torch.zeros_like(t(tmax)))
+    base = cc.binned_args(t(o), t(d), tm, tables,
+                          t(sched, torch.int32), t(excl, torch.int32),
+                          tile=tile)
+    for start in (None, t(code0, torch.int32)):
+        args = dict(base) if start is None else dict(base, start_code=start)
+        before = cc.trace_binned_tiles.launches
+        got = cc.trace_binned_tiles(**args)
+        torch.cuda.synchronize()
+        assert cc.trace_binned_tiles.launches == before + 1
+        _assert_same(got, cc.trace_binned_tiles.twin(**args))
+        idle = torch.arange(r, device=cuda) // tile
+        idle = (idle >= 12) & (idle < 20)
+        assert torch.equal(got[0][idle], args["t_max"][idle])
+        assert torch.equal(got[1][idle], torch.full_like(got[1][idle], -1)
+                           if start is None else start[idle])
+    assert int((got[1] >= 0).sum()) > 10
+
+
+def test_sorted_binned_chained_frames_on_card(cuda):
+    """2-frame NEE renders of the mini scene in clusters of 16 with the
+    ray sort (plain, chained, ``binned_sort``, ``binned_any_sort``,
+    ``multipass_cap``): each equals the default frame bit for bit and
+    computes its keys with the key kernel, one launch per key (16, 8, 24,
+    16, 24 in the two frames)."""
+    st = RenderSettings(width=32, height=32, bounces_depth=4, sample_count=1,
+                        environment="procedural", next_event_estimation=True)
+
+    def run(settings):
+        r = Renderer(_mini_scene(), settings, base_seed=77, device=cuda)
+        r.tables = _mini_scene().tables(cuda, cluster_size=16, group_size=0)
+        before = cc.top_keys_tiles.launches
+        r.step()
+        r.step()
+        torch.cuda.synchronize()
+        return r.buffers.image, cc.top_keys_tiles.launches - before
+
+    want, launched = run(st)
+    assert launched == 0
+    srt = st.replace(sort_bounce_rays=True)
+    cases = {
+        "sorted": (srt, 16), "chained": (srt.replace(chained_sort=True), 8),
+        "binned": (srt.replace(binned_sort=True), 24),
+        "binned_any": (srt.replace(binned_any_sort=True), 16),
+        "multipass": (srt.replace(multipass_cap=2, kernel_near=False), 24),
+    }
+    for name, (settings, keys) in cases.items():
+        got, launched = run(settings)
+        assert launched == keys, (name, launched)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), name

@@ -2,7 +2,7 @@
 
     python3 tools/torch_near_legs.py [--config5] [--staged] [--seed 0]
                                      [--nvcc-flag F] [--variant=FLAGS]
-                                     [--search S] [--legs L]
+                                     [--search S] [--legs L] [--keys]
 
 For frame 0's primary, first bounce, NEE shadow and env-NEE shadow legs of
 the 1080p slice (``stress_scene(44_556)``, 2,073,600 rays; the env leg on
@@ -36,6 +36,21 @@ script runs on a checkout of an earlier commit too (it needs only
 commit's kernels.
 ``--search`` and ``--legs`` (comma-separated) keep only some searches and
 legs. Fails without a CUDA device. Imports ``chip_smoke`` for the legs.
+
+``--keys`` times the ray sort's legs instead: the coherence key of the
+slice's bounce leg (top 3), shadow legs (top 2) and a multipass leg (the
+bounce rays K1 capped at 4 leaves unfinished, top 2 with ``t_start``),
+through ``ray_sort.nearest_cluster_keys2`` / ``nearest_cluster_key``, and
+K4 on the bounce and shadow legs sorted by nearest cluster, as
+``binned_trace`` makes them; with ``--config5`` also the key of the slab's
+bounce leg over the supers; then 1080p frames (one warm-up, three timed
+frames, ms each and peak memory): default, sorted, chained, NEE default,
+sorted and chained, ``binned_sort`` with the order in the kernel and
+outside, ``multipass_cap=4``. It uses only functions an earlier checkout
+has too, so run from the root of a ``git archive`` of the parent it times
+the parent's key (plain torch) and K4; each output's sha256 is printed, so
+that the two checkouts' outputs can be compared. With ``--variant`` the
+legs of every build are held to the plain build's outputs.
 """
 
 from __future__ import annotations
@@ -59,6 +74,7 @@ def main() -> int:
     ap.add_argument("--variant", action="append", default=[])
     ap.add_argument("--search", default="closest,any,pairs")
     ap.add_argument("--legs", default="primary,bounce,nee,env")
+    ap.add_argument("--keys", action="store_true")
     a = ap.parse_args()
 
     import torch
@@ -195,11 +211,123 @@ def main() -> int:
                               torch.where(surv, out[1], c1)), full)))
         return timed("slice bounce K1c", runs)
 
+    def digest(out):
+        import hashlib
+
+        h = hashlib.sha256()
+        for x in (out if isinstance(out, (tuple, list)) else (out,)):
+            h.update(x.contiguous().view(torch.int32).cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    def sort_legs(label, tables, st, legs):
+        """--keys: the keys and K4 legs of ``legs`` (above), each checked
+        against the plain build and timed in turns (:func:`timed`)."""
+        from webgpu_raytracing_tpu_torch.ops import ray_sort as rs
+
+        boxes = tables.clusters.sort_box
+        c = boxes.shape[0]
+        runs = []
+        for key, n in (("bounce", 3), ("nee", 2), ("env", 2)):
+            if key not in legs:
+                continue
+            o, d, tm, ex = cs._fold(torch, legs[key])
+            runs.append((f"{key} top-{n} key", lambda o=o, d=d, tm=tm, n=n:
+                         rs.nearest_cluster_keys2(o, d, tm, boxes, n=n)))
+            if cc.is_two_level(tables.clusters):  # K4: single-level only
+                continue
+            k1 = rs.nearest_cluster_keys2(o, d, tm, boxes)[0]
+            cid_s, perm = rs.sort_keys(rs._cid_of(k1, c))
+            o_s, d_s, tm_s, ex_s = rs.permute_rows(perm, (o, d, tm, ex))
+            sched, _ = rs._block_schedules(cid_s, o.shape[0] // st.trace_tile,
+                                           st.trace_tile, c)
+            args = cc.binned_args(o_s, d_s, tm_s, tables, sched, ex_s,
+                                  tile=st.trace_tile)
+            runs.append((f"{key} K4", lambda args=args:
+                         cc.trace_binned_tiles(**args)))
+        if "bounce" in legs and not cc.is_two_level(tables.clusters):
+            o, d, tm, ex = cs._fold(torch, legs["bounce"])
+            t1, _, stop = cc.trace_closest_tiles(**cc.prepare_tiles(
+                o, d, tm, tables, None, ex, st.trace_tile, cap=4,
+                return_stop=True))
+            tm2 = torch.where(t1.view(torch.int32) > stop, t1,
+                              torch.zeros_like(t1))
+            ts = stop.view(torch.float32)
+            runs.append(("multipass top-2 key with t_start",
+                         lambda o=o, d=d, tm2=tm2, ts=ts:
+                         rs.nearest_cluster_key(o, d, tm2, boxes,
+                                                t_start=ts)))
+        for name, fn in runs:
+            use(base)
+            ref = fn()
+            want = digest(ref)
+            print(f"{label} {name}: sha256 {want}", flush=True)
+            def check(out, want=want):
+                return digest(out) == want
+
+            if not timed(f"{label} {name}", [(name, fn, {}, check)]):
+                return False
+        return True
+
+    def frames(scene, st):
+        """--keys: 1080p frames of the ray sort's settings, ms each."""
+        from webgpu_raytracing_tpu_torch.renderer import Renderer
+
+        srt = st.replace(sort_bounce_rays=True)
+        nee = st.replace(next_event_estimation=True)
+        cases = {
+            "default": st, "sorted": srt,
+            "chained": srt.replace(chained_sort=True), "NEE": nee,
+            "NEE sorted": nee.replace(sort_bounce_rays=True),
+            "NEE chained": nee.replace(sort_bounce_rays=True,
+                                       chained_sort=True),
+            "binned": srt.replace(binned_sort=True),
+            "binned, order outside": srt.replace(binned_sort=True,
+                                                 kernel_near=False),
+            "multipass_cap=4, order outside": srt.replace(
+                multipass_cap=4, kernel_near=False),
+        }
+        use(base)
+        for name, fst in cases.items():
+            r = Renderer(scene, fst, base_seed=a.seed, device="cuda")
+            r.step()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = []
+            for _ in range(3):
+                t1 = time.perf_counter()
+                r.step()
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t1) * 1e3)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            print(f"frame {name}: " + " / ".join(f"{x:.1f}" for x in ms)
+                  + f" ms, peak {peak:.3f} GiB, image sha256 "
+                  f"{digest(r.buffers.image)} ({card})", flush=True)
+            del r
+
     st = RenderSettings(**cs.SLICE)
-    tables = stress_scene(cs.N_TRIANGLES).tables(dev)
+    scene = stress_scene(cs.N_TRIANGLES)
+    tables = scene.tables(dev)
     sky = build_env_distribution(
         cs.sky_equirect(torch, *cs.SKY_SHAPE, "cuda").cpu().numpy(), "cuda")
     legs = cs.frame0_legs(torch, tables, st, a.seed, sky=sky)
+    if a.keys:
+        if not sort_legs("slice", tables, st, legs):
+            return 1
+        del legs
+        if a.config5:
+            st5 = RenderSettings(**cs.CONFIG5)
+            tables5 = stress_scene(cs.CONFIG5_TRIANGLES).tables(dev)
+            rows = st5.render_height // st5.frame_slabs
+            legs5 = cs.frame0_legs(torch, tables5, st5, a.seed,
+                                   row0=cs.CONFIG5_SLAB * rows, rows=rows)
+            if not sort_legs("config #5 slab", tables5, st5,
+                             {"bounce": legs5["bounce"]}):
+                return 1
+            del legs5, tables5
+        frames(scene, st)
+        print(f"torch_near_legs --keys: {time.perf_counter() - t0:.0f} s, "
+              f"variants {a.variant} ({card})", flush=True)
+        return 0
     if not compare("slice", tables, st, legs):
         return 1
     if a.staged and not drains(tables, st, legs["bounce"]):

@@ -134,8 +134,9 @@ PORT_ONLY_FIELDS = frozenset({"kernel_near"})
 # Fields whose default differs from the JAX package's → the reason.
 DEFAULT_DEVIATIONS = {
     "sort_bounce_rays": (
-        "the sort key is a second dense ray-box pass in plain torch per "
-        "sorted leg, which costs more than the sort saves (PERF.md)"
+        "the sorted frame is not shown faster than the unsorted one: its "
+        "key is a kernel of a few ms a leg, but the sort, gathers and "
+        "unsort add about as much as the sorted trace saves (PERF.md)"
     ),
     "kernel_near": (
         "not a JAX setting (PORT_ONLY_FIELDS; the JAX dispatcher's argument "

@@ -79,22 +79,26 @@
 //
 // K4 (`wrt_trace_binned`, `trace_binned_kernel`) replaces `_kernel_binned`
 // (:953, called from `trace_binned_pass` at :1106; RenderSettings.binned_sort
-// and .binned_any_sort): one block per 128-ray block of a ray stream sorted
-// by each ray's nearest cluster. The block reads its two schedule entries
-// (s0, s1; -1 = skip) and every thread tests s0's slots, then s1's on top of
-// the best it carries, by K1's own gate and slot test (`walk_plain` over a
-// two-entry order with no entry distances, so the walk never stops early).
-// K4 alone keeps each thread on its own (`walk_plain`): its rays are sorted
-// by nearest cluster, so the lanes of a warp want the same one or two
-// clusters, and the serial scan, every load a broadcast, is the one a
-// shared scan would pick anyway (kCoopSerial). No loop over a shortlist, no
-// bound from the tile: the rays that need more than these two clusters are
-// the caller's survivors (ops/ray_sort.py).
+// and .binned_any_sort): per 128-ray block of a ray stream sorted by each
+// ray's nearest cluster, two schedule entries (s0, s1; -1 = skip), and every
+// ray tests s0's slots, then s1's on top of the best it carries, by K1's own
+// gate and slot test, with no order and no stop rule. No loop over a
+// shortlist, no bound from the tile: the rays that need more than these two
+// clusters are the caller's survivors (ops/ray_sort.py). A block stages its
+// two clusters into shared memory first (described where it stands): a
+// cluster scanned from the tables costs every slot a chain of two dependent
+// loads (the face id, then the row it names).
 // What is not carried over from the TPU kernel: its blocks_per_step grid
 // folding, the bf16 split of the matmul, and the packed (t | slot) key that
 // rides its output refs between the two rounds. A K4 leg reads each ray once
 // (52 bytes in and out) and tests one or two clusters per ray, so at the
-// slice's shapes its bound is the slot tests' f32 operations.
+// slice's shapes its bound is those bytes or the slot tests' f32 operations,
+// about equal.
+//
+// The ray sort's coherence key (`wrt_top_keys`, `top_keys_kernel`) has no
+// Pallas body: the JAX package computes it as XLA code. It is the R x C slab
+// test of the sort's rays against the boxes reduced to each ray's n nearest
+// entered boxes in registers (described where it stands).
 //
 // The drain hooks (JAX `t_start`, `cap`, `return_stop` of
 // `trace_closest_clustered_pallas`, :1613-1645, and the carried best of the
@@ -110,18 +114,18 @@
 // keeps K1's tie rule, the lower code at equal t.
 //
 // One slab test serves every entry point, and the walks (over the tables;
-// in the block's staged rounds; each thread on its own for K4; the
-// two-level one) are templated on the search (`Exact<kAnyHit>` or `Pairs`)
-// and, single-level, on the source of the order, so the walks and the
-// arithmetic are written once. Every walk but K4's keeps a warp in step
-// over the order and lets its lanes share their slot scans (`coop_test`),
-// for all three searches: K1, K2p and K2n (`walk_coop`) and K3 / K3p
-// (`walk_two_level`) over the tables; K5, K2pl and K2n's pipelined walk
-// (`walk_staged`) over the round's rows in shared memory, where a lane's
-// slots lie in distinct banks (described there). Within one cluster no
-// search depends on the order of its slot tests: the closest-hit result is
-// a (t, code) minimum; the any-hit ray stops at the valid slot of the
-// lowest code (a slot's validity does not change while its cluster is
+// in the block's staged rounds; the two-level one) are templated on the
+// search (`Exact<kAnyHit>` or `Pairs`) and, single-level, on the source of
+// the order, so the walks and the arithmetic are written once; K4 scans its
+// staged clusters with the same slot test. Every walk but K4's keeps a warp
+// in step over the order and lets its lanes share their slot scans
+// (`coop_test`), for all three searches: K1, K2p and K2n (`walk_coop`) and
+// K3 / K3p (`walk_two_level`) over the tables; K5, K2pl and K2n's
+// pipelined walk (`walk_staged`) over the round's rows in shared memory,
+// where a lane's slots lie in distinct banks (described there). Within one
+// cluster no search depends on the order of its slot tests: the closest-hit
+// result is a (t, code) minimum; the any-hit ray stops at the valid slot of
+// the lowest code (a slot's validity does not change while its cluster is
 // scanned); the pairs' carried candidates are a top two and a minimum of
 // a set of distinct (t, code) pairs. So the results stay the sequential
 // scan's. What does depend on order is which clusters a ray
@@ -280,6 +284,9 @@ constexpr unsigned kF32MaxBits = 0x7f7fffffu;
 // 7-10 % slower; any-hit 64: within 4 % either way (PERF.md §6).
 constexpr int kMinBlocksAny = 9;
 constexpr int kMinBlocksPairs = 8;
+// K4: the words of a staged triangle row, read as three 16-byte words (4-12
+// % faster on the slice's legs than 9 words read one by one; PERF.md §6)
+constexpr int kK4RowWords = 12;
 constexpr unsigned kBoundUlps = 1u << 9;      // (cluster_pallas.py:566)
 constexpr long long kAmbBand = 2 * (1 << 9);  // (cluster_pallas.py:389)
 
@@ -432,7 +439,9 @@ struct Exact {
   // rows `rows` indexed by face id (the table) or, staged, by slot. Returns
   // true when the ray is done (any-hit: its first valid hit, code in
   // best_code). kStride > 1: only the slots first, first + kStride, ...
-  template <bool kStaged, int kStride = 1>
+  // kRowWords: the words of a staged row (12: a row padded to three
+  // 16-byte words at 16-byte addresses, read as such; K4)
+  template <bool kStaged, int kStride = 1, int kRowWords = 9>
   __device__ __forceinline__ bool scan(int cid, const int* fids,
                                        const float* rows, const Walk& w,
                                        int first = 0) {
@@ -441,10 +450,18 @@ struct Exact {
       if (f < 0) break;  // occupied slots come first
       const int code = cid * w.slots + s;
       if (code == ex) continue;
-      const float* tr = rows + 9LL * (kStaged ? s : f);
-      const float p0x = tr[0], p0y = tr[1], p0z = tr[2];
-      const float e1x = tr[3], e1y = tr[4], e1z = tr[5];
-      const float e2x = tr[6], e2y = tr[7], e2z = tr[8];
+      const float* tr = rows + (kStaged ? (long long)kRowWords * s : 9LL * f);
+      float p0x, p0y, p0z, e1x, e1y, e1z, e2x, e2y, e2z;
+      if constexpr (kStaged && kRowWords == 12) {
+        const float4 a = ((const float4*)tr)[0], b = ((const float4*)tr)[1];
+        const float4 c = ((const float4*)tr)[2];
+        p0x = a.x, p0y = a.y, p0z = a.z, e1x = a.w, e1y = b.x, e1z = b.y;
+        e2x = b.z, e2y = b.w, e2z = c.x;
+      } else {
+        p0x = tr[0], p0y = tr[1], p0z = tr[2];
+        e1x = tr[3], e1y = tr[4], e1z = tr[5];
+        e2x = tr[6], e2y = tr[7], e2z = tr[8];
+      }
       // h = d x e2 ; det = e1 . h   (strict products, left-to-right sums)
       const float hx = r.dy * e2z - r.dz * e2y;
       const float hy = r.dz * e2x - r.dx * e2z;
@@ -473,12 +490,6 @@ struct Exact {
       }
     }
     return false;
-  }
-
-  // cluster `cid` from the tables, by this thread alone (K4's walk)
-  __device__ __forceinline__ bool test(int cid, const In& in, const Walk& w) {
-    const Slots c = table(cid, in, w);
-    return scan<false>(cid, c.fids, c.rows, w);
   }
 
   // The block copies cluster `cid` into shared memory: its face ids and,
@@ -850,32 +861,6 @@ struct SharedOrder {
   }
 };
 
-// ... or (K4) the block's two schedule entries, with no entry distances: -1
-// is below every bound, so the walk never stops on one.
-struct SchedOrder {
-  int c0, c1, n;
-  __device__ __forceinline__ float near(int) const { return -1.0f; }
-  __device__ __forceinline__ int cid(int k) const { return k == 0 ? c0 : c1; }
-};
-
-// The walk of K4: each thread on its own, clusters read from the tables.
-template <class Search, class Order>
-__device__ __forceinline__ void walk_plain(Search& s, const Order& ord,
-                                           const typename Search::In& in,
-                                           const Walk& w) {
-  for (int k = 0; k < ord.n; ++k) {
-    // tile distances are minima over the tile's rays and sorted: once one
-    // is not below this ray's bound, no later cluster can improve it
-    if (ord.near(k) >= s.bound()) break;
-    const int cid = ord.cid(k);
-    float near_t, far_t;
-    slab(w.box + 6 * cid, s.r, near_t, far_t);
-    if (!((near_t < far_t) && (far_t > 0.0f) && (near_t < s.bound())))
-      continue;
-    if (s.test(cid, in, w)) break;
-  }
-}
-
 // Slot scans shared by a warp (every walk but K4's), one `coop_test` per
 // search, over a cluster in the tables or staged in shared memory. A
 // thread that scans a cluster on its own runs up to `slots` slot tests in
@@ -1031,12 +1016,12 @@ __device__ __forceinline__ bool coop_test(PairsStaged& s, bool want, int cid,
 }
 
 // The walk of K1, K2p and K2n (and, over a super's children, of K3):
-// `walk_plain` with the warp in step over the order, so that its lanes can
-// share their slot scans (`coop_test`) over the tables (`Search::table`). A
-// thread of `walk_plain` leaves at the first entry
-// not below its bound (any-hit: also at its hit); the entries ascend and the
-// bound only falls, so testing that rule entry by entry leaves out the same
-// clusters, and the warp leaves when no lane is left. `s` is the search's
+// the warp in step over the order, so that its lanes can share their slot
+// scans (`coop_test`) over the tables (`Search::table`). A thread that
+// walked alone would leave at the first entry not below its bound (any-hit:
+// also at its hit); the entries ascend and the bound only falls, so testing
+// that rule entry by entry leaves out the same clusters, and the warp leaves
+// when no lane is left. `s` is the search's
 // form for these walks (`coop`), `stage` the tile's rays as it stages them.
 template <class Search, class Order>
 __device__ __forceinline__ void walk_coop(Search& s, const Order& ord,
@@ -1193,20 +1178,66 @@ __device__ __forceinline__ void trace_outside(const typename Search::In& in,
   }
 }
 
-// K4: one block per 128-ray block of the sorted stream, one thread per ray,
-// over the block's schedule entries (s0, s1), -1 entries left out.
-template <class Search>
-__global__ void trace_binned_kernel(typename Search::In in, Walk w,
-                                    const int* sched) {
+// K4: one CTA per `tile`-ray block of the sorted stream, one thread per ray.
+// The CTA stages the clusters of the block's two schedule entries (-1: none)
+// into shared memory: per entry the cluster's face ids and, per occupied
+// slot, its triangle row in kK4RowWords words, copied by cp.async. While the
+// copies fly, each thread reads its ray and slab-tests the two cluster
+// boxes; then one wait and one barrier, and every ray tests s0, then s1, as
+// the twin does: K1's gate, then the slot scan from shared memory by the
+// thread alone. Every lane of a warp reads the same slot, a broadcast (a scan
+// shared by the warp, `coop_test`, measured no faster: the lanes want the
+// same clusters). A CTA of several blocks that staged the distinct clusters
+// of their entries once (consecutive blocks share their s0) measured slower
+// at 4 and 8 blocks and even at 2. A block with no entry (the dead lanes and
+// keyless rays at the back of the stream) copies nothing and writes (t_max,
+// code0 or -1).
+__global__ void trace_binned_kernel(ExactIn in, Walk w, const int* sched) {
+  extern __shared__ __align__(16) float smem[];
   const long long blk = blockIdx.x;
   const long long ray = blk * blockDim.x + threadIdx.x;
-  Search s(in, w, ray);
-  int s0 = sched[2 * blk], s1 = sched[2 * blk + 1];
-  if (s0 < 0) {
-    s0 = s1;
-    s1 = -1;
+  const int cids[2] = {sched[2 * blk], sched[2 * blk + 1]};
+  if (cids[0] < 0 && cids[1] < 0) {
+    in.t_out[ray] = w.t_max[ray];
+    in.code_out[ray] = w.code0 ? w.code0[ray] : -1;
+    return;
   }
-  walk_plain(s, SchedOrder{s0, s1, (s0 >= 0) + (s1 >= 0)}, in, w);
+  // per entry the face ids (padded to 16 bytes), then kK4RowWords words a
+  // slot
+  const int fid_words = (w.slots + 3) & ~3;
+  const int per = fid_words + kK4RowWords * w.slots;
+  for (int i = threadIdx.x; i < 2 * w.slots; i += blockDim.x) {
+    const int e = i >= w.slots, slot = i - e * w.slots;
+    const int cid = e ? cids[1] : cids[0];  // no local-memory array
+    if (cid < 0) continue;
+    float* buf = smem + e * per;
+    const int f = w.face_id[(long long)cid * w.slots + slot];
+    ((int*)buf)[slot] = f;
+    if (f < 0) continue;
+    const float* tr = in.tri + 9LL * f;
+#pragma unroll
+    for (int q = 0; q < 9; ++q)
+      copy4(buf + fid_words + kK4RowWords * slot + q, tr + q, true);
+  }
+  __pipeline_commit();
+  Exact<false> s(in, w, ray);
+  float near_t[2], far_t[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    near_t[e] = far_t[e] = 0.0f;
+    if (cids[e] >= 0) slab(w.box + 6 * cids[e], s.r, near_t[e], far_t[e]);
+  }
+  __pipeline_wait_prior(0);
+  __syncthreads();  // both buffers are whole
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    if (cids[e] < 0) continue;
+    const bool want = (near_t[e] < far_t[e]) && (far_t[e] > 0.0f) &&
+                      (near_t[e] < s.bound());
+    const float* c = smem + e * per;
+    if (want)
+      s.scan<true, 1, kK4RowWords>(cids[e], (const int*)c, c + fid_words, w);
+  }
   s.store(in, ray);
 }
 
@@ -2025,6 +2056,146 @@ int launch_near(const typename Search::In& in, const Walk& w, int n_tiles,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The ray sort's coherence key (`wrt_top_keys`, `top_keys_kernel`): per ray
+// the n (2 or 3) smallest packed keys over the C boxes (the clusters, or the
+// supers of two-level tables), exactly `_top_keys_torch` (ops/cluster_cuda.py,
+// the body of ops/ray_sort.py `_top_keys`), which is the XLA code of
+// webgpu_raytracing_tpu/ops/ray_sort.py `nearest_cluster_key` (:37),
+// `nearest_cluster_key_fused` (:143) and `nearest_cluster_keys2` (:183); no
+// Pallas kernel. A box's key is its entry distance where the ray's slab test
+// admits it (near < far, near < t_max, far > 0; max(near, 0) with -0 made
+// +0), F32_MAX where not or, given t_start, where the entry lies below it,
+// its low mantissa bits (`kmask`) replaced by the box id. Keys are unique by
+// their id bits, so the n smallest kept in registers by insertion are the
+// n masked minima of the twin, miss keys and the int32 maximum (fewer than n
+// boxes) included.
+//
+// The twin makes (chunk, C) temporaries and 2-3 passes over them; here one
+// thread holds one ray and its n keys, and the block stages the boxes in
+// chunks of kKeyChunk, two float4s a box, that the lanes read together. The
+// work is R x C slab tests, about 25 f32 operations a ray-box pair
+// (ops/cluster_cuda.py BOX_TEST_OPS), so the kernel is bound by instruction
+// issue and the shared-memory reads of the boxes, as K2n's first half is.
+// Two things keep the pair at the slab test: a box that is not entered has a
+// miss key, and every miss key of a box past the first n is above the n keys
+// a ray holds once it has taken the first n boxes' keys (each below F32_MAX's
+// bits with id < n), so past them only an entered box can insert, and its
+// key is made only then.
+//
+// The chunk (kKeyChunk boxes) is staged eight times, once per sign octant
+// of inv_d, each box as its near corner and its far corner (axes sorted, as
+// K2n's first half sorts them, so that an inverted pad box tests like the
+// box between its swapped corners, as in `slab`), so that a ray reads the
+// corners of its own octant and needs no per-axis min and max. The octants'
+// copies lie 16 bytes apart in the banks, so the eight addresses of a warp's
+// read fall in distinct banks. Measured 3-10 % faster on every slice leg
+// than `slab` over one copy of the chunk read as a broadcast (PERF.md §6).
+constexpr int kKeyThreads = 256;
+constexpr int kKeyChunk = 128;
+constexpr int kKeyOctStride = 2 * kKeyChunk + 1;  // float4s an octant's copy
+constexpr int kI32Max = 0x7fffffff;
+
+// x into the ascending keys k, given x < k[kN - 1]; constant indices only,
+// so that k stays in registers
+template <int kN>
+__device__ __forceinline__ void key_insert(int (&k)[kN], int x) {
+#pragma unroll
+  for (int i = kN - 1; i > 0; --i)
+    if (x < k[i]) k[i] = x < k[i - 1] ? k[i - 1] : x;
+  if (x < k[0]) k[0] = x;
+}
+
+template <int kN, bool kTStart>
+__global__ void __launch_bounds__(kKeyThreads)
+    top_keys_kernel(const float* o, const float* inv_d, const float* t_max,
+                    const float* t_start, const float* box, int n_boxes,
+                    int kmask, int* keys, long long n_rays) {
+  __shared__ float4 s_box[8 * kKeyOctStride];
+  const long long ray = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  // the tail block's spare threads take the last ray and join the barriers
+  const long long q = ray < n_rays ? ray : n_rays - 1;
+  const Ray r{o[3 * q],     o[3 * q + 1],     o[3 * q + 2],
+              0.0f,         0.0f,             0.0f,
+              inv_d[3 * q], inv_d[3 * q + 1], inv_d[3 * q + 2]};
+  const float tm = t_max[q];
+  const float ts = kTStart ? t_start[q] : 0.0f;
+  int k[kN];
+#pragma unroll
+  for (int i = 0; i < kN; ++i) k[i] = kI32Max;
+  // the first kN boxes, every key (misses too), from the tables
+  const int head = min(kN, n_boxes);
+  for (int c = 0; c < head; ++c) {
+    float near_t, far_t;
+    slab(box + 6 * c, r, near_t, far_t);
+    float e = __uint_as_float(kF32MaxBits);
+    if ((near_t < far_t) && (near_t < tm) && (far_t > 0.0f))
+      e = entry_of(near_t);
+    if (kTStart && !(e >= ts)) e = __uint_as_float(kF32MaxBits);
+    const int key = (__float_as_int(e) & ~kmask) | c;
+    if (key < k[kN - 1]) key_insert<kN>(k, key);
+  }
+  const int oct = (r.ix < 0.0f) | ((r.iy < 0.0f) << 1) | ((r.iz < 0.0f) << 2);
+  const float4* sb = s_box + oct * kKeyOctStride;
+  for (int base = 0; base < n_boxes; base += kKeyChunk) {
+    const int m = min(kKeyChunk, n_boxes - base);
+    __syncthreads();  // the last chunk is read
+    for (int i = threadIdx.x; i < 8 * m; i += blockDim.x) {
+      const int v = i / m, j = i - v * m;
+      float bx[6];
+      sorted_box(box + 6LL * (base + j), bx);
+      const int nx = v & 1 ? 3 : 0, ny = v & 2 ? 4 : 1, nz = v & 4 ? 5 : 2;
+      s_box[v * kKeyOctStride + 2 * j] =
+          make_float4(bx[nx], bx[ny], bx[nz], 0.0f);
+      s_box[v * kKeyOctStride + 2 * j + 1] = make_float4(
+          bx[(nx + 3) % 6], bx[(ny + 3) % 6], bx[(nz + 3) % 6], 0.0f);
+    }
+    __syncthreads();  // the chunk is whole
+#pragma unroll 4
+    for (int j = max(head - base, 0); j < m; ++j) {
+      // the near and the far corner of each axis: the per-axis min and max
+      // of `slab`, by the monotonicity of rounding (K2n's `box_pass_ray`)
+      const float4 nc = sb[2 * j], fc = sb[2 * j + 1];
+      const float near_t =
+          max_nan(max_nan((nc.x - r.ox) * r.ix, (nc.y - r.oy) * r.iy),
+                  (nc.z - r.oz) * r.iz);
+      const float far_t =
+          min_nan(min_nan((fc.x - r.ox) * r.ix, (fc.y - r.oy) * r.iy),
+                  (fc.z - r.oz) * r.iz);
+      // near < far and near < t_max as one compare (a NaN far or t_max
+      // fails it, as it fails both)
+      if ((near_t < min_nan(far_t, tm)) && (far_t > 0.0f)) {
+        const float e = entry_of(near_t);
+        if (kTStart && !(e >= ts)) continue;
+        const int key = (__float_as_int(e) & ~kmask) | (base + j);
+        if (key < k[kN - 1]) key_insert<kN>(k, key);
+      }
+    }
+  }
+  if (ray < n_rays) {
+#pragma unroll
+    for (int i = 0; i < kN; ++i) keys[i * n_rays + ray] = k[i];
+  }
+}
+
+template <int kN>
+int launch_top_keys(const float* o, const float* inv_d, const float* t_max,
+                    const float* t_start, const float* box, int n_boxes,
+                    int kmask, int* keys, long long n_rays, void* stream) {
+  const long long blocks = (n_rays + kKeyThreads - 1) / kKeyThreads;
+  if (blocks > 0) {
+    if (t_start)
+      top_keys_kernel<kN, true>
+          <<<(unsigned)blocks, kKeyThreads, 0, (cudaStream_t)stream>>>(
+              o, inv_d, t_max, t_start, box, n_boxes, kmask, keys, n_rays);
+    else
+      top_keys_kernel<kN, false>
+          <<<(unsigned)blocks, kKeyThreads, 0, (cudaStream_t)stream>>>(
+              o, inv_d, t_max, t_start, box, n_boxes, kmask, keys, n_rays);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int wrt_trace_closest(
@@ -2047,14 +2218,34 @@ extern "C" int wrt_trace_binned(
     const int* excl, const int* sched, const float* box, const int* face_id,
     int slots, const float* tri, float eps2, const int* code0, float* t_out,
     int* code_out, int n_blocks, int tile, void* stream) {
+  if (tile < 1 || tile > 1024 || slots < 1) return (int)cudaErrorInvalidValue;
+  const size_t bytes =
+      sizeof(float) * 2 * (size_t)(((slots + 3) & ~3) + kK4RowWords * slots);
+  const int err = reserve_shared(trace_binned_kernel, bytes);
+  if (err) return err;
   if (n_blocks > 0)
-    trace_binned_kernel<Exact<false>>
-        <<<n_blocks, tile, 0, (cudaStream_t)stream>>>(
-            ExactIn{o, d, tri, t_out, code_out},
-            Walk{inv_d, t_max, excl, nullptr, nullptr, 0, box, face_id, slots,
-                 eps2, 0, nullptr, code0, 0, nullptr},
-            sched);
+    trace_binned_kernel<<<n_blocks, tile, bytes, (cudaStream_t)stream>>>(
+        ExactIn{o, d, tri, t_out, code_out},
+        Walk{inv_d, t_max, excl, nullptr, nullptr, 0, box, face_id, slots,
+             eps2, 0, nullptr, code0, 0, nullptr},
+        sched);
   return (int)cudaGetLastError();
+}
+
+// The coherence key: n (2 or 3) int32 keys per ray into keys (n, n_rays);
+// t_start may be null
+extern "C" int wrt_top_keys(const float* o, const float* inv_d,
+                            const float* t_max, const float* t_start,
+                            const float* box, int n_boxes, int kmask, int n,
+                            int* keys, long long n_rays, void* stream) {
+  if (n_boxes < 1 || n_rays < 0) return (int)cudaErrorInvalidValue;
+  if (n == 2)
+    return launch_top_keys<2>(o, inv_d, t_max, t_start, box, n_boxes, kmask,
+                              keys, n_rays, stream);
+  if (n == 3)
+    return launch_top_keys<3>(o, inv_d, t_max, t_start, box, n_boxes, kmask,
+                              keys, n_rays, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int wrt_trace_any(

@@ -17,10 +17,12 @@ the tile entry distances inside the kernel) and
 cluster fetched while the current one is tested);
 ``wrt_trace_near_closest_two_level`` / ``_any_`` / ``_pairs_two_level`` (K3
 and K3p ordering their supers inside the kernel); ``wrt_trace_binned`` (K4,
-the two scheduled clusters of each block of a sorted ray stream); and
-``wrt_error_string``. The closest-hit entries of K1, K2pl and K2n and K4
-take the code carried in beside t_max (or null), K1's also the cap and the
-stop output, K2n's closest-hit and any-hit entries the per-ray ``t_start``.
+the two scheduled clusters of each block of a sorted ray stream);
+``wrt_top_keys`` (the ray sort's coherence key: the n nearest entered boxes
+of each ray as packed int32 keys); and ``wrt_error_string``. The
+closest-hit entries of K1, K2pl and K2n and K4 take the code carried in
+beside t_max (or null), K1's also the cap and the stop output, K2n's
+closest-hit and any-hit entries the per-ray ``t_start``.
 :func:`load` raises if the library lacks any of them.
 
 Flags: ``--fmad=false`` keeps every product rounded before its add (the
@@ -154,6 +156,10 @@ def _entries():
         "wrt_trace_near_any_two_level": (i, near2_head + [i, p] + tail),
         "wrt_trace_near_pairs_two_level": (
             i, near2_pairs_head + [i] + pairs_out + tail),
+        # o, inv_d, t_max, t_start, box, n_boxes, kmask, n, keys, n_rays,
+        # stream
+        "wrt_top_keys": (i, [p, p, p, p, p, i, i, i, p, ctypes.c_longlong,
+                             p]),
         "wrt_error_string": (ctypes.c_char_p, [i]),
     }
 

@@ -37,8 +37,12 @@ while the current one is tested.
 K4 (:func:`trace_binned_tiles`, :func:`trace_binned_pass`; JAX
 ``trace_binned_pass``) is the pass of the binned traces (ops/ray_sort.py):
 each 128-ray block of a ray stream sorted by nearest cluster tests the two
-clusters of its schedule, with K1's gate and slot test and no order at
-all. The drain kernels take the hooks of those traces and of the multipass
+clusters of its schedule, staged in shared memory, with K1's gate and slot
+test and no order at all. The ray sort's coherence key
+(:func:`top_keys_tiles`, twin :func:`_top_keys_torch`; JAX
+``nearest_cluster_key`` and ``nearest_cluster_keys2``, XLA code there) is
+a kernel too: each ray's n nearest entered boxes as packed int32 keys.
+The drain kernels take the hooks of those traces and of the multipass
 trace (JAX ``t_start``, ``cap``, ``return_stop``): ``t_start`` leaves the
 boxes a ray entered nearer than that out of its tile's order, ``cap`` ends
 every tile's walk after that many clusters and reports where it stopped,
@@ -50,7 +54,7 @@ The wrappers (:func:`trace_closest_tiles`, :func:`trace_any_tiles`,
 :func:`trace_sched_tiles`; ``trace_near_{closest,any,pairs}_tiles`` and
 their ``_two_level`` forms;
 ``trace_pipelined_{closest,any,pairs}_tiles``; :func:`trace_binned_tiles`;
-all made by one factory
+:func:`top_keys_tiles`; all made by one factory
 from the launcher, the twin and the keywords that tell the entries apart)
 launch their kernel entry for CUDA tensors, counting each launch in their
 own ``launches``, and run the plain twin (their ``twin``) for CPU tensors
@@ -90,6 +94,7 @@ _INF = float(F32_MAX)
 # "twin" the plain twin on any device ("pallas_interpret").
 ROUTES = ("auto", "kernel", "twin")
 _F32_MAX_BITS = 0x7F7FFFFF
+_I32_MAX = 0x7FFFFFFF
 # the stop of a tile that walked its whole order: no best t lies above it
 STOP_DRAINED = 0x7FFFFFFF
 
@@ -627,6 +632,54 @@ def _binned_pass_torch(
         _test_clusters(rays[consider], cid[consider], o, d, excl, face_id,
                        tri, best, best_code, False, chunk, stats)
     return best, best_code
+
+
+def key_masks(c: int):
+    """(kmask, miss_th) of the ray sort's packed keys over ``c`` boxes: the
+    low mantissa bits that hold the box id, and the truncated F32_MAX at or
+    above which a key's distance means "no box"."""
+    kmask = (1 << max(1, (c - 1).bit_length())) - 1
+    return kmask, _F32_MAX_BITS & ~kmask
+
+
+def _top_keys_torch(o, inv_d, t_max, boxes, n: int, t_start=None,
+                    chunk: int = 65536):
+    """Plain-torch twin of the key kernel (the body of ``ray_sort._top_keys``;
+    JAX ``nearest_cluster_key`` and ``nearest_cluster_keys2``): the ``n``
+    smallest packed ``(near | box id)`` keys of every ray → n tensors (R,)
+    int32. The entry distance of each box the ray's slab test admits (near
+    < far, near < t_max, far > 0; clamped at 0, -0 made +0; F32_MAX
+    otherwise, and below the ray's ``t_start`` when given) and the box id
+    share one int32, the id in the low mantissa bits (:func:`key_masks`),
+    so each pick is one masked minimum and near ties within the truncation
+    break toward the lower id. ``chunk`` rays at a time keep the (chunk, C)
+    temporaries small."""
+    r = o.shape[0]
+    c = boxes.shape[0]
+    dev = o.device
+    kmask, _ = key_masks(c)
+    iota = torch.arange(c, dtype=torch.int32, device=dev)[None, :]
+    keys = [torch.empty((r,), dtype=torch.int32, device=dev)
+            for _ in range(n)]
+    for r0 in range(0, r, chunk):
+        sl = slice(r0, r0 + chunk)
+        tc = t_max[sl]
+        near, far = _slab(boxes[None], o[sl][:, None], inv_d[sl][:, None])
+        hit = (near < far) & (near < tc[:, None]) & (far > 0.0)
+        nears = torch.where(
+            hit, torch.clamp(near, min=0.0) + 0.0, torch.full_like(near, _INF)
+        )
+        if t_start is not None:
+            nears = torch.where(nears >= t_start[sl][:, None], nears,
+                                torch.full_like(nears, _INF))
+        pk = (nears.view(torch.int32) & ~kmask) | iota
+        for j in range(n):
+            k = torch.amin(pk, dim=1)
+            keys[j][sl] = k
+            if j + 1 < n:  # keys are unique by their id bits
+                pk = torch.where(pk == k[:, None],
+                                 torch.full_like(pk, _I32_MAX), pk)
+    return tuple(keys)
 
 
 def _walk_pairs_torch(
@@ -1275,6 +1328,35 @@ def _launch_binned(o, d, inv_d, t_max, excl, sched, box, face_id, tri, tile,
     return t_out, code_out
 
 
+def _launch_top_keys(o, inv_d, t_max, boxes, n: int, t_start=None,
+                     chunk=None):
+    """Check the arguments and launch the key kernel → n tensors (R,) int32
+    (``chunk``, the twin's memory knob, is not read)."""
+    from ._build import load
+
+    tensors = dict(o=(o, torch.float32), inv_d=(inv_d, torch.float32),
+                   t_max=(t_max, torch.float32), boxes=(boxes, torch.float32))
+    if t_start is not None:
+        tensors["t_start"] = (t_start, torch.float32)
+    dev = _check_cuda(tensors)
+    r, c = o.shape[0], boxes.shape[0]
+    if (
+        n not in (2, 3) or c < 1 or o.shape != (r, 3)
+        or inv_d.shape != (r, 3) or t_max.shape != (r,)
+        or boxes.shape != (c, 6)
+        or (t_start is not None and t_start.shape != (r,))
+    ):
+        raise ValueError(
+            "top keys kernel: inconsistent shapes, no box, or n not 2 or 3")
+    lib = load()
+    keys = torch.empty((n, r), dtype=torch.int32, device=dev)
+    _run(lib, lib.wrt_top_keys, dev, (
+        o.data_ptr(), inv_d.data_ptr(), t_max.data_ptr(), _ptr(t_start),
+        boxes.data_ptr(), c, key_masks(c)[0], n, keys.data_ptr(), r,
+    ))
+    return keys.unbind(0)
+
+
 def _launch_pairs(a, inv_d, t_max, excl, snear, order, box, face_id, mat_b,
                   tile, group: int = 0, pipelined: bool = False,
                   super_box=None):
@@ -1492,6 +1574,12 @@ trace_binned_tiles = _wrapper(
     "clusters ``sched[b, 0]`` and ``sched[b, 1]`` (-1: none) by K1's gate "
     "and slot test → (best t, code), starting from (t_max, start_code or "
     "-1).")
+top_keys_tiles = _wrapper(
+    "top_keys_tiles", _top_keys_torch, _launch_top_keys,
+    "The ray sort's coherence key (o, inv_d, t_max, boxes, n, t_start=None, "
+    "chunk=65536): per ray the ``n`` (2 or 3) smallest packed ``(near | box "
+    "id)`` keys over the boxes, misses included → n tensors (R,) int32 "
+    "(:func:`_top_keys_torch`).")
 
 # variant of a prepare_tiles dict → its (closest-hit, any-hit, pairs)
 # wrappers; K5 has a closest-hit entry only

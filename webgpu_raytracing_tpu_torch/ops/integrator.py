@@ -129,8 +129,9 @@ def trace_closest(o, d, t_max, tables, settings, active=None, excl=None,
     if settings.traversal == "clustered":
         fn = functools.partial(trace_closest_clustered,
                                tile=settings.trace_tile)
-        if sort and settings.sort_bounce_rays:
-            return Hit(*sorted_trace(fn, o, d, t_max, tables, active))
+        if sort and settings.sort_bounce_rays:  # the oracle: no kernel
+            return Hit(*sorted_trace(fn, o, d, t_max, tables, active,
+                                     route="twin"))
         return fn(o, d, t_max, tables, active)
     exact = settings.exact_pairs and (primary or settings.exact_pairs_bounce)
     kw = dict(sched_rounds=settings.trace_sched, **_kernel_settings(settings))
@@ -149,7 +150,7 @@ def trace_closest(o, d, t_max, tables, settings, active=None, excl=None,
 
     if exact:
         f1, f2, f3, amb = sorted_trace(tf, o, d, t_max, tables, active,
-                                       extra=excl)
+                                       extra=excl, route=kw["route"])
         tm_eff = t_max if active is None else torch.where(
             active, t_max, torch.zeros_like(t_max)
         )
@@ -170,7 +171,8 @@ def trace_closest(o, d, t_max, tables, settings, active=None, excl=None,
         ):
             t, face = sorted_trace_multipass(
                 drain, o, d, t_max, tables, active, extra=excl,
-                cap=settings.multipass_cap, passes=settings.multipass_passes)
+                cap=settings.multipass_cap, passes=settings.multipass_passes,
+                route=kw["route"])
             return rederive_uv(o, d, t, face, tables)
     ls = None
     if settings.live_slice and seg > 0:
@@ -180,7 +182,7 @@ def trace_closest(o, d, t_max, tables, settings, active=None, excl=None,
         return tm_tail, torch.full_like(tm_tail, -1, dtype=torch.int32)
 
     t, face = sorted_trace(tf, o, d, t_max, tables, active, extra=excl,
-                           live_slice=ls, tail=miss_tail)
+                           live_slice=ls, tail=miss_tail, route=kw["route"])
     return rederive_uv(o, d, t, face, tables)
 
 
@@ -198,6 +200,7 @@ def trace_any(o, d, t_max, tables, settings, active=None, excl=None,
     (exact arithmetic rejects the duplicate by t > 0)."""
     if settings.traversal == "threaded":
         return traverse.trace_any(o, d, t_max, tables, active)
+    key_route = _ROUTES.get(settings.traversal, "twin")  # the oracle: twin
     if settings.traversal == "clustered":
         excl = None
 
@@ -227,7 +230,7 @@ def trace_any(o, d, t_max, tables, settings, active=None, excl=None,
         return torch.zeros_like(tm_tail, dtype=torch.bool)
 
     return sorted_trace(fn, o, d, t_max, tables, active, extra=excl,
-                        live_slice=ls, tail=clear_tail)
+                        live_slice=ls, tail=clear_tail, route=key_route)
 
 
 def offset_ray(p: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
@@ -410,7 +413,8 @@ def path_trace(
         if chained and seg > 0:
             key = ray_sort.nearest_cluster_key(
                 o, d, torch.where(alive, t_max, torch.zeros_like(t_max)),
-                tables.clusters.sort_box)
+                tables.clusters.sort_box,
+                route=_ROUTES.get(settings.traversal, "twin"))
             perm = ray_sort.sort_keys(key)[1]
             if orig is None:
                 orig = torch.arange(r, device=dev)

@@ -26,10 +26,12 @@ kernel's walk per tile, regroups the rays it left unfinished by the next
 cluster they need, and traces those again. All three return the plain
 sorted trace's results.
 
-Plain torch throughout: the keys are a dense slab test of every ray
-against every box (the supers, for two-level tables), in chunks of rays;
-every permutation is a stable ``torch.sort``; rows are gathered by it and
-results scattered back through its inverse. Each ``lax.cond`` of the JAX
+The keys are the slab test of every ray against every box (the supers,
+for two-level tables), each ray's nearest entered boxes kept by the key
+kernel (:func:`.cluster_cuda.top_keys_tiles`; its plain twin on CPU
+tensors). The rest is plain torch: every permutation is a stable
+``torch.sort``; rows are gathered by it and results scattered back
+through its inverse. Each ``lax.cond`` of the JAX
 package on a count of rays becomes one device-to-host read of that count
 (:func:`live_count`, :func:`survivor_count`).
 
@@ -43,21 +45,16 @@ from __future__ import annotations
 
 import torch
 
-from ..config import F32_MAX, MIN_DIST
-from .cluster_cuda import code_to_face, trace_binned_pass
+from .cluster_cuda import (
+    code_to_face,
+    key_masks,
+    top_keys_tiles,
+    trace_binned_pass,
+)
 from .intersect import safe_inv_dir
 
-_INF = float(F32_MAX)
-_F32_MAX_BITS = 0x7F7FFFFF
 _I32_MAX = 0x7FFFFFFF
-
-
-def _key_masks(c: int):
-    """(kmask, miss_th) of the packed keys over ``c`` boxes: the low
-    mantissa bits that hold the box id, and the truncated F32_MAX at or
-    above which a key's distance means "no box"."""
-    kmask = (1 << max(1, (c - 1).bit_length())) - 1
-    return kmask, _F32_MAX_BITS & ~kmask
+_key_masks = key_masks
 
 
 def _cid_of(k: torch.Tensor, c: int) -> torch.Tensor:
@@ -67,49 +64,22 @@ def _cid_of(k: torch.Tensor, c: int) -> torch.Tensor:
                        torch.full_like(k, c))
 
 
-def _top_keys(o, d, t_max, boxes, chunk: int, n: int, t_start=None):
+def _top_keys(o, d, t_max, boxes, chunk: int, n: int, t_start=None,
+              route: str = "auto"):
     """The ``n`` smallest packed ``(near | box id)`` keys of every ray →
-    n tensors (R,) int32. The entry distance of each box the ray's slab
+    n tensors (R,) int32 (:func:`.cluster_cuda.top_keys_tiles`: the key
+    kernel for CUDA tensors, its plain twin for CPU tensors; ``route`` as
+    in cluster_cuda.ROUTES). The entry distance of each box the ray's slab
     test admits (near < far, near < t_max, far > 0; clamped at 0, -0 made
-    +0; F32_MAX otherwise, and below the ray's ``t_start`` when given)
-    and the box id share one int32, the id in the low mantissa bits, so
-    each pick is one masked minimum and near ties within the truncation
-    break toward the lower id. ``chunk`` rays at a time keep the (chunk,
-    C) temporaries small."""
-    r = o.shape[0]
-    c = boxes.shape[0]
-    dev = o.device
-    inv_d = safe_inv_dir(d)
-    kmask, _ = _key_masks(c)
-    iota = torch.arange(c, dtype=torch.int32, device=dev)[None, :]
-    keys = [torch.empty((r,), dtype=torch.int32, device=dev)
-            for _ in range(n)]
-    for r0 in range(0, r, chunk):
-        sl = slice(r0, r0 + chunk)
-        oc, ic, tc = o[sl], inv_d[sl], t_max[sl]
-        near = far = None
-        for ax in range(3):
-            oa, ia = oc[:, ax : ax + 1], ic[:, ax : ax + 1]
-            t0 = (boxes[None, :, ax] - oa) * ia
-            t1 = (boxes[None, :, 3 + ax] - oa) * ia
-            lo, hi = torch.minimum(t0, t1), torch.maximum(t0, t1)
-            near = lo if near is None else torch.maximum(near, lo)
-            far = hi if far is None else torch.minimum(far, hi)
-        hit = (near < far) & (near < tc[:, None]) & (far > MIN_DIST)
-        nears = torch.where(
-            hit, torch.clamp(near, min=0.0) + 0.0, torch.full_like(near, _INF)
-        )
-        if t_start is not None:
-            nears = torch.where(nears >= t_start[sl][:, None], nears,
-                                torch.full_like(nears, _INF))
-        pk = (nears.view(torch.int32) & ~kmask) | iota
-        for j in range(n):
-            k = torch.amin(pk, dim=1)
-            keys[j][sl] = k
-            if j + 1 < n:  # keys are unique by their id bits
-                pk = torch.where(pk == k[:, None],
-                                 torch.full_like(pk, _I32_MAX), pk)
-    return tuple(keys)
+    +0; F32_MAX otherwise, and below the ray's ``t_start`` when given) and
+    the box id share one int32, the id in the low mantissa bits, so near
+    ties within the truncation break toward the lower id. ``chunk`` rays
+    at a time keep the twin's (chunk, C) temporaries small."""
+    return top_keys_tiles(
+        o.contiguous(), safe_inv_dir(d).contiguous(), t_max.contiguous(),
+        boxes.contiguous(), n,
+        t_start=None if t_start is None else t_start.contiguous(),
+        chunk=chunk, route=route)
 
 
 def nearest_cluster_key(
@@ -119,6 +89,7 @@ def nearest_cluster_key(
     boxes: torch.Tensor,  # (C, 6)
     chunk: int = 65536,
     t_start: torch.Tensor | None = None,  # (R,)
+    route: str = "auto",
 ) -> torch.Tensor:
     """Coherence key (R,) int32: ``cid0 * (C + 1) + cid1`` of the ray's
     two nearest-entry hit boxes (:func:`_top_keys`), C standing for
@@ -127,18 +98,28 @@ def nearest_cluster_key(
     (entry not below t_start: the skip mask of the multipass and binned
     traces). The key only orders rays; no result depends on it."""
     c = boxes.shape[0]
-    k1, k2 = _top_keys(o, d, t_max, boxes, chunk, 2, t_start)
+    k1, k2 = _top_keys(o, d, t_max, boxes, chunk, 2, t_start, route)
     return _cid_of(k1, c) * (c + 1) + _cid_of(k2, c)
 
 
+def nearest_cluster_key_fused(o, d, t_max, boxes, route: str = "auto"):
+    """:func:`nearest_cluster_key` as one reduction (JAX
+    ``nearest_cluster_key_fused``, which takes the top two in one variadic
+    reduce instead of two masked minima): the key kernel keeps each ray's
+    two nearest keys in registers and writes nothing else, so here it is
+    :func:`nearest_cluster_key` with no ``chunk`` and no ``t_start``; the
+    same keys bit for bit."""
+    return nearest_cluster_key(o, d, t_max, boxes, route=route)
+
+
 def nearest_cluster_keys2(o, d, t_max, boxes, chunk: int = 65536,
-                          n: int = 2):
+                          n: int = 2, route: str = "auto"):
     """The raw top-``n`` (2 or 3) packed keys per ray (:func:`_top_keys`),
     the binned traces' scheduling primitive: the caller decodes cid1 (the
     bin of pass 1), cid2 (the bin of the mid pass) and the truncated
     near2 and near3, the bounds below which a ray has nothing left to
     run."""
-    return _top_keys(o, d, t_max, boxes, chunk, n)
+    return _top_keys(o, d, t_max, boxes, chunk, n, route=route)
 
 
 def _block_schedules(cid_s, n_blocks: int, tile: int, c: int):
@@ -203,7 +184,7 @@ def unsort(perm: torch.Tensor, leaves, rest=None):
 
 
 def sorted_trace(trace_fn, o, d, t_max, tables, active=None, extra=None,
-                 live_slice=None, tail=None):
+                 live_slice=None, tail=None, route: str = "auto"):
     """Run ``trace_fn(o, d, t_max, tables, None[, extra])`` with the rays
     permuted by :func:`nearest_cluster_key`; the result (a tensor or a
     tuple of tensors with R rows) is restored to the original ray order.
@@ -223,12 +204,14 @@ def sorted_trace(trace_fn, o, d, t_max, tables, active=None, extra=None,
     The stages are this module's functions (:func:`nearest_cluster_key`,
     :func:`sort_keys`, :func:`permute_rows`, :func:`live_count`,
     :func:`unsort`), looked up when called, so that a profile can wrap
-    each one; nothing is measured here."""
+    each one; nothing is measured here. ``route`` (cluster_cuda.ROUTES) is
+    the key's."""
     r = o.shape[0]
     if active is not None:
         t_max = torch.where(active, t_max, torch.zeros_like(t_max))
     boxes = tables.clusters.sort_box
-    key_s, perm = sort_keys(nearest_cluster_key(o, d, t_max, boxes))
+    key_s, perm = sort_keys(nearest_cluster_key(o, d, t_max, boxes,
+                                                route=route))
     o_s, d_s, tm_s, ex_s = permute_rows(perm, (o, d, t_max, extra))
     w = r
     if live_slice is not None and tail is not None and live_slice < 1.0:
@@ -330,7 +313,8 @@ def binned_trace(fn, o, d, t_max, tables, active=None, extra=None,
 
     ``fn(o, d, t_max, tables, None, excl_code=, t_start=, start_code=)``
     → (t, code) is the single-level closest-hit dispatcher with
-    ``raw="code"``; ``route`` (cluster_cuda.ROUTES) is K4's."""
+    ``raw="code"``; ``route`` (cluster_cuda.ROUTES) is K4's and the
+    keys'."""
     r0 = o.shape[0]
     if active is not None:
         t_max = torch.where(active, t_max, torch.zeros_like(t_max))
@@ -341,7 +325,7 @@ def binned_trace(fn, o, d, t_max, tables, active=None, extra=None,
     o, d, t_max, extra = _pad_rays(o, d, t_max, extra, tile)
     r = o.shape[0]
 
-    k1, k2, k3 = nearest_cluster_keys2(o, d, t_max, boxes, n=3)
+    k1, k2, k3 = nearest_cluster_keys2(o, d, t_max, boxes, n=3, route=route)
     cid_s, perm = sort_keys(_cid_of(k1, c))
     o_s, d_s, tm_s, k2_s, k3_s, ex_s = permute_rows(
         perm, (o, d, t_max, k2, k3, extra))
@@ -373,7 +357,8 @@ def binned_trace(fn, o, d, t_max, tables, active=None, extra=None,
                     torch.clamp((k3_s & ~kmask) - 1, min=0), stop_near2),
         dead)
     t_fin, c_fin = _recompact_final_pass(
-        fn, o_s, d_s, ex_s, t1, c1, stop, tables, boxes, surv_frac, tile)
+        fn, o_s, d_s, ex_s, t1, c1, stop, tables, boxes, surv_frac, tile,
+        route)
     t, code = unsort(perm, (t_fin, c_fin))
     return t[:r0], code_to_face(code[:r0], ct.face_id)
 
@@ -394,7 +379,7 @@ def binned_trace_any(fn, o, d, t_max, tables, active=None, extra=None,
     width), run the any-hit drain ``fn(o, d, t_max, tables, None,
     excl_code=, t_start=)`` → blocked, with ``t_start`` = the truncated
     entry of the first cluster not proven run (0: none is). ``route`` is
-    K4's, as in :func:`binned_trace`."""
+    K4's and the keys', as in :func:`binned_trace`."""
     r0 = o.shape[0]
     if active is not None:
         t_max = torch.where(active, t_max, torch.zeros_like(t_max))
@@ -404,7 +389,8 @@ def binned_trace_any(fn, o, d, t_max, tables, active=None, extra=None,
     o, d, t_max, extra = _pad_rays(o, d, t_max, extra, tile)
     r = o.shape[0]
 
-    ks = nearest_cluster_keys2(o, d, t_max, boxes, n=3 if mid else 2)
+    ks = nearest_cluster_keys2(o, d, t_max, boxes, n=3 if mid else 2,
+                               route=route)
     cid_s, perm = sort_keys(_cid_of(ks[0], c))
     o_s, d_s, tm_s, ks_s, ex_s = permute_rows(perm, (o, d, t_max, ks, extra))
     k1_s, k2_s = ks_s[0], ks_s[1]
@@ -449,7 +435,8 @@ def binned_trace_any(fn, o, d, t_max, tables, active=None, extra=None,
 
 
 def _recompact_final_pass(fn, o_s, d_s, ex_s, t_cur, c_cur, stop, tables,
-                          boxes, surv_frac: int, tile: int = 128):
+                          boxes, surv_frac: int, tile: int = 128,
+                          route: str = "auto"):
     """The uncapped last pass over the SURVIVORS only (``bits(t_cur) >
     stop``), compacted to a slice of ``1 / surv_frac`` of the width (JAX
     ``_recompact_final_pass``) → (t, code) in the given order, the other
@@ -461,7 +448,8 @@ def _recompact_final_pass(fn, o_s, d_s, ex_s, t_cur, c_cur, stop, tables,
     and traced by ``fn`` from the best they carry, skipping what is
     proven run; the results are scattered back over the slice's rows. If
     the survivors overflow the slice, the same pass runs at the full
-    width. Lanes of the slice that are no survivors ride along dead."""
+    width. Lanes of the slice that are no survivors ride along dead.
+    ``route`` is the key's."""
     r = o_s.shape[0]
     surv = _bits(t_cur) > stop
     t_start = stop.view(torch.float32)  # int32 max: NaN, which masks all
@@ -471,7 +459,8 @@ def _recompact_final_pass(fn, o_s, d_s, ex_s, t_cur, c_cur, stop, tables,
     o2, d2, ts2, t2, sv2 = permute_rows(
         idx, (o_s, d_s, t_start, t_cur, surv))
     tm2 = torch.where(sv2, t2, torch.zeros_like(t2))
-    p = sort_keys(nearest_cluster_key(o2, d2, tm2, boxes, t_start=ts2))[1]
+    p = sort_keys(nearest_cluster_key(o2, d2, tm2, boxes, t_start=ts2,
+                                      route=route))[1]
     rows = idx[p]
     o3, d3, tm3, ts3, c3, sv3, ex3 = permute_rows(p, (
         o2, d2, tm2, ts2, c_cur[idx], sv2, None if ex_s is None
@@ -486,7 +475,7 @@ def _recompact_final_pass(fn, o_s, d_s, ex_s, t_cur, c_cur, stop, tables,
 
 def sorted_trace_multipass(fn, o, d, t_max, tables, active=None, extra=None,
                            cap: int = 4, passes: int = 2,
-                           surv_frac: int = 8):
+                           surv_frac: int = 8, route: str = "auto"):
     """Capped walks and recompaction, closest-hit (JAX
     ``sorted_trace_multipass``) → (t, face) in the original ray order,
     equal to the plain sorted trace's.
@@ -504,25 +493,26 @@ def sorted_trace_multipass(fn, o, d, t_max, tables, active=None, extra=None,
     cap=, return_stop=)`` → (t, code[, stop]) is the single-level
     closest-hit dispatcher with ``raw="code"``, on a kernel that can cap
     (K1); one that cannot reports every tile as drained and pass 1 is
-    then the whole trace."""
+    then the whole trace. ``route`` is the keys'."""
     if active is not None:
         t_max = torch.where(active, t_max, torch.zeros_like(t_max))
     boxes = tables.clusters.sort_box
-    perm = sort_keys(nearest_cluster_key(o, d, t_max, boxes))[1]
+    perm = sort_keys(nearest_cluster_key(o, d, t_max, boxes, route=route))[1]
     o_s, d_s, ex_s = permute_rows(perm, (o, d, extra))
     t_cur, c_cur, stop = fn(o_s, d_s, t_max[perm], tables, None,
                             excl_code=ex_s, cap=cap, return_stop=True)
     if passes == 2:
         t_cur, c_cur = _recompact_final_pass(
             fn, o_s, d_s, ex_s, t_cur, c_cur, stop, tables, boxes,
-            surv_frac)
+            surv_frac, route=route)
         passes = 1  # no full-width pass follows
     for n_pass in range(1, passes):
         surv = _bits(t_cur) > stop
         tm_n = torch.where(surv, t_cur, torch.zeros_like(t_cur))
         t_start = stop.view(torch.float32)
         p = sort_keys(
-            nearest_cluster_key(o_s, d_s, tm_n, boxes, t_start=t_start))[1]
+            nearest_cluster_key(o_s, d_s, tm_n, boxes, t_start=t_start,
+                                route=route))[1]
         perm = perm[p]
         o_s, d_s, tm_n, t_start, t_cur, c_cur, surv, ex_s = permute_rows(
             p, (o_s, d_s, tm_n, t_start, t_cur, c_cur, surv, ex_s))
