@@ -16,7 +16,7 @@ import torch
 from webgpu_raytracing_tpu.frontend import cli as jcli
 from webgpu_raytracing_tpu_torch.frontend import cli
 from webgpu_raytracing_tpu_torch.utils.image import read_image, rmse
-from webgpu_raytracing_tpu_torch.utils.timing import FrameMetrics, timed
+from webgpu_raytracing_tpu_torch.utils.timing import FrameMetrics
 
 torch.set_num_threads(1)
 
@@ -36,17 +36,6 @@ def test_frame_metrics_jsonl(tmp_path):
         rows = [json.loads(line) for line in fh]
     assert len(rows) == 2
     assert rows[1]["mrays_per_s"] == pytest.approx(0.005, rel=1e-3)
-
-
-def test_timed_context(capsys):
-    with timed("x"):
-        pass
-    row = json.loads(capsys.readouterr().out)
-    assert row["label"] == "x" and row["wall_s"] >= 0
-    got = []
-    with timed("y", sink=got.append):
-        pass
-    assert got[0]["label"] == "y"
 
 
 def test_cli_render_and_compare_match_jax(tmp_path, capsys):

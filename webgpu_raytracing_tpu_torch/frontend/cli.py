@@ -213,7 +213,7 @@ def cmd_render(args):
             r.step()  # ends with the ray count's read-back: frame done
             row = metrics.record(
                 time.perf_counter() - t0, r.last_rays,
-                r.counter * per_frame,
+                r.counter * per_frame, r.last_counts,
             )
             print(json.dumps(row))
             if args.checkpoint and r.counter % args.checkpoint_every == 0:
@@ -406,7 +406,8 @@ def build_parser():
     sp.add_argument("--resume", default=None)
     sp.add_argument("--metrics", default=None, help="JSONL metrics path")
     sp.add_argument("--profile", default=None,
-                    help="torch.profiler Chrome trace directory")
+                    help="torch.profiler Chrome trace directory, with the "
+                    "port's wrt.* spans over the kernels")
     sp.set_defaults(fn=cmd_render)
 
     sp = sub.add_parser("compare", help="RMSE between two images")

@@ -77,6 +77,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..config import F32_MAX, TRACE_SCHED_VALUES
+from ..utils.timing import span, traced
 from .adjudicate import adjudicate_compact
 from .cluster_trace import (
     EPS2,
@@ -1161,8 +1162,10 @@ def _check_walk(r, inv_d, t_max, excl, snear, order, box, face_id, tile,
 
 def _run(lib, entry, dev, args) -> None:
     """Launch ``entry`` on the current stream of ``dev``, the current
-    device (:func:`_check_cuda`); raise on a launch error."""
-    err = entry(*args, torch.cuda.current_stream(dev).cuda_stream)
+    device (:func:`_check_cuda`); raise on a launch error. Every launch of
+    the library is this span, ``wrt.trace.kernel``."""
+    with span("wrt.trace.kernel"):
+        err = entry(*args, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(
             "cluster trace kernel launch failed: "
@@ -1606,6 +1609,7 @@ class TileArgs(dict):
     variant = "single"
 
 
+@traced("wrt.trace.prep")
 def prepare_tiles(o, d, t_max, tables, active=None, excl_code=None,
                   tile: int = 128, two_level: Optional[bool] = None,
                   pairs: bool = False, near: str = "outside",

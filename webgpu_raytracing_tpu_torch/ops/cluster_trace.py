@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from ..config import EPSILON, F32_MAX, MIN_DIST
+from ..utils.timing import traced
 from .detmath import det_div
 from .intersect import Hit, safe_inv_dir
 from .strictf import scross, sdot3
@@ -181,6 +182,7 @@ def exact_face_eval(o, d, tri, present, t_bound):
     return valid, t, u_num / det_safe, v_num / det_safe
 
 
+@traced("wrt.trace.rederive")
 def rederive_uv(o, d, t, face, tables) -> Hit:
     """Exact t and barycentrics of the winning triangle, from the face
     alone (unmasked Möller–Trumbore algebra, correctly rounded divides);

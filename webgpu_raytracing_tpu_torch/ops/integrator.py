@@ -41,6 +41,7 @@ from typing import NamedTuple
 import torch
 
 from ..config import F32_MAX, INV_PI, RenderSettings, ShadingType
+from ..utils.timing import count, traced
 from . import detmath, ray_sort, rng, traverse
 from .adjudicate import adjudicate_compact
 from .cluster_cuda import (
@@ -95,6 +96,7 @@ def _per_ray_schedulable(tables) -> bool:
     return tables.clusters.super_box is None
 
 
+@traced("wrt.trace")
 def trace_closest(o, d, t_max, tables, settings, active=None, excl=None,
                   primary=False, sort=False, seg=0):
     """Closest-hit trace of one path segment: the cluster kernels for CUDA
@@ -186,6 +188,7 @@ def trace_closest(o, d, t_max, tables, settings, active=None, excl=None,
     return rederive_uv(o, d, t, face, tables)
 
 
+@traced("wrt.trace")
 def trace_any(o, d, t_max, tables, settings, active=None, excl=None,
               sort=False, seg=0):
     """Shadow-ray trace → (R,) bool blocked: the kernels' any-hit entries
@@ -355,6 +358,7 @@ class PathResult(NamedTuple):
     rays: torch.Tensor  # () f32: rays traced (bench accounting)
 
 
+@traced("wrt.shade")
 def path_trace(
     o: torch.Tensor,  # (R, 3)
     d: torch.Tensor,  # (R, 3)
@@ -404,7 +408,10 @@ def path_trace(
     orig = None  # the pixel of each lane, once the lanes are permuted
 
     for seg in range(max(settings.bounces_depth - 1, 0)):
-        rays = rays + alive.to(torch.float32).sum()
+        live = alive.to(torch.float32).sum()
+        rays = rays + live
+        count("trace.closest.live", live)
+        count("trace.closest.lanes", r)
         t_max = (
             t_max0
             if seg == 0
@@ -471,9 +478,12 @@ def path_trace(
                 sort=sort_here, seg=seg,
             )
             color = torch.where(h3, color + nee * throughput, color)
-            rays = rays + h.to(torch.float32).sum() * float(
+            live = h.to(torch.float32).sum() * float(
                 settings.samples_per_point
             )
+            rays = rays + live
+            count("trace.shadow.live", live)
+            count("trace.shadow.lanes", r * settings.samples_per_point)
 
         # env-NEE up to env_nee_depth vertices (0: all); deeper vertices
         # keep BSDF sampling as their only env strategy (MIS weight 1)
@@ -498,7 +508,10 @@ def path_trace(
                 / torch.clamp(epdf, min=1e-20)
             ).unsqueeze(-1)
             color = torch.where(vis.unsqueeze(-1), color + contrib, color)
-            rays = rays + (h & facing).to(torch.float32).sum()
+            live = (h & facing).to(torch.float32).sum()
+            rays = rays + live
+            count("trace.env_shadow.live", live)
+            count("trace.env_shadow.lanes", r)
 
         t2, s2 = rng.random_2(state)
         state = rng.masked_advance(state, s2, h)
@@ -549,6 +562,7 @@ def path_trace(
     return PathResult(color=color, state=state, first_hit=first_hit, rays=rays)
 
 
+@traced("wrt.shade")
 def trace_direct(o, d, t_max0, state, tables, env_data,
                  settings: RenderSettings) -> PathResult:
     """Direct-lighting-only integrator (BASELINE config #1, chosen when
@@ -558,6 +572,8 @@ def trace_direct(o, d, t_max0, state, tables, env_data,
         env_data = env_data.img
     r = o.shape[0]
     hit = trace_closest(o, d, t_max0, tables, settings, primary=True)
+    count("trace.closest.live", r)  # every lane of the leg is live
+    count("trace.closest.lanes", r)
     found = hit.face >= 0
     f3 = found.unsqueeze(-1)
     env = sample_environment(env_data, d, settings.environment)

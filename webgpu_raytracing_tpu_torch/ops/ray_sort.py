@@ -45,6 +45,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.timing import traced
 from .cluster_cuda import (
     code_to_face,
     key_masks,
@@ -82,6 +83,7 @@ def _top_keys(o, d, t_max, boxes, chunk: int, n: int, t_start=None,
         chunk=chunk, route=route)
 
 
+@traced("wrt.trace.sort")
 def nearest_cluster_key(
     o: torch.Tensor,  # (R, 3)
     d: torch.Tensor,  # (R, 3)
@@ -112,6 +114,7 @@ def nearest_cluster_key_fused(o, d, t_max, boxes, route: str = "auto"):
     return nearest_cluster_key(o, d, t_max, boxes, route=route)
 
 
+@traced("wrt.trace.sort")
 def nearest_cluster_keys2(o, d, t_max, boxes, chunk: int = 65536,
                           n: int = 2, route: str = "auto"):
     """The raw top-``n`` (2 or 3) packed keys per ray (:func:`_top_keys`),
@@ -141,24 +144,31 @@ def _block_schedules(cid_s, n_blocks: int, tile: int, c: int):
     return sched, flag
 
 
+@traced("wrt.trace.sort")
 def permute_rows(perm: torch.Tensor, tree):
     """Gather the rows ``perm`` of every tensor of ``tree`` (a tensor, or
     a tuple, list or dict of trees; None stays None)."""
+    return _gather(perm, tree)
+
+
+def _gather(perm, tree):
     if tree is None:
         return None
     if torch.is_tensor(tree):
         return tree[perm]
     if isinstance(tree, dict):
-        return {k: permute_rows(perm, v) for k, v in tree.items()}
-    return type(tree)(permute_rows(perm, v) for v in tree)
+        return {k: _gather(perm, v) for k, v in tree.items()}
+    return type(tree)(_gather(perm, v) for v in tree)
 
 
+@traced("wrt.trace.sort")
 def sort_keys(key: torch.Tensor):
     """(sorted keys, the permutation that sorts them): a stable sort, so
     the permutation is deterministic."""
     return torch.sort(key, stable=True)
 
 
+@traced("wrt.trace.sort")
 def live_count(key_s: torch.Tensor, n_boxes: int) -> int:
     """How many rays enter some box (a key below ``n_boxes * (n_boxes +
     1)``: at or above it the nearest box is already "none"), read from the
@@ -166,12 +176,14 @@ def live_count(key_s: torch.Tensor, n_boxes: int) -> int:
     return int((key_s < n_boxes * (n_boxes + 1)).sum())
 
 
+@traced("wrt.trace.sort")
 def survivor_count(surv: torch.Tensor) -> int:
     """How many rays of a pass still need work, read from the device: it
     decides whether they fit the next pass's slice."""
     return int(surv.sum())
 
 
+@traced("wrt.trace.sort")
 def unsort(perm: torch.Tensor, leaves, rest=None):
     """Restore ``leaves`` (tensors in sorted order, followed by ``rest``,
     the rows that were not traced, when the leg was sliced) to the

@@ -17,6 +17,7 @@ from typing import Tuple
 import torch
 
 from ..config import FovOrientation, LensShape, ProjectionType, RenderSettings
+from ..utils.timing import traced
 from . import rng
 from .detmath import det_div, det_sincos, det_sqrt, det_tan, normalize
 
@@ -70,6 +71,7 @@ def fisheye_dir(uv: torch.Tensor, fov: float) -> torch.Tensor:
     return normalize(torch.stack([-sax, -say * cax, cay * cax], dim=-1))
 
 
+@traced("wrt.raygen")
 def camera_rays(
     pos: torch.Tensor,  # (R, 2) pixel coordinates (jittered)
     view: torch.Tensor,  # (4, 4) view matrix (camera → world)

@@ -42,6 +42,8 @@ from .ops.reproject import reproject, reprojection_frustum
 from .ops.tonemap import apply as tonemap_apply
 from .ops.tonemap import gamma as tonemap_gamma
 from .ops.wireframe import overlay_wireframe, rasterize_bvh_wireframe
+from .utils import timing
+from .utils.timing import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -191,7 +193,8 @@ def render_tile(
     def one_sample(pos, state):
         o, d, state = camera_rays(pos, inputs.view, state, settings)
         if prev_quads is not None:
-            t_max = predict_hit_dist(o, d, prev_quads, tables)
+            with span("wrt.raygen"):
+                t_max = predict_hit_dist(o, d, prev_quads, tables)
         else:
             t_max = torch.full((r,), F32_MAX, dtype=torch.float32,
                                device=dev)
@@ -425,6 +428,8 @@ class Renderer:
         )
         self._rng = np.random.default_rng(base_seed)
         self.last_rays = 0.0  # rays traced in the last frame (metrics)
+        # the last frame's counters (utils/timing.py); empty unless tracing
+        self.last_counts = {}
         self._prev_view = np.eye(4, dtype=np.float32)
         self._jitter = None  # redrawn when updatePrev fires
 
@@ -456,7 +461,13 @@ class Renderer:
 
     def step(self, seed: Optional[int] = None) -> None:
         """renderFrame (render.ts:1651-1710). Seeds and jitter are drawn
-        from the host generator in the JAX package's order."""
+        from the host generator in the JAX package's order. The frame is
+        the span ``wrt.frame`` (its args: ``counter``)."""
+        timing.reset_counts()
+        with span("wrt.frame", self.counter):
+            self._step(seed)
+
+    def _step(self, seed: Optional[int]) -> None:
         if seed is None:
             seed = int(self._rng.integers(0, 2**32, dtype=np.uint64))
         rate = self.settings.reprojection_rate
@@ -494,7 +505,9 @@ class Renderer:
         self.buffers, rays = frame_fn(
             self.buffers, self.tables, self.env_data, inputs, self.settings
         )
-        self.last_rays = float(rays)
+        # the frame's one read-back: the ray count, with tracing on
+        # together with the frame's device counters
+        self.last_rays, self.last_counts = timing.read_counts(rays)
         self.counter += 1
         if update_prev:
             self.buffers = self.buffers.rotated()
