@@ -15,7 +15,17 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
    ``_pairs``: K2pl; ``wrt_trace_near_closest_two_level`` / ``_any_`` /
    ``_pairs_two_level``: K3 and K3p ordering their supers themselves;
    ``wrt_top_keys``: the ray sort's coherence key; csrc/cluster_trace.cu)
-   from the checkout into build/kernels/.
+   and ``wrt_camera_rays`` (csrc/raygen.cu) from the checkout into
+   build/kernels/.
+2b. camera rays (``phase_raygen``): the kernel ``wrt_camera_rays``
+   (csrc/raygen.cu) on a config #5 slab (3840x270 = 1,036,800 rays,
+   Panini, circle lens, the last slab's rows) and on a 256x256 call
+   (pinhole, config #1): o, d and the state bit for bit against the
+   plain twin on the CPU, one launch a call; the kernel (on the device
+   trace, and back to back by CUDA events) and the twin on the card
+   (CUDA events) timed beside the kernel's bound (the twin's
+   f32 operations a ray, counted on one ray, over 67 TFLOP/s, or 48
+   bytes a ray over 3.35 TB/s, the larger).
 3. K1 vs twins: on 1080p ray sets of ``stress_scene(44_556)`` made
    from frame 0 exactly as ``path_trace`` makes them, each CUDA entry and
    its plain-torch twin run on the same device tensors. Closest-hit: the
@@ -192,10 +202,9 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
    accumulation, a ``set`` of ``resolution_scale``; 240 K2n launches;
    the smoothed ms/frame and Mrays/s printed.
 
-Prints the per-kernel JSON line (eighteen kernels; K2n's entries hold the
-predictor-bounded leg, the front door's numbers and the oracle checks),
-then the
-``nvidia-smi`` name/power line, then ``{"ok": true, "device": {...}}`` as
+Prints the per-kernel JSON line (nineteen kernels, camera rays last;
+K2n's entries hold the predictor-bounded leg, the front door's numbers
+and the oracle checks), then the ``nvidia-smi`` name/power line, then ``{"ok": true, "device": {...}}`` as
 the last line.
 """
 
@@ -281,6 +290,109 @@ def _time_cuda(torch, fn, reps: int, warm: bool = True) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _raygen_ops(torch, st) -> int:
+    """The plain twin's f32 arithmetic on one ray of ``st`` (each add,
+    subtract, multiply, divide, square root, round, negation and clamp
+    counted once): the camera rays kernel's operations a ray."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from webgpu_raytracing_tpu_torch.ops import rng
+    from webgpu_raytracing_tpu_torch.ops.raygen import camera_rays
+
+    arith = {"add", "sub", "rsub", "mul", "div", "sqrt", "round", "neg",
+             "clamp", "clamp_min"}
+
+    class Count(TorchDispatchMode):
+        ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if (func.overloadpacket.__name__.rstrip("_") in arith
+                    and isinstance(out, torch.Tensor)
+                    and out.dtype == torch.float32):
+                Count.ops += out.numel()
+            return out
+
+    with Count():
+        camera_rays.twin(torch.tensor([[10.5, 20.25]]), torch.eye(4),
+                         rng.seed_state(5, torch.arange(1)), st)
+    return Count.ops
+
+
+def phase_raygen(torch, card):
+    """Phase 2b: the camera rays kernel against the CPU twin, timed beside
+    its bound and the twin on the card → its ``kernels`` entry."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from webgpu_raytracing_tpu_torch.camera import Camera
+    from webgpu_raytracing_tpu_torch.config import (
+        ProjectionType, RenderSettings,
+    )
+    from webgpu_raytracing_tpu_torch.ops import rng
+    from webgpu_raytracing_tpu_torch.ops.raygen import camera_rays
+
+    dev = torch.device(DEVICE)
+    calls = {
+        "config5_slab": (RenderSettings(**CONFIG5), 1890, 270),
+        "analytic_256": (RenderSettings(
+            width=256, height=256,
+            projection_type=ProjectionType.PERSPECTIVE), 0, 256),
+    }
+    out = {}
+    for name, (st, row0, rows) in calls.items():
+        w = st.render_width
+        gen = np.random.default_rng(7)
+        ys, xs = np.meshgrid(np.arange(row0, row0 + rows), np.arange(w),
+                             indexing="ij")
+        pos = np.stack([xs, ys], -1).reshape(-1, 2).astype(np.float32)
+        pos += gen.uniform(0.0, 1.0, pos.shape).astype(np.float32)
+        pos = torch.from_numpy(pos).to(dev)
+        view = torch.as_tensor(Camera().view_matrix(), device=dev)
+        idx = torch.from_numpy((xs + ys * w).reshape(-1)).to(dev)
+        state = rng.seed_state(3141592653, idx)
+        r = pos.shape[0]
+        before = camera_rays.launches
+        got = camera_rays(pos, view, state, st)
+        torch.cuda.synchronize()
+        if camera_rays.launches != before + 1:
+            fail(f"camera rays {name}: {camera_rays.launches - before} "
+                 "launches for one call")
+        want = camera_rays.twin(pos.cpu(), view.cpu(), state.cpu(), st)
+        for what, g, x in zip(("o", "d", "state"), got, want):
+            if not torch.equal(g.cpu().contiguous().view(torch.int32),
+                               x.contiguous().view(torch.int32)):
+                fail(f"camera rays {name}: {what} differs from the CPU twin")
+        ms = _time_cuda(torch, lambda: camera_rays(pos, view, state, st), 50)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                camera_rays(pos, view, state, st)
+            torch.cuda.synchronize()
+        kern = [e.time_range.elapsed_us() for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        if len(kern) != 20:
+            fail(f"camera rays {name}: {len(kern)} device operations for 20 "
+                 "calls")
+        device_ms = sum(kern) / len(kern) / 1e3
+        plain_ms = _time_cuda(
+            torch, lambda: camera_rays.twin(pos, view, state, st), 3)
+        ops = _raygen_ops(torch, st) * r
+        nbytes = 48 * r + 64
+        ops_ms, bytes_ms = ops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
+        out[name] = dict(
+            rays=r, projection=st.projection_type.name, ms=device_ms,
+            ms_back_to_back=ms, plain_ms=plain_ms,
+            bound_ms=max(ops_ms, bytes_ms),
+            bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+            ops=ops, bytes=nbytes, mismatch=0)
+        print(f"camera rays {name}: {r} rays bit for bit against the CPU "
+              f"twin; kernel {device_ms:.4f} ms on the device trace "
+              f"({ms:.4f} ms a call back to back), twin on the card "
+              f"{plain_ms:.3f} ms, bound {out[name]['bound_ms']:.4f} ms by "
+              f"{out[name]['bound_by']} ({card})", flush=True)
+    return out
 
 
 def sky_equirect(torch, h: int, w: int, dev):
@@ -1160,8 +1272,9 @@ def drive_path(torch, name, scene, st, frames, seed, card, per_frame,
                env_data=None, finite=True):
     """Render one warm-up and ``frames`` timed frames through Renderer on
     the card; check sample counts, launch counts (per frame, in the order
-    of WRAPPERS) and the image; return (the measured numbers, the
-    Renderer)."""
+    of WRAPPERS; the camera rays kernel once a sample and slab) and the
+    image; return (the measured numbers, the Renderer)."""
+    from webgpu_raytracing_tpu_torch.ops.raygen import camera_rays
     from webgpu_raytracing_tpu_torch.renderer import Renderer
 
     t0 = time.perf_counter()
@@ -1172,6 +1285,7 @@ def drive_path(torch, name, scene, st, frames, seed, card, per_frame,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _zero_launch_counts()
+    camera_rays.launches = 0
     rays = 0.0
     t0 = time.perf_counter()
     for _ in range(frames):
@@ -1180,6 +1294,7 @@ def drive_path(torch, name, scene, st, frames, seed, card, per_frame,
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = _launch_counts()
+    raygen = camera_rays.launches
     peak = torch.cuda.max_memory_allocated()
     img = r.buffers.image
     want = (1.0 + st.sample_count) * (frames + 1)
@@ -1190,6 +1305,10 @@ def drive_path(torch, name, scene, st, frames, seed, card, per_frame,
     if launches != expect:
         fail(f"{name}: launches {launches} of {WRAPPERS} in {frames} "
              f"frames, expected {expect}")
+    raygen_per_frame = st.frame_slabs * (1 + st.sample_count)
+    if raygen != raygen_per_frame * frames:
+        fail(f"{name}: {raygen} camera rays kernel launches in {frames} "
+             f"frames, expected {raygen_per_frame * frames}")
     rgb = img[..., :3]
     if bool(torch.isinf(rgb).any()):
         fail(f"{name}: +-inf in the accumulation buffer")
@@ -1206,12 +1325,12 @@ def drive_path(torch, name, scene, st, frames, seed, card, per_frame,
     print(f"{name}: {frames} frames of {st.width}x{st.height} "
           f"(frame_slabs {st.frame_slabs}), {ms:.1f} ms/frame, "
           f"{mrays:.3f} Mrays/s ({rays / frames:.0f} rays/frame), launches "
-          f"{ {w: n for w, n in zip(WRAPPERS, launches) if n} }, NaN pixels "
-          f"{nan_share:.4f}, "
+          f"{ {w: n for w, n in zip(WRAPPERS, launches) if n} }, camera "
+          f"rays kernel {raygen}, NaN pixels {nan_share:.4f}, "
           f"peak memory {peak / 2**30:.2f} GiB, Renderer set-up "
           f"{setup_s:.1f} s ({card})", flush=True)
-    return dict(launches=launches, ms_per_frame=ms, mrays=mrays,
-                nan_share=nan_share, peak_gib=peak / 2**30,
+    return dict(launches=launches, raygen_per_frame=raygen / frames,
+                ms_per_frame=ms, mrays=mrays, nan_share=nan_share, peak_gib=peak / 2**30,
                 rays_per_frame=rays / frames), r
 
 
@@ -2599,6 +2718,7 @@ def main() -> int:
 
     card = phase_environment(torch)
     phase_build()
+    raygen = phase_raygen(torch, card)
     from webgpu_raytracing_tpu_torch.config import RenderSettings
     from webgpu_raytracing_tpu_torch.models.stress import stress_scene
     from webgpu_raytracing_tpu_torch.ops.cluster_cuda import is_two_level
@@ -2807,6 +2927,16 @@ def main() -> int:
                   "sorted", "nee_sorted", "binned", "binned_any_nee",
                   "multipass", "binned_near", "sorted_near", "chained",
                   "sorted_near_nee", "chained_nee")}),
+        dict(name="camera_rays", route="cuda",
+             source="webgpu_raytracing_tpu_torch/csrc/raygen.cu",
+             replaces="none: XLA code in webgpu_raytracing_tpu/ops/raygen.py",
+             launches_per_call=1, mismatches=0, library_ms=None,
+             launches_per_frame={
+                 k: paths[k]["raygen_per_frame"] for k in ("config5",
+                                                            "direct")},
+             timed_leg="config5_slab", legs=raygen,
+             **{k: raygen["config5_slab"][k] for k in (
+                 "ms", "plain_ms", "bound_ms", "bound_by")}),
     ]}), flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all",
           flush=True)

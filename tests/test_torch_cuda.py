@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from webgpu_raytracing_tpu_torch.camera import Camera
 from webgpu_raytracing_tpu_torch.config import F32_MAX, RenderSettings
 from webgpu_raytracing_tpu_torch.models.scene import scene_from_facesets
 from webgpu_raytracing_tpu_torch.models.test_models import (
@@ -23,6 +24,8 @@ from webgpu_raytracing_tpu_torch.models.test_models import (
     uv_sphere,
 )
 from webgpu_raytracing_tpu_torch.ops import cluster_cuda as cc
+from webgpu_raytracing_tpu_torch.ops import rng as trng
+from webgpu_raytracing_tpu_torch.ops.raygen import camera_rays
 from webgpu_raytracing_tpu_torch.renderer import Renderer
 
 torch.set_num_threads(1)
@@ -972,3 +975,111 @@ def test_sorted_binned_chained_frames_on_card(cuda):
         got, launched = run(settings)
         assert launched == keys, (name, launched)
         assert torch.equal(got.view(torch.int32), want.view(torch.int32)), name
+
+
+def _camera_inputs(w, h, row0, rows, seed, moved, dev):
+    """Jittered pixel positions of ``rows`` rows from ``row0`` of a w x h
+    image, the view of the default or a moved and rotated camera, and the
+    state words of ``seed`` (near 2^32, so they wrap)."""
+    rng = np.random.default_rng(seed)
+    ys, xs = np.meshgrid(np.arange(row0, row0 + rows), np.arange(w),
+                         indexing="ij")
+    pos = np.stack([xs, ys], -1).reshape(-1, 2).astype(np.float32)
+    pos += rng.uniform(0.0, 1.0, pos.shape).astype(np.float32)
+    cam = Camera()
+    if moved:
+        cam.rotate(np.array([0.3, -0.7], np.float32))
+        cam.move(np.array([0.4, -0.2, 1.3], np.float32))
+    idx = torch.from_numpy((xs + ys * w).reshape(-1))
+    state = trng.seed_state(2**32 - 1 - int(rng.integers(0, 5 * w)), idx)
+    return (torch.from_numpy(pos).to(dev),
+            torch.from_numpy(cam.view_matrix()).to(dev), state.to(dev))
+
+
+def _assert_rays_equal_cpu_twin(pos, view, state, st):
+    """One launch; o, d and the state equal the CPU twin's bit for bit."""
+    before = camera_rays.launches
+    got = camera_rays(pos, view, state, st)
+    torch.cuda.synchronize()
+    assert camera_rays.launches == before + 1
+    want = camera_rays.twin(pos.cpu(), view.cpu(), state.cpu(), st)
+    for g, w in zip(got[:2], want[:2]):
+        np.testing.assert_array_equal(
+            g.cpu().numpy().view(np.int32),
+            w.contiguous().numpy().view(np.int32))
+    assert torch.equal(got[2].cpu(), want[2])
+
+
+@pytest.mark.parametrize("lens", [0, 1], ids=["circle", "square"])
+@pytest.mark.parametrize("projection", [0, 1, 2, 3],
+                         ids=["fisheye", "panini", "pinhole", "ortho"])
+def test_camera_rays_kernel_matches_cpu_twin_on_card(cuda, projection, lens):
+    """Every FoV orientation, circle of confusion 0 and 0.05, two focus
+    distances, the default and a moved camera, on 37 x 23 = 851 rays (not
+    a multiple of the block) with state words near 2^32."""
+    for orientation in range(3):
+        for coc in (0.0, 0.05):
+            for focus in (4.0, 1.7):
+                st = RenderSettings(
+                    width=37, height=23, projection_type=projection,
+                    lens_shape=lens, fov_orientation=orientation,
+                    circle_of_confusion=coc, focus_distance=focus)
+                for moved in (False, True):
+                    _assert_rays_equal_cpu_twin(
+                        *_camera_inputs(37, 23, 0, 23, orientation, moved,
+                                        cuda), st)
+
+
+@pytest.mark.parametrize("row0", [0, 1890], ids=["first", "last"])
+def test_camera_rays_kernel_config5_slab_on_card(cuda, row0):
+    """A config #5 slab (Panini, circle lens): 3840 x 270 = 1,036,800
+    rays, the first slab's rows and the last's."""
+    st = RenderSettings(width=3840, height=2160, frame_slabs=8)
+    _assert_rays_equal_cpu_twin(
+        *_camera_inputs(3840, 2160, row0, 270, 5, False, cuda), st)
+
+
+def test_camera_rays_one_launch_and_checks_on_card(cuda):
+    """One device operation a call, the kernel, by the profiler too; a
+    frame launches it once per sample and slab;
+    a wrong dtype, shape or a non-contiguous input raises."""
+    from torch.profiler import ProfilerActivity, profile
+
+    pos, view, state = _camera_inputs(64, 32, 0, 32, 3, True, cuda)
+    for projection in range(4):
+        for lens in range(2):
+            st = RenderSettings(width=64, height=32,
+                                projection_type=projection, lens_shape=lens)
+            camera_rays(pos, view, state, st)
+            torch.cuda.synchronize()
+            before = camera_rays.launches
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                camera_rays(pos, view, state, st)
+                torch.cuda.synchronize()
+            assert camera_rays.launches == before + 1
+            ops = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+            assert len(ops) == 1 and "camera_rays_kernel" in ops[0], ops
+
+    r = Renderer(_mini_scene(), RenderSettings(width=32, height=32,
+                                               frame_slabs=2),
+                 base_seed=5, device=cuda)
+    before = camera_rays.launches
+    r.step()
+    assert camera_rays.launches - before == 4  # 2 samples x 2 slabs
+
+    st = RenderSettings(width=64, height=32)
+    bad = [
+        (pos.double(), view, state),
+        (torch.empty(pos.shape[0], 4, device=cuda)[:, :2], view, state),
+        (pos, view.double(), state),
+        (pos, view.t(), state),
+        (pos, view, state.int()),
+        (pos, view, state[:-1]),
+        (pos.reshape(32, 64, 2), view, state),
+    ]
+    for args in bad:
+        with pytest.raises(ValueError, match="camera rays kernel"):
+            camera_rays(*args, st)
+    with pytest.raises(ValueError, match="camera rays kernel"):
+        camera_rays(pos, view.cpu(), state, st)

@@ -4,8 +4,9 @@ Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into ONE
 shared library with a plain C interface, loaded with ctypes. The library
 goes to ``build/kernels/libwrt_torch_<hash>.so`` beside the package (the
 checkout's ``build/`` directory, ignored by git), named by a hash of the
-sources and the flags, so a changed source rebuilds and an unchanged one
-loads at once. The build happens at first use, never at import.
+sources (``*.cu`` and the ``*.cuh`` headers they include) and the flags,
+so a changed source rebuilds and an unchanged one loads at once. The
+build happens at first use, never at import.
 
 Entry points (``csrc/cluster_trace.cu``): ``wrt_trace_closest`` and
 ``wrt_trace_any`` (single-level, K1), ``wrt_trace_closest_two_level`` and
@@ -19,7 +20,9 @@ cluster fetched while the current one is tested);
 and K3p ordering their supers inside the kernel); ``wrt_trace_binned`` (K4,
 the two scheduled clusters of each block of a sorted ray stream);
 ``wrt_top_keys`` (the ray sort's coherence key: the n nearest entered boxes
-of each ray as packed int32 keys); and ``wrt_error_string``. The
+of each ray as packed int32 keys); and ``wrt_error_string``. In
+``csrc/raygen.cu``: ``wrt_camera_rays`` (a sample's camera rays, one
+thread a ray, with ``csrc/detmath.cuh``'s device functions). The
 closest-hit entries of K1, K2pl and K2n and K4 take the code carried in
 beside t_max (or null), K1's also the cap and the stop output, K2n's
 closest-hit and any-hit entries the per-ray ``t_start``.
@@ -29,6 +32,9 @@ Flags: ``--fmad=false`` keeps every product rounded before its add (the
 reference's strict arithmetic); there is no ``--use_fast_math``, so
 ``/`` and ``sqrt`` stay IEEE-rounded. A missing or failing ``nvcc``
 raises with its output.
+
+:func:`check_current_device` is the wrappers' shared check that a kernel's
+tensors are on the current CUDA device.
 """
 
 from __future__ import annotations
@@ -40,6 +46,8 @@ import os
 import shutil
 import subprocess
 import threading
+
+import torch
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -66,8 +74,8 @@ def _nvcc() -> str:
     return path
 
 
-def _sources():
-    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+def _sources(pattern: str = "*.cu"):
+    return sorted(glob.glob(os.path.join(CSRC_DIR, pattern)))
 
 
 def library_path(flags=None) -> str:
@@ -75,7 +83,7 @@ def library_path(flags=None) -> str:
     (default NVCC_FLAGS)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS if flags is None
                                 else flags).encode())
-    for src in _sources():
+    for src in _sources("*.cu*"):
         with open(src, "rb") as fh:
             h.update(os.path.basename(src).encode())
             h.update(fh.read())
@@ -160,8 +168,25 @@ def _entries():
         # stream
         "wrt_top_keys": (i, [p, p, p, p, p, i, i, i, p, ctypes.c_longlong,
                              p]),
+        # pos, view, state, projection, lens, the scalars (host), o, d,
+        # state_out, n_rays, stream
+        "wrt_camera_rays": (i, [p, p, p, i, i, p, p, p, p,
+                                ctypes.c_longlong, p]),
         "wrt_error_string": (ctypes.c_char_p, [i]),
     }
+
+
+def check_current_device(dev: torch.device) -> None:
+    """Raise unless ``dev`` is the current CUDA device: a kernel runs where
+    its rays are, and a caller that renders on several cards works on each
+    under ``torch.cuda.device(dev)`` (parallel/shard.py), so rays on
+    another card are a caller's error."""
+    cur = torch.cuda.current_device()
+    if dev.index is not None and dev.index != cur:
+        raise ValueError(
+            f"the rays are on {dev} but the current CUDA device is cuda:"
+            f"{cur}; trace under torch.cuda.device({str(dev)!r})"
+        )
 
 
 def load() -> ctypes.CDLL:

@@ -62,7 +62,7 @@ only; any other device raises. Their ``route`` (ROUTES; ``traversal``
 ``"pallas"`` and ``"pallas_interpret"``) can instead ask for the kernel
 alone, which raises for tensors that are not on a CUDA device, or for the
 twin on any device. A kernel's rays must lie on the current CUDA device
-(:func:`check_current_device`). There is no
+(``_build.check_current_device``). There is no
 fallback from one to the other, and what a kernel does not take (two-level
 tables for K5 and K2pl, more boxes than a block orders, tiles of more
 than 128 rays or of a part of a warp, rounds K5 does not run) raises.
@@ -78,6 +78,7 @@ import torch
 
 from ..config import F32_MAX, TRACE_SCHED_VALUES
 from ..utils.timing import span, traced
+from ._build import check_current_device
 from .adjudicate import adjudicate_compact
 from .cluster_trace import (
     EPS2,
@@ -1019,19 +1020,6 @@ def _near_two_level_stats(stats, super_box) -> None:
     if stats is not None:
         stats["super_boxes_read"] = super_box.shape[0]
         stats["table_steps"] = 0
-
-
-def check_current_device(dev: torch.device) -> None:
-    """Raise unless ``dev`` is the current CUDA device: a kernel of this
-    module runs where its rays are, and a caller that renders on several
-    cards works on each under ``torch.cuda.device(dev)``
-    (parallel/shard.py), so rays on another card are a caller's error."""
-    cur = torch.cuda.current_device()
-    if dev.index is not None and dev.index != cur:
-        raise ValueError(
-            f"the rays are on {dev} but the current CUDA device is cuda:"
-            f"{cur}; trace under torch.cuda.device({str(dev)!r})"
-        )
 
 
 def _check_cuda(tensors: dict) -> torch.device:

@@ -4,15 +4,20 @@ render.ts:642-766). The operation order is the JAX package's, so the
 rays agree bit for bit; quirks of the reference (the doubled Panini
 half-FoV factor, the +z fisheye) are kept.
 
-Scalars that depend only on the settings (tan/sin/cos of the FoV) are
-computed once in f32 on the CPU and moved to the rays' device, so the
-CPU and the GPU use the same bits.
+:func:`camera_rays` on CUDA tensors is one launch of the hand-written
+kernel ``wrt_camera_rays`` (``csrc/raygen.cu``), held bit for bit to the
+plain twin (``camera_rays.twin``) run on the CPU; CPU tensors run the
+twin. Scalars that depend only on the settings (tan/sin/cos of the FoV)
+are computed once in f32 on the CPU (:func:`camera_scalars`), for the
+twin and the kernel alike, so the CPU and the GPU use the same bits.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -22,83 +27,123 @@ from . import rng
 from .detmath import det_div, det_sincos, det_sqrt, det_tan, normalize
 
 
+class CameraScalars(NamedTuple):
+    """The f32 scalars of a camera ray (each a Python float that is an f32
+    value), in the order of ``CameraArgs`` in ``csrc/raygen.cuh``."""
+
+    width: float
+    height: float
+    uv_div: float  # the FoV orientation's divisor of 2 pos - (w, h)
+    pinhole_z: float  # -1 / tan(fov / 2)
+    half_fov: float
+    half_panini_fov: float
+    panini_distance: float
+    pd_vc: float  # panini_distance * (1 - vertical_compression)
+    coc: float  # circle_of_confusion
+    focus: float  # focus_distance
+    fov_distance: float  # the orthographic fov / pi * 4
+
+
 def _f32_scalar(fn, *args) -> float:
     """Evaluate ``fn`` on f32 CPU scalars and return the f32 result."""
     vals = [torch.tensor(a, dtype=torch.float32) for a in args]
     return float(fn(*vals))
 
 
-def pinhole_dir(uv: torch.Tensor, fov: float) -> torch.Tensor:
-    z = _f32_scalar(lambda f: -1.0 / torch.tan(f), fov / 2.0)
-    return normalize(
-        torch.stack(
-            [uv[..., 0], uv[..., 1], torch.full_like(uv[..., 0], z)], dim=-1
-        )
-    )
+def _f32(x: float) -> float:
+    return float(torch.tensor(x, dtype=torch.float32))
 
 
-def panini_dir(
-    uv: torch.Tensor, fov: float, panini_distance: float,
-    vertical_compression: float,
-) -> torch.Tensor:
+@functools.lru_cache(maxsize=64)
+def _camera_scalars(width, height, orientation, fov, panini_distance,
+                    vertical_compression, coc, focus) -> CameraScalars:
+    w_f, h_f = float(width), float(height)
+    if orientation == FovOrientation.VERTICAL:
+        uv_div = h_f
+    elif orientation == FovOrientation.HORIZONTAL:
+        uv_div = w_f
+    else:
+        uv_div = _f32_scalar(torch.sqrt, w_f * w_f + h_f * h_f)
     half_fov = fov / 2.0
-    hv = uv * half_fov
-    half_panini_fov = _f32_scalar(
-        lambda h, p: torch.atan2(torch.sin(h), torch.cos(h) + p),
-        half_fov, panini_distance,
+    return CameraScalars(*map(_f32, (
+        w_f, h_f, uv_div,
+        _f32_scalar(lambda f: -1.0 / torch.tan(f), half_fov),
+        half_fov,
+        _f32_scalar(
+            lambda h, p: torch.atan2(torch.sin(h), torch.cos(h) + p),
+            half_fov, panini_distance,
+        ),
+        panini_distance,
+        # a product of two Python floats in the JAX package: double, then f32
+        panini_distance * (1.0 - vertical_compression),
+        coc, focus,
+        fov / math.pi * 4.0,
+    )))
+
+
+def camera_scalars(settings: RenderSettings) -> CameraScalars:
+    """The settings' camera scalars, rounded to f32 as the JAX package
+    rounds them (weak-typed Python floats; the FoV's trigonometry in f32
+    on the CPU)."""
+    return _camera_scalars(
+        settings.render_width, settings.render_height,
+        int(settings.fov_orientation), settings.fov,
+        settings.panini_distance, settings.vertical_compression,
+        settings.circle_of_confusion, settings.focus_distance,
     )
-    hv_pan = hv * half_panini_fov
+
+
+def scalar_block(settings: RenderSettings) -> ctypes.Array:
+    """:func:`camera_scalars` as the f32 block ``wrt_camera_rays`` reads."""
+    return (ctypes.c_float * len(CameraScalars._fields))(
+        *camera_scalars(settings))
+
+
+def pinhole_dir(uv: torch.Tensor, sc: CameraScalars) -> torch.Tensor:
+    z = torch.full_like(uv[..., 0], sc.pinhole_z)
+    return normalize(torch.stack([uv[..., 0], uv[..., 1], z], dim=-1))
+
+
+def panini_dir(uv: torch.Tensor, sc: CameraScalars) -> torch.Tensor:
+    hv = uv * sc.half_fov
+    hv_pan = hv * sc.half_panini_fov
     sx, cx = det_sincos(hv_pan[..., 0])
-    w = sx * panini_distance
-    m = det_sqrt(torch.clamp(1.0 - w * w, min=0.0)) + panini_distance * cx
+    w = sx * sc.panini_distance
+    m = det_sqrt(torch.clamp(1.0 - w * w, min=0.0)) + sc.panini_distance * cx
     x = sx * m
-    z = cx * m - panini_distance
-    # a product of two Python floats in the JAX package: double, then f32
-    pd_vc = float(
-        torch.tensor(
-            panini_distance * (1.0 - vertical_compression),
-            dtype=torch.float32,
-        )
-    )
-    y = det_tan(hv_pan[..., 1]) * (z + pd_vc)
+    z = cx * m - sc.panini_distance
+    y = det_tan(hv_pan[..., 1]) * (z + sc.pd_vc)
     return normalize(torch.stack([x, y, -z], dim=-1))
 
 
-def fisheye_dir(uv: torch.Tensor, fov: float) -> torch.Tensor:
-    angle = uv * (fov / 2.0)
+def fisheye_dir(uv: torch.Tensor, sc: CameraScalars) -> torch.Tensor:
+    angle = uv * sc.half_fov
     sax, cax = det_sincos(angle[..., 0])
     say, cay = det_sincos(angle[..., 1])
     return normalize(torch.stack([-sax, -say * cax, cay * cax], dim=-1))
 
 
-@traced("wrt.raygen")
-def camera_rays(
-    pos: torch.Tensor,  # (R, 2) pixel coordinates (jittered)
+def _camera_rays_torch(
+    pos: torch.Tensor,  # (..., 2) pixel coordinates (jittered)
     view: torch.Tensor,  # (4, 4) view matrix (camera → world)
-    state: torch.Tensor,  # (R,) RNG state words
+    state: torch.Tensor,  # (...) RNG state words
     settings: RenderSettings,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """cameraRay (render.ts:749-765). Returns (origin, direction, state)."""
+    """The plain twin of the kernel: eager ops, one rounding each."""
     dev = pos.device
-    w_f, h_f = float(settings.render_width), float(settings.render_height)
-    uv = 2.0 * pos - torch.tensor([w_f, h_f], dtype=torch.float32, device=dev)
-    if settings.fov_orientation == FovOrientation.VERTICAL:
-        uv = uv / h_f
-    elif settings.fov_orientation == FovOrientation.HORIZONTAL:
-        uv = uv / w_f
-    else:
-        uv = uv / _f32_scalar(torch.sqrt, w_f * w_f + h_f * h_f)
+    sc = camera_scalars(settings)
+    uv = 2.0 * pos - torch.tensor(
+        [sc.width, sc.height], dtype=torch.float32, device=dev
+    )
+    uv = uv / sc.uv_div
 
     proj = settings.projection_type
     if proj == ProjectionType.PANINI:
-        d = panini_dir(
-            uv, settings.fov, settings.panini_distance,
-            settings.vertical_compression,
-        )
+        d = panini_dir(uv, sc)
     elif proj == ProjectionType.PERSPECTIVE:
-        d = pinhole_dir(uv, settings.fov)
+        d = pinhole_dir(uv, sc)
     elif proj == ProjectionType.FISHEYE:
-        d = fisheye_dir(uv, settings.fov)
+        d = fisheye_dir(uv, sc)
     else:  # orthographic
         d = torch.tensor(
             [0.0, 0.0, -1.0], dtype=torch.float32, device=dev
@@ -113,17 +158,16 @@ def camera_rays(
 
     # thinLensRay (render.ts:695-702)
     o = torch.cat(
-        [lens * settings.circle_of_confusion, torch.zeros_like(lens[..., :1])],
+        [lens * sc.coc, torch.zeros_like(lens[..., :1])],
         dim=-1,
     )
-    focus = -d * det_div(settings.focus_distance, d[..., 2:3])
+    focus = -d * det_div(sc.focus, d[..., 2:3])
     d = normalize(focus - o)
 
     if proj == ProjectionType.ORTHOGRAPHIC:
         # cameraRayPosition (render.ts:724-729)
-        fov_distance = settings.fov / math.pi * 4.0
         o = o + torch.cat([uv, torch.zeros_like(uv[..., :1])], dim=-1) * (
-            fov_distance
+            sc.fov_distance
         )
 
     # ray_transform (render.ts:731-738) as strict elementwise mul/adds
@@ -143,3 +187,63 @@ def camera_rays(
     d = normalize(torch.cat([d[..., :2], d[..., 2:3] * oh[..., 3:4]], dim=-1))
     d_w = _mat_vec(view[:3, :3], d, None)
     return o_w, d_w, state
+
+
+def _launch_camera_rays(pos, view, state, settings):
+    """Check the arguments and launch ``wrt_camera_rays`` → (o, d, state)."""
+    from ._build import check_current_device, load
+
+    dev = pos.device
+    check_current_device(dev)
+    r = pos.shape[0]
+    for name, x, dt, shape in (("pos", pos, torch.float32, (r, 2)),
+                               ("view", view, torch.float32, (4, 4)),
+                               ("state", state, torch.int64, (r,))):
+        if (x.device != dev or x.dtype != dt or tuple(x.shape) != shape
+                or not x.is_contiguous()):
+            raise ValueError(
+                f"camera rays kernel: {name} must be a contiguous {dt} "
+                f"tensor of shape {shape} on {dev}, got {x.dtype} "
+                f"{tuple(x.shape)} on {x.device} "
+                f"(contiguous={x.is_contiguous()})")
+    lib = load()
+    o = torch.empty((r, 3), dtype=torch.float32, device=dev)
+    d = torch.empty((r, 3), dtype=torch.float32, device=dev)
+    state_out = torch.empty((r,), dtype=torch.int64, device=dev)
+    scalars = scalar_block(settings)
+    err = lib.wrt_camera_rays(
+        pos.data_ptr(), view.data_ptr(), state.data_ptr(),
+        int(settings.projection_type), int(settings.lens_shape),
+        ctypes.addressof(scalars), o.data_ptr(), d.data_ptr(),
+        state_out.data_ptr(), r, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError("camera rays kernel launch failed: "
+                           + lib.wrt_error_string(err).decode())
+    return o, d, state_out
+
+
+@traced("wrt.raygen")
+def camera_rays(
+    pos: torch.Tensor,  # (R, 2) pixel coordinates (jittered)
+    view: torch.Tensor,  # (4, 4) view matrix (camera → world)
+    state: torch.Tensor,  # (R,) RNG state words
+    settings: RenderSettings,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """cameraRay (render.ts:749-765). Returns (origin, direction, state).
+
+    CUDA tensors launch the kernel (counted in ``camera_rays.launches``);
+    CPU tensors run the plain twin (``camera_rays.twin``); any other device
+    raises."""
+    dev = pos.device
+    if dev.type == "cpu":
+        return camera_rays.twin(pos, view, state, settings)
+    if dev.type == "cuda":
+        out = _launch_camera_rays(pos, view, state, settings)
+        camera_rays.launches += 1
+        return out
+    raise ValueError(f"no camera rays kernel for device {dev}")
+
+
+camera_rays.launches = 0
+camera_rays.twin = _camera_rays_torch

@@ -16,7 +16,7 @@ current buffers to every device. The same device may appear more than
 once (several slabs on one card). Each slab's work runs under
 ``torch.cuda.device`` of its device: the kernels run on the current
 device's stream and refuse rays that lie elsewhere
-(ops/cluster_cuda.py ``check_current_device``).
+(ops/_build.py ``check_current_device``).
 """
 
 from __future__ import annotations

@@ -37,7 +37,7 @@ from .ops import rng
 from .ops.env_sample import EnvDistribution
 from .ops.integrator import face_point_offset, path_trace, trace_direct
 from .ops.predictor import predict_hit_dist, quad_faces
-from .ops.raygen import camera_rays
+from .ops.raygen import camera_rays, camera_scalars
 from .ops.reproject import reproject, reprojection_frustum
 from .ops.tonemap import apply as tonemap_apply
 from .ops.tonemap import gamma as tonemap_gamma
@@ -407,6 +407,7 @@ class Renderer:
     ):
         check_supported(settings)
         _check_env(settings, env_data)
+        camera_scalars(settings)  # cached: computed here, not in a frame
         self.device = torch.device(device)
         self.scene = scene
         self.settings = settings
@@ -441,6 +442,7 @@ class Renderer:
         settings = self.settings.replace(**kw)
         check_supported(settings)
         _check_env(settings, self.env_data)
+        camera_scalars(settings)
         self.settings = settings
         if kw.keys() & {
             "width", "height", "resolution_scale", "geometry_buffer_scale"
