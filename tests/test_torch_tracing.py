@@ -6,8 +6,10 @@
 * On, each frame kind (path, NEE, env-IS, sorted, sliced, direct) has
   the span tree its calls make: one ``wrt.frame``, a ``wrt.raygen`` and a
   ``wrt.shade`` per sample and slab, a ``wrt.trace`` per leg inside
-  ``wrt.shade``, prep and rederive inside the legs; the only added
-  operation is the stack of the frame's one read-back.
+  ``wrt.shade``, prep and rederive inside the legs, the environment's
+  work (``wrt.env``) and the lights' (``wrt.light``, around NEE's shadow
+  legs and no other) inside ``wrt.shade``; the only added operation is
+  the stack of the frame's one read-back.
 * Counters: the closest-hit legs' live lanes sum to ``last_rays`` on a
   path frame without shadow legs; no leg has more live lanes than lanes.
 * Tracing changes no result: image, G-buffer, ``last_rays``, the
@@ -136,6 +138,14 @@ def test_span_tree(scene, kind):
     assert len(by["wrt.shade"]) == samples
     closest, shadow = legs(st)
     assert len(by["wrt.trace"]) == closest + shadow
+    # NEE's shadow legs, one wrt.light around each vertex's light samples
+    light = 0
+    if st.bounces_depth <= 1:
+        light = samples
+    elif st.next_event_estimation:
+        light = samples * (st.bounces_depth - 1)
+    assert len(by["wrt.light"]) == light
+    assert by["wrt.env"]  # the deferred fetch, in every frame
     assert len(by["wrt.trace.prep"]) >= closest + shadow
     assert len(by["wrt.trace.rederive"]) >= closest
     assert "wrt.trace.kernel" not in by  # the twins launch nothing
@@ -144,8 +154,14 @@ def test_span_tree(scene, kind):
         assert e is frame or inside(e, frame), e.name
     for e in by["wrt.raygen"]:
         assert not any(inside(e, s) for s in by["wrt.shade"])
-    for e in by["wrt.trace"]:
-        assert any(inside(e, s) for s in by["wrt.shade"])
+    for name in ("wrt.trace", "wrt.env", "wrt.light"):
+        for e in by[name]:
+            assert any(inside(e, s) for s in by["wrt.shade"]), name
+    in_light = [e for e in by["wrt.trace"]
+                if any(inside(e, x) for x in by["wrt.light"])]
+    assert len(in_light) == light * st.samples_per_point
+    assert not any(inside(e, x) for e in by["wrt.trace"] + by["wrt.light"]
+                   for x in by["wrt.env"])
     for name in ("wrt.trace.prep", "wrt.trace.rederive", "wrt.trace.sort"):
         for e in by[name]:
             assert any(inside(e, t) for t in by["wrt.trace"]), name
@@ -310,24 +326,29 @@ def test_cli_render_profile_shows_the_spans(tmp_path):
     assert not timing._on
 
 
-def test_the_span_table_of_a_traced_frame(scene):
+@pytest.mark.parametrize("kind", ["nee", "envis"])
+def test_the_span_table_of_a_traced_frame(scene, kind):
     path = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "bench_torch", "spans.py")
     spec = importlib.util.spec_from_file_location("bench_spans", path)
     spans = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(spans)
 
-    r = renderer(scene, "nee")
+    r = renderer(scene, kind)
     with timing.tracing(), profile(activities=[ProfilerActivity.CPU]) as p:
         r.step()
     cpu, ops, launch_at = spans.device_view(p.events())
     assert ops == []  # no device here
     t = spans.span_table(cpu, ops, launch_at, frames=1)
+    own = {"nee": {"wrt.light"}, "envis": set()}[kind]
     assert set(t) == {"wrt.frame", "wrt.raygen", "wrt.shade", "wrt.trace",
-                      "wrt.trace.prep", "wrt.trace.rederive"}
+                      "wrt.trace.prep", "wrt.trace.rederive",
+                      "wrt.env"} | own
     frame = t["wrt.frame"]["host_us"]
     assert 0 < t["wrt.shade"]["host_us"] + t["wrt.raygen"]["host_us"] < frame
     assert t["wrt.trace"]["host_us"] < t["wrt.shade"]["host_us"]
+    for name in ("wrt.env",) + tuple(own):
+        assert 0 < t[name]["host_us"] < t["wrt.shade"]["host_us"], name
     assert all(row["incl_launches"] == 0 for row in t.values())
     with profile(activities=[ProfilerActivity.CPU]) as p:
         r.step()

@@ -2,7 +2,7 @@
 
     python3 tools/torch_frame_profile.py [--frames 2] [--width 1920 --height 1080]
         [--trace-sched J] [--order-outside] [--pipeline-rounds] [--sort]
-        [--binned] [--multipass-cap N] [--nee] [--config5]
+        [--binned] [--multipass-cap N] [--nee] [--envis] [--config5]
 
 Renders the main-path slice (``stress_scene(44_556)``, default path
 settings, procedural sky) on the first CUDA device: one warm-up frame,
@@ -11,20 +11,26 @@ without the profiler, which slows a host-bound frame), then ``--frames``
 frames under ``torch.profiler`` with the port's tracing on
 (``utils/timing.tracing``), so that its ``wrt.*`` spans mark the frame's
 layers: ``wrt.frame``, ``wrt.raygen``, ``wrt.shade`` (shading and
-sampling), ``wrt.trace`` (a leg), ``wrt.trace.prep``, ``wrt.trace.kernel``
-(every hand-written launch), ``wrt.trace.rederive``, ``wrt.trace.sort``
-(the ray sort's keys, sort, gathers, count reads and unsorts) and
-``wrt.gc``. Each device operation is given to the innermost span open at
-its launch, found by correlation id (``bench_torch/spans.py``), so the
-port's ctypes launches count where they were launched. The default frame orders every tile inside the
+sampling), ``wrt.env`` (the environment: env-IS draws, pdfs and MIS
+weights, the deferred fetch), ``wrt.light`` (NEE's light samples, its
+shadow legs inside), ``wrt.trace`` (a leg), ``wrt.trace.prep``,
+``wrt.trace.kernel`` (every hand-written launch), ``wrt.trace.rederive``,
+``wrt.trace.sort`` (the ray sort's keys, sort, gathers, count reads and
+unsorts) and ``wrt.gc``. Each device operation is given to the innermost
+span open at its launch, found by correlation id
+(``bench_torch/spans.py``), so the port's ctypes launches count where
+they were launched. The default frame orders every tile inside the
 kernel (``kernel_near``); ``--order-outside`` turns that off (K1 / K3
 over ``tile_nears_fused`` and ``torch.sort``; ``--multipass-cap`` needs it
 to take effect). The other flags set ``trace_sched``,
 ``pipeline_rounds`` and ``sort_bounce_rays`` (with ``live_slice``);
 ``--binned`` and ``--multipass-cap`` (both imply ``--sort``) set
 ``binned_sort`` and ``multipass_cap``. ``--nee`` sets
-``next_event_estimation``. ``--config5`` renders BASELINE config #5
-instead (``stress_scene(1_000_000)``, 3840x2160 in 8 slabs, two-level
+``next_event_estimation``; ``--envis`` lights the frame by the
+procedural sky written into a 4096x2048 equirect map
+(``chip_smoke.sky_equirect``) under ``env_importance_sampling``, as
+BASELINE config #3 lights its 4k HDR. ``--config5`` renders BASELINE
+config #5 instead (``stress_scene(1_000_000)``, 3840x2160 in 8 slabs, two-level
 tables). Prints, per frame, each span's self and inclusive busy time and
 launches, host time and the idle time put down to it, the longest idle
 gaps with the span each opened in, the device's busy share of its span,
@@ -63,6 +69,7 @@ def main() -> int:
     ap.add_argument("--binned", action="store_true")
     ap.add_argument("--multipass-cap", type=int, default=0)
     ap.add_argument("--nee", action="store_true")
+    ap.add_argument("--envis", action="store_true")
     a = ap.parse_args()
     a.sort = a.sort or a.binned or a.multipass_cap > 0
 
@@ -79,15 +86,21 @@ def main() -> int:
         capture_output=True, text=True,
     ).stdout.strip()
 
+    from chip_smoke import sky_equirect
     from webgpu_raytracing_tpu_torch.config import RenderSettings
     from webgpu_raytracing_tpu_torch.models.stress import stress_scene
+    from webgpu_raytracing_tpu_torch.ops.env_sample import (
+        build_env_distribution,
+    )
     from webgpu_raytracing_tpu_torch.renderer import Renderer
     from webgpu_raytracing_tpu_torch.utils.timing import tracing
 
     if a.config5:
         a.width, a.height = 3840, 2160
     st = RenderSettings(width=a.width, height=a.height, sample_count=1,
-                        bounces_depth=4, environment="procedural",
+                        bounces_depth=4,
+                        environment="equirect" if a.envis else "procedural",
+                        env_importance_sampling=a.envis,
                         frame_slabs=8 if a.config5 else 1,
                         trace_sched=a.trace_sched,
                         kernel_near=not a.order_outside,
@@ -95,8 +108,12 @@ def main() -> int:
                         sort_bounce_rays=a.sort, live_slice=True,
                         binned_sort=a.binned, multipass_cap=a.multipass_cap,
                         next_event_estimation=a.nee)
+    env = None
+    if a.envis:
+        env = build_env_distribution(
+            sky_equirect(torch, 2048, 4096, "cuda").cpu().numpy(), "cuda")
     r = Renderer(stress_scene(1_000_000 if a.config5 else 44_556), st,
-                 base_seed=a.seed, device="cuda")
+                 env_data=env, base_seed=a.seed, device="cuda")
     r.step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -152,7 +169,7 @@ def main() -> int:
         "kernel_near": not a.order_outside, "config5": a.config5,
         "pipeline_rounds": a.pipeline_rounds,
         "sort": a.sort, "binned": a.binned,
-        "multipass_cap": a.multipass_cap, "nee": a.nee,
+        "multipass_cap": a.multipass_cap, "nee": a.nee, "envis": a.envis,
         "frame_ms_unprofiled": plain_ms, "frame_ms": frame_ms,
         "gpu_span_ms": span_ms, "gpu_busy_ms": busy_ms,
         "spans_ms": {k: {c.replace("_us", "_ms"): v / 1e3

@@ -41,7 +41,7 @@ from typing import NamedTuple
 import torch
 
 from ..config import F32_MAX, INV_PI, RenderSettings, ShadingType
-from ..utils.timing import count, traced
+from ..utils.timing import count, span, traced
 from . import detmath, ray_sort, rng, traverse
 from .adjudicate import adjudicate_compact
 from .cluster_cuda import (
@@ -325,10 +325,12 @@ def light_ray(point, ls: LightSample):
     return ds * inv_d.unsqueeze(-1), t_max, d_sq
 
 
+@traced("wrt.light")
 def direct_light(point, normal, state, tables, settings: RenderSettings,
                  active=None, excl=None, sort=False, seg=0):
     """pointColor (render.ts:1143-1157): ``samples_per_point`` light
     samples, each with a shadow ray; emission × cosine / r² × (1/pdf).
+    Traced as ``wrt.light``, its shadow legs' ``wrt.trace`` inside it.
 
     NaN shading points (the reference's inverted offsetRay select, see
     :func:`offset_ray`) stay NaN: their shadow rays come out unshadowed
@@ -373,6 +375,10 @@ def path_trace(
     ``env_importance_sampling`` (``env_data`` an :class:`EnvDistribution`)
     each vertex up to ``env_nee_depth`` also samples the environment, and
     both environment strategies are MIS-combined (balance heuristic).
+    The environment's work (the env-IS draws, pdfs and MIS weights, the
+    deferred fetch) is traced as ``wrt.env``, the lights' as
+    ``wrt.light`` (:func:`direct_light`); the shadow legs are ``wrt.trace``
+    legs.
 
     ``chained_sort`` (with ``sort_bounce_rays``, and a traversal other than
     ``"threaded"``; JAX ``path_trace``): before every segment past the
@@ -447,11 +453,13 @@ def path_trace(
 
         found = hit.face >= 0
         miss = alive & ~found
-        env_dir = torch.where(miss.unsqueeze(-1), d, env_dir)
-        env_w = torch.where(miss.unsqueeze(-1), throughput, env_w)
-        if env_is and seg > 0:
-            # the previous vertex also env-NEE'd: weigh the BSDF strategy
-            env_mis_pdf = torch.where(miss, prev_bsdf_pdf, env_mis_pdf)
+        with span("wrt.env"):
+            env_dir = torch.where(miss.unsqueeze(-1), d, env_dir)
+            env_w = torch.where(miss.unsqueeze(-1), throughput, env_w)
+            if env_is and seg > 0:
+                # the previous vertex also env-NEE'd: weigh the BSDF
+                # strategy
+                env_mis_pdf = torch.where(miss, prev_bsdf_pdf, env_mis_pdf)
 
         h = alive & found
         h3 = h.unsqueeze(-1)
@@ -491,23 +499,26 @@ def path_trace(
             settings.env_nee_depth == 0 or seg < settings.env_nee_depth
         )
         if run_env:
-            ed, erad, epdf, s_env = sample_env(dist, state)
-            state = rng.masked_advance(state, s_env, h)
-            nn = detmath.normalize(n)
-            facing = sdot3(ed, nn) > 0.0
+            with span("wrt.env"):
+                ed, erad, epdf, s_env = sample_env(dist, state)
+                state = rng.masked_advance(state, s_env, h)
+                nn = detmath.normalize(n)
+                facing = sdot3(ed, nn) > 0.0
             blocked = trace_any(
                 new_o, ed,
                 torch.full((r,), F32_MAX, dtype=torch.float32, device=dev),
                 tables, settings, h & facing, excl, sort=sort_here, seg=seg,
             )
-            vis = h & facing & ~blocked
-            w_env = balance_weight(epdf, bsdf_pdf(ed, n))
-            # f = albedo/π is already folded into throughput; × cos/pdf
-            contrib = throughput * erad * (
-                torch.clamp(sdot3(ed, nn), min=0.0) * INV_PI * w_env
-                / torch.clamp(epdf, min=1e-20)
-            ).unsqueeze(-1)
-            color = torch.where(vis.unsqueeze(-1), color + contrib, color)
+            with span("wrt.env"):
+                vis = h & facing & ~blocked
+                w_env = balance_weight(epdf, bsdf_pdf(ed, n))
+                # f = albedo/π is already folded into throughput; × cos/pdf
+                contrib = throughput * erad * (
+                    torch.clamp(sdot3(ed, nn), min=0.0) * INV_PI * w_env
+                    / torch.clamp(epdf, min=1e-20)
+                ).unsqueeze(-1)
+                color = torch.where(vis.unsqueeze(-1), color + contrib,
+                                    color)
             live = (h & facing).to(torch.float32).sum()
             rays = rays + live
             count("trace.env_shadow.live", live)
@@ -519,12 +530,14 @@ def path_trace(
         if env_is:
             # -1: the deferred env fetch applies weight 1 (no env-NEE
             # competed at this vertex)
-            pv = (
-                bsdf_pdf(new_d, n)
-                if run_env
-                else torch.full((r,), -1.0, dtype=torch.float32, device=dev)
-            )
-            prev_bsdf_pdf = torch.where(h, pv, prev_bsdf_pdf)
+            with span("wrt.env"):
+                pv = (
+                    bsdf_pdf(new_d, n)
+                    if run_env
+                    else torch.full((r,), -1.0, dtype=torch.float32,
+                                    device=dev)
+                )
+                prev_bsdf_pdf = torch.where(h, pv, prev_bsdf_pdf)
 
         # russian roulette (render.ts:1201-1208)
         p = torch.amax(throughput, dim=-1)
@@ -542,13 +555,15 @@ def path_trace(
         o = torch.where(a3, new_o, o)
         d = torch.where(a3, new_d, d)
 
-    env = sample_environment(env_img, env_dir, settings.environment)
-    if env_is:
-        w_bsdf = balance_weight(
-            torch.clamp(env_mis_pdf, min=0.0), env_pdf(dist, env_dir)
-        )
-        env = env * torch.where(env_mis_pdf >= 0.0, w_bsdf, 1.0).unsqueeze(-1)
-    color = color + env * env_w
+    with span("wrt.env"):
+        env = sample_environment(env_img, env_dir, settings.environment)
+        if env_is:
+            w_bsdf = balance_weight(
+                torch.clamp(env_mis_pdf, min=0.0), env_pdf(dist, env_dir)
+            )
+            env = env * torch.where(env_mis_pdf >= 0.0, w_bsdf,
+                                    1.0).unsqueeze(-1)
+        color = color + env * env_w
     if orig is not None:  # back to pixel order: the chain's one scatter
         color, state = ray_sort.unsort(orig, (color, state))
 
@@ -567,7 +582,7 @@ def trace_direct(o, d, t_max0, state, tables, env_data,
                  settings: RenderSettings) -> PathResult:
     """Direct-lighting-only integrator (BASELINE config #1, chosen when
     ``bounces_depth <= 1``): one primary hit, emission + light NEE, the
-    environment on a miss."""
+    environment on a miss (``wrt.env``)."""
     if isinstance(env_data, EnvDistribution):
         env_data = env_data.img
     r = o.shape[0]
@@ -576,8 +591,9 @@ def trace_direct(o, d, t_max0, state, tables, env_data,
     count("trace.closest.lanes", r)
     found = hit.face >= 0
     f3 = found.unsqueeze(-1)
-    env = sample_environment(env_data, d, settings.environment)
-    color = torch.where(f3, 0.0, env)
+    with span("wrt.env"):
+        env = sample_environment(env_data, d, settings.environment)
+        color = torch.where(f3, 0.0, env)
 
     face = hit.face.clamp(min=0).long()
     mat = tables.face_material[face].long()
