@@ -26,6 +26,18 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
    (CUDA events) timed beside the kernel's bound (the twin's
    f32 operations a ray, counted on one ray, over 67 TFLOP/s, or 48
    bytes a ray over 3.35 TB/s, the larger).
+2c. shading (``phase_shade``): the kernels ``wrt_shade_hit`` and
+   ``wrt_shade_bounce`` (csrc/shade.cu) on the first bounce segment of
+   a 1080p env-IS frame of ``stress_scene(44_556)`` (after the scene
+   build) and of a config #5 slab (after phase 7's tables; alone:
+   ``python -c "import torch, chip_smoke as c;
+   c.phase_shade_alone(torch, c.smi())"``): every output bit for bit
+   against the plain twins on the CPU; a call dispatches nothing but
+   its outputs' allocations; each kernel timed on the device (20 calls
+   queued behind a spinning kernel, CUDA events), back to back, and its
+   twin on the card, beside its bound (the bytes its lanes need over
+   3.35 TB/s, or the twin's f32 operations a lane over 67 TFLOP/s, the
+   larger). ``drive_path`` checks two launches a segment on every path.
 3. K1 vs twins: on 1080p ray sets of ``stress_scene(44_556)`` made
    from frame 0 exactly as ``path_trace`` makes them, each CUDA entry and
    its plain-torch twin run on the same device tensors. Closest-hit: the
@@ -202,7 +214,8 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
    accumulation, a ``set`` of ``resolution_scale``; 240 K2n launches;
    the smoothed ms/frame and Mrays/s printed.
 
-Prints the per-kernel JSON line (nineteen kernels, camera rays last;
+Prints the per-kernel JSON line (twenty entries, camera rays and shading
+last;
 K2n's entries hold the predictor-bounded leg, the front door's numbers
 and the oracle checks), then the ``nvidia-smi`` name/power line, then ``{"ok": true, "device": {...}}`` as
 the last line.
@@ -292,17 +305,14 @@ def _time_cuda(torch, fn, reps: int, warm: bool = True) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _raygen_ops(torch, st) -> int:
-    """The plain twin's f32 arithmetic on one ray of ``st`` (each add,
-    subtract, multiply, divide, square root, round, negation and clamp
-    counted once): the camera rays kernel's operations a ray."""
+def _f32_ops(torch, fn) -> int:
+    """The f32 arithmetic of ``fn()`` run on one lane (each add, subtract,
+    multiply, divide, square root, round, negation, clamp and max counted
+    once per element)."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
-    from webgpu_raytracing_tpu_torch.ops import rng
-    from webgpu_raytracing_tpu_torch.ops.raygen import camera_rays
-
     arith = {"add", "sub", "rsub", "mul", "div", "sqrt", "round", "neg",
-             "clamp", "clamp_min"}
+             "clamp", "clamp_min", "amax"}
 
     class Count(TorchDispatchMode):
         ops = 0
@@ -316,9 +326,232 @@ def _raygen_ops(torch, st) -> int:
             return out
 
     with Count():
-        camera_rays.twin(torch.tensor([[10.5, 20.25]]), torch.eye(4),
-                         rng.seed_state(5, torch.arange(1)), st)
+        fn()
     return Count.ops
+
+
+def _raygen_ops(torch, st) -> int:
+    """The plain twin's f32 arithmetic on one ray of ``st``: the camera
+    rays kernel's operations a ray."""
+    from webgpu_raytracing_tpu_torch.ops import rng
+    from webgpu_raytracing_tpu_torch.ops.raygen import camera_rays
+
+    return _f32_ops(torch, lambda: camera_rays.twin(
+        torch.tensor([[10.5, 20.25]]), torch.eye(4),
+        rng.seed_state(5, torch.arange(1)), st))
+
+
+def _queued_ms(torch, fn, reps: int):
+    """The device's time for one ``fn()``, ``reps`` calls queued behind a
+    spinning kernel of some 50 ms so that the host's enqueue is out of the
+    measure (the device runs them back to back once it wakes), by CUDA
+    events → (ms a call, the host's ms to queue one)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, host_ms
+
+
+def _Dispatched(torch):
+    """A dispatch mode that records the name of every PyTorch operation
+    run inside it (``.names``)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Dispatched(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.append(func.overloadpacket.__name__)
+            return func(*args, **(kwargs or {}))
+
+    return Dispatched()
+
+
+def _shade_segment(torch, tables, st, row0, rows, seed):
+    """The shading steps' arguments of a real bounce segment: camera rays
+    of ``rows`` rows of ``st``'s frame from ``row0``, their closest hits,
+    the first segment's shading and bounce, and the hits of the bounce
+    rays → (the arguments of ``shade_hit`` at segment 1, the state words,
+    the origins) on the card."""
+    import numpy as np
+
+    from webgpu_raytracing_tpu_torch.camera import Camera
+    from webgpu_raytracing_tpu_torch.ops import integrator as ti
+    from webgpu_raytracing_tpu_torch.ops import rng
+    from webgpu_raytracing_tpu_torch.ops.raygen import camera_rays
+
+    dev = torch.device(DEVICE)
+    w = st.render_width
+    ys, xs = np.meshgrid(np.arange(row0, row0 + rows), np.arange(w),
+                         indexing="ij")
+    pos = np.stack([xs, ys], -1).reshape(-1, 2).astype(np.float32)
+    pos += np.random.default_rng(seed).uniform(0, 1, pos.shape).astype(
+        np.float32)
+    idx = torch.from_numpy((xs + ys * w).reshape(-1)).to(dev)
+    o, d, state = camera_rays(torch.from_numpy(pos).to(dev),
+                              torch.as_tensor(Camera().view_matrix(),
+                                              device=dev),
+                              rng.seed_state(seed, idx), st)
+    r = o.shape[0]
+    env_is = st.env_importance_sampling
+    t_max = torch.full((r,), F32_MAX, device=dev)
+    alive = torch.ones((r,), dtype=torch.bool, device=dev)
+    zeros3 = torch.zeros((r, 3), device=dev)
+    prev = torch.zeros((r,), device=dev)
+    hit = ti.trace_closest(o, d, t_max, tables, st, alive, primary=True)
+    sh = ti.shade_hit(hit, alive, d, zeros3, torch.ones((r, 3), device=dev),
+                      zeros3, zeros3, torch.full((r,), -1.0, device=dev),
+                      prev, tables, st.shading_type, False)
+    b = ti.shade_bounce(state, sh.h, sh.n, sh.new_o, sh.throughput, o, d,
+                        prev, env_is, env_is)
+    hit = ti.trace_closest(b.o, b.d, t_max, tables, st, b.alive, sh.excl,
+                           seg=1)
+    return (hit, b.alive, b.d, sh.color, b.throughput, sh.env_dir, sh.env_w,
+            sh.env_mis_pdf, b.prev_bsdf_pdf, tables, st.shading_type,
+            env_is), b.state, b.o
+
+
+def phase_shade(torch, card, name, tables, st, row0, rows, seed=27182818):
+    """Phase 2c: shading's two kernels on the bounce segment of ``rows``
+    rows of ``st``'s frame (``_shade_segment``): every output bit for bit
+    against the CPU twin; a call dispatches no PyTorch operation but its
+    outputs' allocations, so its one launch is the kernel; each kernel
+    timed on the device (``_queued_ms``) and back to back, and its twin
+    on the card,
+    beside the bound (the bytes these lanes need, as ``csrc/shade.cu``
+    counts them, over 3.35 TB/s, or the twin's f32 operations a lane over
+    67 TFLOP/s, the larger) → the call's entry."""
+    from webgpu_raytracing_tpu_torch.config import ShadingType
+    from webgpu_raytracing_tpu_torch.ops import integrator as ti
+    from webgpu_raytracing_tpu_torch.ops.intersect import Hit
+
+    hit_args, state, o = _shade_segment(torch, tables, st, row0, rows, seed)
+    r = state.shape[0]
+    phong = st.shading_type == ShadingType.PHONG
+    env_is = st.env_importance_sampling
+    sh = ti.shade_hit(*hit_args)
+
+    def bounce(fn=ti.shade_bounce):
+        return fn(state, sh.h, sh.n, sh.new_o, sh.throughput, o,
+                  hit_args[2], hit_args[8], env_is, env_is)
+
+    b = bounce()
+    torch.cuda.synchronize()
+
+    cpu_tables = tables.to("cpu")
+    cpu_args = [Hit(*[v.cpu() for v in hit_args[0]])] + [
+        a.cpu() if isinstance(a, torch.Tensor) else a for a in hit_args[1:]]
+    cpu_args[9] = cpu_tables
+    want = ti.shade_hit.twin(*cpu_args)
+    want_b = ti.shade_bounce.twin(state.cpu(), want.h, want.n, want.new_o,
+                                  want.throughput, o.cpu(), cpu_args[2],
+                                  cpu_args[8], env_is, env_is)
+    for what, got_t, want_t in (("hit", sh, want), ("bounce", b, want_b)):
+        for field, g, w in zip(type(got_t)._fields, got_t, want_t):
+            if w is None:
+                continue
+            g = g.cpu()
+            if g.dtype == torch.float32:
+                nan = torch.isnan(w)
+                same = torch.equal(torch.isnan(g), nan) and torch.equal(
+                    g.masked_fill(nan, 0).view(torch.int32),
+                    w.masked_fill(nan, 0).view(torch.int32))
+            else:
+                same = torch.equal(g, w)
+            if not same:
+                fail(f"shade {name}: {what}.{field} differs from the CPU "
+                     "twin")
+
+    calls = {"hit": lambda: ti.shade_hit(*hit_args), "bounce": bounce}
+    plain = {"hit": lambda: ti.shade_hit.twin(*hit_args),
+             "bounce": lambda: bounce(ti.shade_bounce.twin)}
+    # the bytes these lanes need (csrc/shade.cu), each read or written once
+    n_h = int(sh.h.sum())
+    n_miss = int((hit_args[1] & (hit_args[0].face < 0)).sum())
+    n_end = r - int(b.alive.sum())
+    pc = tables.clusters.partner_code is not None
+    env_mis = hit_args[11]
+    nbytes = {
+        "hit": r * (49 + 4 * env_mis) + 12 * (r - n_miss)
+        + n_h * (4 + 36 + (48 if phong else 12) + 4 * pc)
+        + 24 * tables.mat_color.shape[0] + r * (73 + 4 * pc + 4 * env_mis),
+        # n only where the path goes on, or on every hit lane for env-IS's
+        # BSDF pdf; d only where it ends
+        "bounce": r * 33 + 12 * (n_h if env_is else r - n_end) + 12 * n_end
+        + 4 * env_is * (r - n_h) + r * (45 + 4 * env_is),
+    }
+    one = [Hit(*[v[:1] for v in cpu_args[0]])] + [
+        a[:1] if isinstance(a, torch.Tensor) else a for a in cpu_args[1:]]
+    one[9] = cpu_tables
+    ops = {"hit": _f32_ops(torch, lambda: ti.shade_hit.twin(*one)),
+           "bounce": _f32_ops(torch, lambda: ti.shade_bounce.twin(
+               state[:1].cpu(), want.h[:1], want.n[:1], want.new_o[:1],
+               want.throughput[:1], o[:1].cpu(), cpu_args[2][:1],
+               cpu_args[8][:1], env_is, env_is))}
+    out = dict(lanes=r, hit_lanes=n_h, missed_lanes=n_miss,
+               ended_lanes=n_end, shading=st.shading_type.name,
+               env_is=env_is, mismatch=0)
+    for k in ("hit", "bounce"):
+        ms = _time_cuda(torch, calls[k], 50)
+        with _Dispatched(torch) as seen:
+            calls[k]()
+        if set(seen.names) != {"empty"}:
+            fail(f"shade {name}: a {k} call dispatches {seen.names}, not "
+                 "only its outputs' allocations")
+        device_ms, host_ms = _queued_ms(torch, calls[k], 20)
+        plain_ms = _time_cuda(torch, plain[k], 3)
+        ops_ms = ops[k] * r / PEAK_F32 * 1e3
+        bytes_ms = nbytes[k] / PEAK_BYTES * 1e3
+        out[k] = dict(ms=device_ms, ms_back_to_back=ms,
+                      host_ms_to_queue=host_ms, plain_ms=plain_ms,
+                      bound_ms=max(ops_ms, bytes_ms),
+                      bound_by="operations" if ops_ms >= bytes_ms
+                      else "bytes", ops_per_lane=ops[k], bytes=nbytes[k])
+        print(f"shade {name} {k}: {r} lanes ({n_h} hit, {n_miss} missed, "
+              f"{n_end} ended) bit for bit against "
+              f"the CPU twin; kernel {device_ms:.4f} ms on the device, queued "
+              f"behind a sleep ({ms:.4f} ms a call back to back, "
+              f"{host_ms:.4f} ms of host to queue one), twin on the card "
+              f"{plain_ms:.3f} ms, bound {out[k]['bound_ms']:.4f} ms by "
+              f"{out[k]['bound_by']} ({nbytes[k]} B, {ops[k]} f32 ops a "
+              f"lane) ({card})", flush=True)
+    out["ms"] = out["hit"]["ms"] + out["bounce"]["ms"]
+    out["plain_ms"] = out["hit"]["plain_ms"] + out["bounce"]["plain_ms"]
+    out["bound_ms"] = out["hit"]["bound_ms"] + out["bounce"]["bound_ms"]
+    out["bound_by"] = out["hit"]["bound_by"]
+    return out
+
+
+def phase_shade_alone(torch, card):
+    """Phase 2c by itself: the config #5 slab (the last of 8, Panini) and
+    the 1080p env-IS frame of ``stress_scene(44_556)`` (config #3's
+    settings; the kernels never read the sky)."""
+    from webgpu_raytracing_tpu_torch.config import RenderSettings
+    from webgpu_raytracing_tpu_torch.models.stress import stress_scene
+
+    dev = torch.device(DEVICE)
+    return {
+        "config5_slab": phase_shade(
+            torch, card, "config5_slab",
+            stress_scene(CONFIG5_TRIANGLES).tables(dev),
+            RenderSettings(**CONFIG5), 1890, 270),
+        "envis_1080p": phase_shade(
+            torch, card, "envis_1080p", stress_scene(N_TRIANGLES).tables(dev),
+            RenderSettings(**SLICE).replace(
+                environment="equirect", env_importance_sampling=True),
+            0, 1080),
+    }
 
 
 def phase_raygen(torch, card):
@@ -1274,6 +1507,7 @@ def drive_path(torch, name, scene, st, frames, seed, card, per_frame,
     the card; check sample counts, launch counts (per frame, in the order
     of WRAPPERS; the camera rays kernel once a sample and slab) and the
     image; return (the measured numbers, the Renderer)."""
+    from webgpu_raytracing_tpu_torch.ops import integrator as ti
     from webgpu_raytracing_tpu_torch.ops.raygen import camera_rays
     from webgpu_raytracing_tpu_torch.renderer import Renderer
 
@@ -1286,6 +1520,7 @@ def drive_path(torch, name, scene, st, frames, seed, card, per_frame,
     torch.cuda.reset_peak_memory_stats()
     _zero_launch_counts()
     camera_rays.launches = 0
+    ti.shade_hit.launches = ti.shade_bounce.launches = 0
     rays = 0.0
     t0 = time.perf_counter()
     for _ in range(frames):
@@ -1295,6 +1530,7 @@ def drive_path(torch, name, scene, st, frames, seed, card, per_frame,
     dt = time.perf_counter() - t0
     launches = _launch_counts()
     raygen = camera_rays.launches
+    shade = (ti.shade_hit.launches, ti.shade_bounce.launches)
     peak = torch.cuda.max_memory_allocated()
     img = r.buffers.image
     want = (1.0 + st.sample_count) * (frames + 1)
@@ -1309,6 +1545,13 @@ def drive_path(torch, name, scene, st, frames, seed, card, per_frame,
     if raygen != raygen_per_frame * frames:
         fail(f"{name}: {raygen} camera rays kernel launches in {frames} "
              f"frames, expected {raygen_per_frame * frames}")
+    # each shading kernel once a segment of the path integrator
+    shade_per_frame = raygen_per_frame * max(st.bounces_depth - 1, 0)
+    if st.bounces_depth <= 1:  # trace_direct
+        shade_per_frame = 0
+    if shade != (shade_per_frame * frames,) * 2:
+        fail(f"{name}: shading kernel launches {shade} in {frames} frames, "
+             f"expected {shade_per_frame * frames} each")
     rgb = img[..., :3]
     if bool(torch.isinf(rgb).any()):
         fail(f"{name}: +-inf in the accumulation buffer")
@@ -1326,11 +1569,11 @@ def drive_path(torch, name, scene, st, frames, seed, card, per_frame,
           f"(frame_slabs {st.frame_slabs}), {ms:.1f} ms/frame, "
           f"{mrays:.3f} Mrays/s ({rays / frames:.0f} rays/frame), launches "
           f"{ {w: n for w, n in zip(WRAPPERS, launches) if n} }, camera "
-          f"rays kernel {raygen}, NaN pixels {nan_share:.4f}, "
-          f"peak memory {peak / 2**30:.2f} GiB, Renderer set-up "
+          f"rays kernel {raygen}, shading kernels {shade}, NaN pixels "
+          f"{nan_share:.4f}, peak memory {peak / 2**30:.2f} GiB, Renderer set-up "
           f"{setup_s:.1f} s ({card})", flush=True)
     return dict(launches=launches, raygen_per_frame=raygen / frames,
-                ms_per_frame=ms, mrays=mrays, nan_share=nan_share, peak_gib=peak / 2**30,
+                shade_per_frame=sum(shade) / frames, ms_per_frame=ms, mrays=mrays, nan_share=nan_share, peak_gib=peak / 2**30,
                 rays_per_frame=rays / frames), r
 
 
@@ -2734,6 +2977,11 @@ def main() -> int:
     print(f"scene: stress_scene({N_TRIANGLES}) and the {SKY_SHAPE[0]}x"
           f"{SKY_SHAPE[1]} sky distribution built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    shade = {"envis_1080p": phase_shade(
+        torch, card, "envis_1080p", scene.tables(torch.device(DEVICE)),
+        RenderSettings(**SLICE).replace(environment="equirect",
+                                        env_importance_sampling=True),
+        0, 1080)}
     closest, anyhit, pairs, sched, k4, hooked, binned_legs, keys = (
         phase_kernel_vs_twin(torch, scene, sky, a.seed, card))
     paths = phase_paths(torch, scene, sky, a.frames, a.seed, card)
@@ -2776,6 +3024,8 @@ def main() -> int:
              f"{c2}, G {g})")
     closest5, anyhit5, pairs5, routes, near5, near_pairs5, key5 = (
         phase_config5_kernels(torch, tables5, a.seed, card))
+    shade["config5_slab"] = phase_shade(torch, card, "config5_slab", tables5,
+                                        RenderSettings(**CONFIG5), 1890, 270)
     del scene5
     slabs = CONFIG5["frame_slabs"]
     drive_pair(
@@ -2936,6 +3186,17 @@ def main() -> int:
                                                             "direct")},
              timed_leg="config5_slab", legs=raygen,
              **{k: raygen["config5_slab"][k] for k in (
+                 "ms", "plain_ms", "bound_ms", "bound_by")}),
+        dict(name="shade", route="cuda",
+             source="webgpu_raytracing_tpu_torch/csrc/shade.cu",
+             replaces="none: XLA code in "
+             "webgpu_raytracing_tpu/ops/integrator.py",
+             launches_per_segment=2, mismatches=0, library_ms=None,
+             launches_per_frame={
+                 k: paths[k]["shade_per_frame"] for k in ("config5",
+                                                           "direct")},
+             timed_leg="config5_slab", legs=shade,
+             **{k: shade["config5_slab"][k] for k in (
                  "ms", "plain_ms", "bound_ms", "bound_by")}),
     ]}), flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all",

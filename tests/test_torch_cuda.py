@@ -1083,3 +1083,218 @@ def test_camera_rays_one_launch_and_checks_on_card(cuda):
             camera_rays(*args, st)
     with pytest.raises(ValueError, match="camera rays kernel"):
         camera_rays(pos, view.cpu(), state, st)
+
+
+# --- shading's two kernels (csrc/shade.cu) ---
+
+def _shade_inputs(case, r, dev):
+    """Random lanes and tables of tests/test_torch_shade.py's ``case`` on
+    ``dev`` and on the CPU."""
+    import types
+
+    from test_torch_shade import CASES, _lanes, _tables
+
+    from webgpu_raytracing_tpu_torch.ops.intersect import Hit
+
+    gen = np.random.default_rng(100 + sorted(CASES).index(case))
+    tables = _tables(gen, CASES[case][4])
+    lanes = _lanes(gen, r, tables.tri.shape[0])
+
+    def to(x):
+        if x is None or isinstance(x, torch.Tensor):
+            return x if x is None else x.to(dev)
+        if isinstance(x, Hit):
+            return Hit(*[to(v) for v in x])
+        return types.SimpleNamespace(**{k: to(v)
+                                        for k, v in vars(x).items()})
+
+    return CASES[case], (tables, lanes), (to(tables), {k: to(v) for k, v
+                                                       in lanes.items()})
+
+
+def _same_bits(got, want, what):
+    """Equal bit for bit on the CPU, NaN equal to NaN whatever its payload;
+    None only with None."""
+    if want is None:
+        assert got is None, what
+        return
+    got = got.cpu()
+    assert got.dtype == want.dtype and got.shape == want.shape, what
+    if got.dtype == torch.float32:
+        nan = torch.isnan(want)
+        assert torch.equal(torch.isnan(got), nan), what
+        got = got.masked_fill(nan, 0.0).view(torch.int32)
+        want = want.masked_fill(nan, 0.0).view(torch.int32)
+    assert torch.equal(got, want), (what, int((got != want).sum()))
+
+
+@pytest.mark.parametrize("r", [3001, 1_036_803], ids=["3001", "slab"])
+@pytest.mark.parametrize("case", ["flat", "phong", "phong_envis_run_env",
+                                  "phong_envis_no_partner",
+                                  "flat_envis_run_env_no_partner",
+                                  "flat_envis_first_segment"])
+def test_shade_kernels_match_cpu_twin_on_card(cuda, case, r):
+    """``wrt_shade_hit`` then ``wrt_shade_bounce`` on random lanes (a third
+    missed, a fifth dead, NaN origins, NaN throughput), one launch each,
+    every output equal to the CPU twin's bit for bit; the inputs are left
+    as they were."""
+    from webgpu_raytracing_tpu_torch.ops import integrator as ti
+
+    (shading, env_is, seg, run_env, _), (t_cpu, x_cpu), (t_dev, x_dev) = (
+        _shade_inputs(case, r, cuda))
+    env_mis = env_is and seg > 0
+
+    def hit_args(t, x):
+        return (x["hit"], x["alive"], x["d"], x["color"], x["throughput"],
+                x["env_dir"], x["env_w"], x["env_mis_pdf"],
+                x["prev_bsdf_pdf"], t, shading, env_mis)
+
+    inputs = {k: v.clone() for k, v in x_dev.items() if k != "hit"}
+    before = ti.shade_hit.launches
+    got = ti.shade_hit(*hit_args(t_dev, x_dev))
+    assert ti.shade_hit.launches == before + 1
+    want = ti.shade_hit.twin(*hit_args(t_cpu, x_cpu))
+    for name, g, w in zip(ti.HitShading._fields, got, want):
+        _same_bits(g, w, name)
+
+    before = ti.shade_bounce.launches
+    got_b = ti.shade_bounce(x_dev["state"], got.h, got.n, got.new_o,
+                            got.throughput, x_dev["o"], x_dev["d"],
+                            x_dev["prev_bsdf_pdf"], env_is, run_env)
+    assert ti.shade_bounce.launches == before + 1
+    want_b = ti.shade_bounce.twin(x_cpu["state"], want.h, want.n,
+                                  want.new_o, want.throughput, x_cpu["o"],
+                                  x_cpu["d"], x_cpu["prev_bsdf_pdf"], env_is,
+                                  run_env)
+    for name, g, w in zip(ti.Bounce._fields, got_b, want_b):
+        _same_bits(g, w, name)
+    torch.cuda.synchronize()
+    for k, v in inputs.items():
+        assert torch.equal(v.view(torch.uint8), x_dev[k].view(torch.uint8)), k
+
+
+def _shade_frame_settings(mode):
+    base = dict(width=48, height=32, sample_count=1, bounces_depth=4,
+                environment="black")
+    return RenderSettings(**{**base, **{
+        "path": {},
+        "nee": dict(next_event_estimation=True),
+        "envis": dict(environment="equirect", env_importance_sampling=True),
+        "chained": dict(next_event_estimation=True, sort_bounce_rays=True,
+                        chained_sort=True),
+    }[mode]})
+
+
+@pytest.mark.parametrize("mode", ["path", "nee", "envis", "chained"])
+def test_path_trace_shading_kernels_on_card(cuda, mode, monkeypatch):
+    """Two frames on the card: each of the frame's shading launches gives
+    the CPU twin's outputs bit for bit on the same inputs; 2 launches a
+    segment (``shade.kernel_launches`` with tracing on: 2 x 3 segments x
+    2 samples); the eager twins are never entered on CUDA tensors; the
+    accumulation equals the CPU frame's (NaN masks equal, RMSE < 1e-5)."""
+    from test_torch_shade import _scene
+
+    from webgpu_raytracing_tpu_torch.ops import integrator as ti
+    from webgpu_raytracing_tpu_torch.ops.env_sample import (
+        build_env_distribution,
+    )
+    from webgpu_raytracing_tpu_torch.ops.intersect import Hit
+    from webgpu_raytracing_tpu_torch.utils import timing
+
+    st = _shade_frame_settings(mode)
+    img = (np.random.default_rng(4).random((16, 32, 3)) * 0.5).astype(
+        np.float32)
+    img[4, 10] = 200.0
+    calls = {"shade_hit": 0, "shade_bounce": 0}
+    twin_devices = []
+
+    def checked(name):
+        kernel = getattr(ti, name)
+        twin = kernel.twin
+
+        def spy_twin(*args):
+            twin_devices.append(args[2].device.type)
+            return twin(*args)
+
+        def call(*args):
+            out = kernel(*args)
+            cpu = [a.cpu() if isinstance(a, torch.Tensor) else a
+                   for a in args]
+            if name == "shade_hit":
+                cpu[0] = Hit(*[v.cpu() for v in args[0]])
+                cpu[9] = args[9].to("cpu")
+            want = twin(*cpu)
+            for f, g, w in zip(type(out)._fields, out, want):
+                _same_bits(g, w, f"{name}.{f}")
+            calls[name] += 1
+            return out
+
+        # the dispatcher counts its launch on the module's name, now this
+        call.twin, call.launches = spy_twin, 0
+        monkeypatch.setattr(kernel, "twin", spy_twin)
+        return call
+
+    images = {}
+    for dev in ("cpu", "cuda"):
+        env = build_env_distribution(img, dev) if st.env_importance_sampling \
+            else None
+        r = Renderer(_scene(-1.5), st, env_data=env, base_seed=31, device=dev)
+        if dev == "cuda":
+            monkeypatch.setattr(ti, "shade_hit", checked("shade_hit"))
+            monkeypatch.setattr(ti, "shade_bounce", checked("shade_bounce"))
+        with timing.tracing():
+            r.step()
+            counts = r.last_counts
+            r.step()
+        torch.cuda.synchronize()
+        images[dev] = r.buffers.image.cpu().numpy()
+        if dev == "cuda":
+            assert counts.get("shade.kernel_launches") == 2 * 3 * 2, counts
+    assert calls == {"shade_hit": 12, "shade_bounce": 12}, calls
+    assert "cuda" not in twin_devices
+    got, want = images["cuda"], images["cpu"]
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    ok = ~np.isnan(want)
+    rmse = float(np.sqrt(np.mean((got[ok] - want[ok]) ** 2)))
+    equal = float(np.mean(got.view(np.int32) == want.view(np.int32)))
+    print(f"{mode}: card vs CPU frame RMSE {rmse:.3g}, {equal:.4f} of the "
+          "values equal bit for bit")
+    assert rmse < 1e-5, rmse
+
+
+def test_shade_kernels_one_device_op_each_on_card(cuda):
+    """A call on CUDA tensors dispatches no PyTorch operation but the
+    allocation of its outputs, so its one launch is the kernel; a wrong
+    dtype raises before any launch."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from webgpu_raytracing_tpu_torch.ops import integrator as ti
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.append(func.overloadpacket.__name__)
+            return func(*args, **(kwargs or {}))
+
+    (shading, env_is, seg, run_env, _), _, (t, x) = _shade_inputs(
+        "phong_envis_run_env", 5000, cuda)
+    args = (x["hit"], x["alive"], x["d"], x["color"], x["throughput"],
+            x["env_dir"], x["env_w"], x["env_mis_pdf"], x["prev_bsdf_pdf"],
+            t, shading, True)
+    launches = ti.shade_hit.launches, ti.shade_bounce.launches
+    with Ops() as ops:
+        sh = ti.shade_hit(*args)
+        ti.shade_bounce(x["state"], sh.h, sh.n, sh.new_o, sh.throughput,
+                        x["o"], x["d"], x["prev_bsdf_pdf"], True, True)
+    torch.cuda.synchronize()
+    assert (ti.shade_hit.launches, ti.shade_bounce.launches) == (
+        launches[0] + 1, launches[1] + 1)
+    assert ops.names and set(ops.names) == {"empty"}, ops.names
+    bad = list(args)
+    bad[1] = x["alive"].to(torch.uint8)
+    with pytest.raises(ValueError, match="shading kernel: alive"):
+        ti.shade_hit(*bad)
+    assert ti.shade_hit.launches == launches[0] + 1

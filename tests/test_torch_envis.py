@@ -7,7 +7,8 @@
   within 1e-6 relative;
 * the JAX package's own checks of the distribution, in the port;
 * whole mini-scene frames with env-IS (``env_nee_depth`` 0 and 1) against
-  the jitted JAX renderer with ``traversal="clustered"``."""
+  the jitted JAX renderer with ``traversal="clustered"``, and bit for bit
+  against it run op by op."""
 
 import jax
 import jax.numpy as jnp
@@ -195,6 +196,31 @@ def test_envis_frames_match_jax_clustered(nee_depth):
           f"1e-5 {close:.4f}")
     assert rmse <= 1e-2, rmse
     assert close >= 0.99, close
+
+
+@pytest.mark.parametrize("nee_depth", [0, 1])
+def test_envis_frames_bit_identical_to_eager_jax(nee_depth):
+    """A 16x16 frame of the mini scene under the random equirect, env-IS
+    with MIS, against the JAX renderer run op by op: every value bit for
+    bit, equal ray counts."""
+    img = _env_img(16, 32, seed=9)
+    jd = jes.build_env_distribution(img)
+    td = env_distribution_from_numpy(
+        {k: np.asarray(getattr(jd, k)) for k in FIELDS}, "cpu"
+    )
+    kw = dict(width=16, height=16, sample_count=1, bounces_depth=3,
+              environment="equirect", env_importance_sampling=True,
+              env_nee_depth=nee_depth)
+    jr = JRenderer(_mini(jscene, jtm), JSettings(traversal="clustered", **kw),
+                   env_data=jd, base_seed=9)
+    with jax.disable_jit():
+        jr.step()
+    tr = TRenderer(_mini(tscene, ttm), TSettings(**kw), env_data=td,
+                   base_seed=9, device="cpu")
+    tr.step()
+    np.testing.assert_array_equal(tr.buffers.image.numpy(),
+                                  np.asarray(jr.buffers.image))
+    assert tr.last_rays == jr.last_rays
 
 
 def test_envis_needs_a_distribution():

@@ -35,7 +35,10 @@ tables). Prints, per frame, each span's self and inclusive busy time and
 launches, host time and the idle time put down to it, the longest idle
 gaps with the span each opened in, the device's busy share of its span,
 the top CUDA kernels, the frame's counters
-(``Renderer.last_counts``), and one JSON line with the numbers. The
+(``Renderer.last_counts``), shading's kernel launches a frame twice over
+(the host counter ``shade.kernel_launches`` and, by kernel name, the
+``shade_*_kernel`` operations on the device trace with their device
+time: 2 a path segment), and one JSON line with the numbers. The
 card's name and power limit (nvidia-smi) are printed beside them. Fails
 without a CUDA device.
 """
@@ -46,6 +49,7 @@ import argparse
 import collections
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -133,8 +137,16 @@ def main() -> int:
     cpu, ops, launch_at = spans.device_view(prof.events())
     table = spans.span_table(cpu, ops, launch_at, a.frames)
     kernels = collections.Counter()
+    launches = collections.Counter()
     for e in ops:
         kernels[e.name] += e.time_range.end - e.time_range.start
+        launches[e.name] += 1
+    shade = {}  # "shade_hit_kernel<true, false>" → (launches, ms) a frame
+    for name, us in kernels.items():
+        m = re.search(r"shade_\w+_kernel<[^>]*>", name)
+        if m:
+            shade[m.group(0)] = (launches[name] / a.frames,
+                                 us / 1e3 / a.frames)
     busy_ms = sum(kernels.values()) / 1e3 / a.frames
     starts = [e.time_range.start for e in ops]
     ends = [e.time_range.end for e in ops]
@@ -163,6 +175,11 @@ def main() -> int:
         print(f"  {us / 1e3 / a.frames:9.2f}  {name[:110]}")
     print("counters per frame: " + ", ".join(
         f"{k} {v / a.frames:.1f}" for k, v in sorted(counts.items())))
+    print("shading kernel launches per frame: "
+          f"{counts.get('shade.kernel_launches', 0) / a.frames:.1f} by "
+          "shade.kernel_launches; on the device trace " + (", ".join(
+              f"{k} {n:.1f} ({ms:.2f} ms)" for k, (n, ms) in
+              sorted(shade.items())) or "none"))
     print(json.dumps({
         "card": card, "frames": a.frames, "width": a.width,
         "height": a.height, "trace_sched": a.trace_sched,
@@ -176,6 +193,8 @@ def main() -> int:
                          if c.endswith("_us") else v
                          for c, v in t.items()} for k, t in table.items()},
         "counts": {k: v / a.frames for k, v in counts.items()},
+        "shade_kernels": {k: {"launches": n, "ms": ms}
+                          for k, (n, ms) in shade.items()},
         "rays_per_frame": r.last_rays,
     }))
     return 0

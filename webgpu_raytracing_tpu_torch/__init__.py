@@ -5,7 +5,9 @@ Module names mirror the JAX package's. Plain tensor code is PyTorch; the
 cluster traces, Pallas kernels in the JAX package, are hand-written CUDA
 kernels (``csrc/cluster_trace.cu``, bound in ``ops/cluster_cuda.py``) with
 plain-torch twins that CPU tensors use; so are camera rays
-(``csrc/raygen.cu``, ``ops/raygen.py``). This package never imports JAX.
+(``csrc/raygen.cu``, ``ops/raygen.py``) and a path segment's shading
+(``csrc/shade.cu``, ``ops/integrator.py``). This package never imports
+JAX.
 The names below load their modules on first use, so that importing the
 package stays cheap.
 """

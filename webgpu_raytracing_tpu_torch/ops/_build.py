@@ -22,7 +22,9 @@ the two scheduled clusters of each block of a sorted ray stream);
 ``wrt_top_keys`` (the ray sort's coherence key: the n nearest entered boxes
 of each ray as packed int32 keys); and ``wrt_error_string``. In
 ``csrc/raygen.cu``: ``wrt_camera_rays`` (a sample's camera rays, one
-thread a ray, with ``csrc/detmath.cuh``'s device functions). The
+thread a ray, with ``csrc/detmath.cuh``'s device functions). In
+``csrc/shade.cu``: ``wrt_shade_hit`` and ``wrt_shade_bounce`` (a path
+segment's shading, one thread a lane, with ``csrc/shade.cuh``). The
 closest-hit entries of K1, K2pl and K2n and K4 take the code carried in
 beside t_max (or null), K1's also the cap and the stop output, K2n's
 closest-hit and any-hit entries the per-ray ``t_start``.
@@ -172,6 +174,10 @@ def _entries():
         # state_out, n_rays, stream
         "wrt_camera_rays": (i, [p, p, p, i, i, p, p, p, p,
                                 ctypes.c_longlong, p]),
+        # the pointer block (host), phong, env_mis, n_lanes, stream
+        "wrt_shade_hit": (i, [p, i, i, ctypes.c_longlong, p]),
+        # the pointer block (host), env_is, run_env, n_lanes, stream
+        "wrt_shade_bounce": (i, [p, i, i, ctypes.c_longlong, p]),
         "wrt_error_string": (ctypes.c_char_p, [i]),
     }
 

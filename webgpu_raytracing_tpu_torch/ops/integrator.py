@@ -35,8 +35,9 @@ exact-pairs step.
 
 from __future__ import annotations
 
+import ctypes
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -285,6 +286,275 @@ def face_normal(shade_row, u, v, shading: ShadingType):
     return shade_row[..., 0:3]
 
 
+class HitShading(NamedTuple):
+    """:func:`shade_hit`'s outputs, in the order of ``ShadeHitArgs``'s
+    outputs (``csrc/shade.cuh``)."""
+
+    color: torch.Tensor  # (R, 3)
+    throughput: torch.Tensor  # (R, 3)
+    env_dir: torch.Tensor  # (R, 3) the deferred environment's direction
+    env_w: torch.Tensor  # (R, 3) and weight
+    env_mis_pdf: torch.Tensor  # (R,)
+    n: torch.Tensor  # (R, 3) the shading normal
+    new_o: torch.Tensor  # (R, 3) the offset hit point
+    excl: Optional[torch.Tensor]  # (R,) i32 the twin face's code, or None
+    h: torch.Tensor  # (R,) bool: alive and hit
+
+
+class Bounce(NamedTuple):
+    """:func:`shade_bounce`'s outputs, in the order of
+    ``ShadeBounceArgs``'s outputs."""
+
+    state: torch.Tensor  # (R,) i64
+    throughput: torch.Tensor  # (R, 3)
+    alive: torch.Tensor  # (R,) bool
+    o: torch.Tensor  # (R, 3)
+    d: torch.Tensor  # (R, 3)
+    prev_bsdf_pdf: torch.Tensor  # (R,)
+
+
+def _shade_hit_torch(hit, alive, d, color, throughput, env_dir, env_w,
+                     env_mis_pdf, prev_bsdf_pdf, tables, shading,
+                     env_mis) -> HitShading:
+    """The plain twin of ``wrt_shade_hit``: eager ops, one rounding each."""
+    found = hit.face >= 0
+    miss = alive & ~found
+    with span("wrt.env"):
+        env_dir = torch.where(miss.unsqueeze(-1), d, env_dir)
+        env_w = torch.where(miss.unsqueeze(-1), throughput, env_w)
+        if env_mis:
+            # the previous vertex also env-NEE'd: weigh the BSDF strategy
+            env_mis_pdf = torch.where(miss, prev_bsdf_pdf, env_mis_pdf)
+
+    h = alive & found
+    h3 = h.unsqueeze(-1)
+    face = hit.face.clamp(min=0).long()
+    mat = tables.face_material[face].long()
+    emission = tables.mat_emission[mat]
+    albedo = tables.mat_color[mat]
+    color = torch.where(h3, color + emission * throughput, color)
+    throughput = torch.where(h3, throughput * albedo, throughput)
+
+    tri = tables.tri[face]
+    shade = tables.shade_normal[face]
+    n = face_normal(shade, hit.u, hit.v, shading)
+    new_o = face_point_offset(tri, shade, hit.u, hit.v)
+
+    # rays leaving this vertex (shadow and bounce) exclude the hit face's
+    # two-sided twin
+    pc = tables.clusters.partner_code
+    excl = None
+    if pc is not None:
+        excl = torch.where(h, pc[face], torch.full_like(hit.face, -1))
+    return HitShading(color, throughput, env_dir, env_w, env_mis_pdf, n,
+                      new_o, excl, h)
+
+
+def _shade_bounce_torch(state, h, n, new_o, throughput, o, d, prev_bsdf_pdf,
+                        env_is, run_env) -> Bounce:
+    """The plain twin of ``wrt_shade_bounce``: eager ops, one rounding
+    each."""
+    t2, s2 = rng.random_2(state)
+    state = rng.masked_advance(state, s2, h)
+    new_d = rng.sample_cosine_weighted_hemisphere(t2, n)
+    if env_is:
+        # -1: the deferred env fetch applies weight 1 (no env-NEE
+        # competed at this vertex)
+        with span("wrt.env"):
+            pv = (
+                bsdf_pdf(new_d, n)
+                if run_env
+                else torch.full((n.shape[0],), -1.0, dtype=torch.float32,
+                                device=n.device)
+            )
+            prev_bsdf_pdf = torch.where(h, pv, prev_bsdf_pdf)
+
+    # russian roulette (render.ts:1201-1208)
+    p = torch.amax(throughput, dim=-1)
+    r1, s3 = rng.random_1(state)
+    state = rng.masked_advance(state, s3, h)
+    survive = r1 <= p
+    throughput = torch.where(
+        (h & survive).unsqueeze(-1),
+        throughput / torch.clamp(p, min=1e-20).unsqueeze(-1),
+        throughput,
+    )
+
+    alive = h & survive
+    a3 = alive.unsqueeze(-1)
+    o = torch.where(a3, new_o, o)
+    d = torch.where(a3, new_d, d)
+    return Bounce(state, throughput, alive, o, d, prev_bsdf_pdf)
+
+
+def _checked(kernel, dev, spec):
+    """Each (name, tensor or None, dtype, shape) of ``spec`` checked to lie
+    on ``dev`` with that dtype and shape → the tensors made contiguous (a
+    no-op for the path's own tensors), None kept."""
+    out = []
+    for name, x, dt, shape in spec:
+        if x is not None:
+            if (x.device != dev or x.dtype != dt
+                    or tuple(x.shape) != tuple(shape)):
+                raise ValueError(
+                    f"{kernel}: {name} must be a {dt} tensor of shape "
+                    f"{tuple(shape)} on {dev}, got {x.dtype} "
+                    f"{tuple(x.shape)} on {x.device}")
+            x = x.contiguous()
+        out.append(x)
+    return out
+
+
+def _pointer_block(tensors) -> ctypes.Array:
+    """The data pointers of ``tensors`` (null for None) as the host array a
+    shading entry copies into its argument struct."""
+    return (ctypes.c_void_p * len(tensors))(
+        *[None if x is None else x.data_ptr() for x in tensors])
+
+
+def _shade_hit_buffers(hit, alive, d, color, throughput, env_dir, env_w,
+                       env_mis_pdf, prev_bsdf_pdf, tables, env_mis):
+    """``wrt_shade_hit``'s arguments checked, its outputs allocated →
+    (the outputs, the pointer block in ``ShadeHitArgs``'s order, the
+    tensors it points to)."""
+    dev = d.device
+    r, n_f, k = d.shape[0], tables.tri.shape[0], tables.mat_color.shape[0]
+    f32, i32 = torch.float32, torch.int32
+    pc = tables.clusters.partner_code
+    ins = _checked("shading kernel", dev, [
+        ("face", hit.face, i32, (r,)), ("u", hit.u, f32, (r,)),
+        ("v", hit.v, f32, (r,)), ("alive", alive, torch.bool, (r,)),
+        ("d", d, f32, (r, 3)), ("color", color, f32, (r, 3)),
+        ("throughput", throughput, f32, (r, 3)),
+        ("env_dir", env_dir, f32, (r, 3)), ("env_w", env_w, f32, (r, 3)),
+        ("env_mis_pdf", env_mis_pdf, f32, (r,)),
+        ("prev_bsdf_pdf", prev_bsdf_pdf if env_mis else None, f32, (r,)),
+        ("face_material", tables.face_material, i32, (n_f,)),
+        ("mat_emission", tables.mat_emission, f32, (k, 3)),
+        ("mat_color", tables.mat_color, f32, (k, 3)),
+        ("tri", tables.tri, f32, (n_f, 9)),
+        ("shade_normal", tables.shade_normal, f32, (n_f, 12)),
+        ("partner_code", pc, i32, (n_f,)),
+    ])
+
+    def new(*shape, dtype=f32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    out = HitShading(
+        color=new(r, 3), throughput=new(r, 3), env_dir=new(r, 3),
+        env_w=new(r, 3), env_mis_pdf=new(r) if env_mis else env_mis_pdf,
+        n=new(r, 3), new_o=new(r, 3),
+        excl=None if pc is None else new(r, dtype=i32),
+        h=new(r, dtype=torch.bool))
+    outs = list(out)
+    if not env_mis:
+        outs[4] = None  # not written: the input passes through
+    return out, _pointer_block(ins + outs), ins + outs
+
+
+def _shade_bounce_buffers(state, h, n, new_o, throughput, o, d,
+                          prev_bsdf_pdf, env_is):
+    """``wrt_shade_bounce``'s arguments checked, its outputs allocated, as
+    :func:`_shade_hit_buffers`."""
+    dev = d.device
+    r = d.shape[0]
+    f32 = torch.float32
+    ins = _checked("shading kernel", dev, [
+        ("state", state, torch.int64, (r,)), ("h", h, torch.bool, (r,)),
+        ("n", n, f32, (r, 3)), ("new_o", new_o, f32, (r, 3)),
+        ("throughput", throughput, f32, (r, 3)), ("o", o, f32, (r, 3)),
+        ("d", d, f32, (r, 3)),
+        ("prev_bsdf_pdf", prev_bsdf_pdf if env_is else None, f32, (r,)),
+    ])
+
+    def new(*shape, dtype=f32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    out = Bounce(
+        state=new(r, dtype=torch.int64), throughput=new(r, 3),
+        alive=new(r, dtype=torch.bool), o=new(r, 3), d=new(r, 3),
+        prev_bsdf_pdf=new(r) if env_is else prev_bsdf_pdf)
+    outs = list(out)
+    if not env_is:
+        outs[5] = None
+    return out, _pointer_block(ins + outs), ins + outs
+
+
+def _launch(entry, block, flags, r, dev):
+    from ._build import check_current_device, load
+
+    check_current_device(dev)
+    lib = load()
+    err = getattr(lib, entry)(ctypes.addressof(block), *flags, r,
+                              torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"shading kernel {entry} failed: "
+                           + lib.wrt_error_string(err).decode())
+    count("shade.kernel_launches", 1)
+
+
+def shade_hit(hit, alive, d, color, throughput, env_dir, env_w, env_mis_pdf,
+              prev_bsdf_pdf, tables, shading: ShadingType,
+              env_mis: bool) -> HitShading:
+    """A segment's hit, after its closest-hit trace: the deferred
+    environment's direction and weight on lanes that miss now (and, with
+    ``env_mis``, env-IS past the first segment, the BSDF pdf its fetch
+    weighs by), emission and albedo on lanes that hit, the shading normal,
+    the offset origin of the rays that leave, and their exclusion code.
+
+    CUDA tensors launch ``wrt_shade_hit`` (``csrc/shade.cu``, counted in
+    ``shade_hit.launches`` and the frame's ``shade.kernel_launches``); CPU
+    tensors run the plain twin (``shade_hit.twin``); any other device
+    raises. Outputs are new tensors."""
+    dev = d.device
+    if dev.type == "cpu":
+        return shade_hit.twin(hit, alive, d, color, throughput, env_dir,
+                              env_w, env_mis_pdf, prev_bsdf_pdf, tables,
+                              shading, env_mis)
+    if dev.type != "cuda":
+        raise ValueError(f"no shading kernel for device {dev}")
+    out, block, _ = _shade_hit_buffers(
+        hit, alive, d, color, throughput, env_dir, env_w, env_mis_pdf,
+        prev_bsdf_pdf, tables, env_mis)
+    _launch("wrt_shade_hit", block,
+            (int(shading == ShadingType.PHONG), int(env_mis)), d.shape[0],
+            dev)
+    shade_hit.launches += 1
+    return out
+
+
+def shade_bounce(state, h, n, new_o, throughput, o, d, prev_bsdf_pdf,
+                 env_is: bool, run_env: bool) -> Bounce:
+    """A segment's bounce, after its light and env-NEE samples: the
+    cosine-weighted direction from ``n``, with ``env_is`` the BSDF pdf of
+    that direction that the deferred fetch weighs by (-1 unless
+    ``run_env``), Russian roulette, and the lanes that go on from
+    ``new_o``. The RNG advances on ``h`` lanes alone.
+
+    CUDA tensors launch ``wrt_shade_bounce`` (counted in
+    ``shade_bounce.launches`` and ``shade.kernel_launches``); CPU tensors
+    run ``shade_bounce.twin``; any other device raises. Outputs are new
+    tensors."""
+    dev = d.device
+    if dev.type == "cpu":
+        return shade_bounce.twin(state, h, n, new_o, throughput, o, d,
+                                 prev_bsdf_pdf, env_is, run_env)
+    if dev.type != "cuda":
+        raise ValueError(f"no shading kernel for device {dev}")
+    out, block, _ = _shade_bounce_buffers(
+        state, h, n, new_o, throughput, o, d, prev_bsdf_pdf, env_is)
+    _launch("wrt_shade_bounce", block, (int(env_is), int(run_env)),
+            d.shape[0], dev)
+    shade_bounce.launches += 1
+    return out
+
+
+shade_hit.launches = 0
+shade_hit.twin = _shade_hit_torch
+shade_bounce.launches = 0
+shade_bounce.twin = _shade_bounce_torch
+
+
 class LightSample(NamedTuple):
     p: torch.Tensor  # (R,) 1/pdf
     point: torch.Tensor  # (R, 3)
@@ -406,7 +676,6 @@ def path_trace(
     env_w = torch.zeros((r, 3), dtype=torch.float32, device=dev)
     env_mis_pdf = torch.full((r,), -1.0, dtype=torch.float32, device=dev)
 
-    pc = tables.clusters.partner_code
     excl = None
 
     chained = (settings.chained_sort and settings.sort_bounce_rays
@@ -451,34 +720,12 @@ def path_trace(
         if seg == 0:
             first_hit = hit
 
-        found = hit.face >= 0
-        miss = alive & ~found
-        with span("wrt.env"):
-            env_dir = torch.where(miss.unsqueeze(-1), d, env_dir)
-            env_w = torch.where(miss.unsqueeze(-1), throughput, env_w)
-            if env_is and seg > 0:
-                # the previous vertex also env-NEE'd: weigh the BSDF
-                # strategy
-                env_mis_pdf = torch.where(miss, prev_bsdf_pdf, env_mis_pdf)
-
-        h = alive & found
+        sh = shade_hit(hit, alive, d, color, throughput, env_dir, env_w,
+                       env_mis_pdf, prev_bsdf_pdf, tables,
+                       settings.shading_type, env_is and seg > 0)
+        color, throughput, env_dir, env_w, env_mis_pdf = sh[:5]
+        n, new_o, excl, h = sh.n, sh.new_o, sh.excl, sh.h
         h3 = h.unsqueeze(-1)
-        face = hit.face.clamp(min=0).long()
-        mat = tables.face_material[face].long()
-        emission = tables.mat_emission[mat]
-        albedo = tables.mat_color[mat]
-        color = torch.where(h3, color + emission * throughput, color)
-        throughput = torch.where(h3, throughput * albedo, throughput)
-
-        tri = tables.tri[face]
-        shade = tables.shade_normal[face]
-        n = face_normal(shade, hit.u, hit.v, settings.shading_type)
-        new_o = face_point_offset(tri, shade, hit.u, hit.v)
-
-        # rays leaving this vertex (shadow and bounce) exclude the hit
-        # face's two-sided twin
-        if pc is not None:
-            excl = torch.where(h, pc[face], torch.full_like(hit.face, -1))
 
         if settings.next_event_estimation:
             nee, state = direct_light(
@@ -524,36 +771,9 @@ def path_trace(
             count("trace.env_shadow.live", live)
             count("trace.env_shadow.lanes", r)
 
-        t2, s2 = rng.random_2(state)
-        state = rng.masked_advance(state, s2, h)
-        new_d = rng.sample_cosine_weighted_hemisphere(t2, n)
-        if env_is:
-            # -1: the deferred env fetch applies weight 1 (no env-NEE
-            # competed at this vertex)
-            with span("wrt.env"):
-                pv = (
-                    bsdf_pdf(new_d, n)
-                    if run_env
-                    else torch.full((r,), -1.0, dtype=torch.float32,
-                                    device=dev)
-                )
-                prev_bsdf_pdf = torch.where(h, pv, prev_bsdf_pdf)
-
-        # russian roulette (render.ts:1201-1208)
-        p = torch.amax(throughput, dim=-1)
-        r1, s3 = rng.random_1(state)
-        state = rng.masked_advance(state, s3, h)
-        survive = r1 <= p
-        throughput = torch.where(
-            (h & survive).unsqueeze(-1),
-            throughput / torch.clamp(p, min=1e-20).unsqueeze(-1),
-            throughput,
-        )
-
-        alive = h & survive
-        a3 = alive.unsqueeze(-1)
-        o = torch.where(a3, new_o, o)
-        d = torch.where(a3, new_d, d)
+        state, throughput, alive, o, d, prev_bsdf_pdf = shade_bounce(
+            state, h, n, new_o, throughput, o, d, prev_bsdf_pdf, env_is,
+            run_env)
 
     with span("wrt.env"):
         env = sample_environment(env_img, env_dir, settings.environment)
