@@ -214,35 +214,6 @@ def test_camera_scalar_block_bit_equal(projection, orientation):
         bits(block), bits(np.array(traygen.camera_scalars(st), f32)))
 
 
-def _cpu_rays(projection, lens):
-    w, h = 12, 10
-    pos = _pixel_grid(w, h, np.random.default_rng(20 + projection))
-    cam = Camera()
-    cam.rotate(np.array([0.2, -0.4], np.float32))
-    cam.move(np.array([0.3, -0.1, 0.2], np.float32))
-    st = TSettings(width=w, height=h, projection_type=projection,
-                   lens_shape=lens, circle_of_confusion=0.05,
-                   fov_orientation=2)
-    idx = torch.arange(w * h)
-    return (torch.from_numpy(pos), torch.from_numpy(cam.view_matrix()),
-            trng.seed_state(2**32 - 77, idx), st)
-
-
-@pytest.mark.parametrize("projection", [0, 1, 2, 3])
-def test_camera_rays_cpu_runs_twin(projection):
-    """On CPU tensors camera_rays is its twin: no launch, the twin's
-    bits; any device but the CPU and CUDA raises."""
-    args = _cpu_rays(projection, projection % 2)
-    before = tcamera_rays.launches
-    got = tcamera_rays(*args)
-    assert tcamera_rays.launches == before == 0
-    for g, t in zip(got, tcamera_rays.twin(*args)):
-        np.testing.assert_array_equal(g.numpy(), t.numpy())
-    meta = [x.to("meta") for x in args[:3]]
-    with pytest.raises(ValueError, match="no camera rays kernel"):
-        tcamera_rays(*meta, args[3])
-
-
 # raygen.cuh built for the host: the CUDA qualifiers dropped, the library's
 # strict arithmetic kept (no contraction, IEEE division and square root)
 _HOST_RAYGEN = r"""

@@ -10,7 +10,8 @@
   comes from the wrappers' own ``_shade_*_buffers``, so the order of its
   fields is held too.
 * On CPU tensors ``shade_hit`` / ``shade_bounce`` are their twins (no
-  launch); another device raises; the wrappers' argument checks raise.
+  launch); another device raises; the argument checks raise: cases of
+  tests/test_torch_binding.py.
 * ``path_trace`` through the twins: whole frames of every shading mode
   are held bit for bit to the JAX package run op by op
   (tests/test_torch_render.py, tests/test_torch_nee.py,
@@ -206,50 +207,6 @@ def test_shade_source_matches_twins_on_host(host_shade, case):
         assert not torch.equal(want_b.prev_bsdf_pdf, x["prev_bsdf_pdf"])
     else:
         assert want_b.prev_bsdf_pdf is x["prev_bsdf_pdf"]
-
-
-def test_shade_steps_run_twins_on_cpu_and_check_arguments():
-    """On CPU tensors no launch and the twins' bits; another device
-    raises; the kernels' argument checks raise on a wrong dtype or
-    shape."""
-    gen = np.random.default_rng(11)
-    tables = _tables(gen, True)
-    x = _lanes(gen, 100, tables.tri.shape[0])
-    hit_args = [x["hit"], x["alive"], x["d"], x["color"], x["throughput"],
-                x["env_dir"], x["env_w"], x["env_mis_pdf"],
-                x["prev_bsdf_pdf"], tables, ShadingType.PHONG, True]
-    launches = ti.shade_hit.launches, ti.shade_bounce.launches
-    got = ti.shade_hit(*hit_args)
-    for g, w in zip(got, ti.shade_hit.twin(*hit_args)):
-        assert_same_bits(g, w, "hit")
-    bounce_args = [x["state"], got.h, got.n, got.new_o, got.throughput,
-                   x["o"], x["d"], x["prev_bsdf_pdf"], True, True]
-    for g, w in zip(ti.shade_bounce(*bounce_args),
-                    ti.shade_bounce.twin(*bounce_args)):
-        assert_same_bits(g, w, "bounce")
-    assert (ti.shade_hit.launches, ti.shade_bounce.launches) == launches
-
-    meta_hit = list(hit_args)
-    meta_hit[2] = x["d"].to("meta")
-    with pytest.raises(ValueError, match="no shading kernel"):
-        ti.shade_hit(*meta_hit)
-    meta_bounce = list(bounce_args)
-    meta_bounce[6] = x["d"].to("meta")
-    with pytest.raises(ValueError, match="no shading kernel"):
-        ti.shade_bounce(*meta_bounce)
-
-    bad_hit = list(hit_args[:10])
-    bad_hit[1] = x["alive"].to(torch.uint8)
-    with pytest.raises(ValueError, match="shading kernel: alive"):
-        ti._shade_hit_buffers(*bad_hit, True)
-    bad_hit = list(hit_args[:10])
-    bad_hit[4] = x["throughput"][:-1]
-    with pytest.raises(ValueError, match="shading kernel: throughput"):
-        ti._shade_hit_buffers(*bad_hit, True)
-    bad_bounce = list(bounce_args[:8])
-    bad_bounce[0] = x["state"].to(torch.int32)
-    with pytest.raises(ValueError, match="shading kernel: state"):
-        ti._shade_bounce_buffers(*bad_bounce, True)
 
 
 # --- a scene for the card's whole-frame tests (tests/test_torch_cuda.py)

@@ -35,8 +35,13 @@ reference's strict arithmetic); there is no ``--use_fast_math``, so
 ``/`` and ``sqrt`` stay IEEE-rounded. A missing or failing ``nvcc``
 raises with its output.
 
-:func:`check_current_device` is the wrappers' shared check that a kernel's
-tensors are on the current CUDA device.
+The binding every kernel's Python entry is made of: :class:`Kernel` sends
+CPU tensors to the plain twin and CUDA tensors to the launch function, and
+counts the launches; :func:`check_args` checks a launch's tensors;
+:func:`launch` calls an entry on the current stream of the current device
+(:func:`check_current_device`) and raises on its error;
+:func:`pointer_block` packs the tensors of an entry that takes an argument
+struct.
 """
 
 from __future__ import annotations
@@ -48,8 +53,11 @@ import os
 import shutil
 import subprocess
 import threading
+from typing import Optional
 
 import torch
+
+from ..utils.timing import span
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -187,6 +195,8 @@ def check_current_device(dev: torch.device) -> None:
     its rays are, and a caller that renders on several cards works on each
     under ``torch.cuda.device(dev)`` (parallel/shard.py), so rays on
     another card are a caller's error."""
+    if dev.type != "cuda":
+        raise ValueError(f"the kernels take CUDA tensors, not {dev}")
     cur = torch.cuda.current_device()
     if dev.index is not None and dev.index != cur:
         raise ValueError(
@@ -214,3 +224,98 @@ def load() -> ctypes.CDLL:
             fn.argtypes = argtypes
         _lib = lib
         return lib
+
+
+def launch(label: str, entry: str, dev: torch.device, *args) -> None:
+    """Call the library's ``entry`` with ``args`` and the current stream of
+    ``dev``, which must be the current CUDA device; a nonzero return raises
+    with its ``wrt_error_string``."""
+    check_current_device(dev)
+    lib = load()
+    err = getattr(lib, entry)(*args,
+                              torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{label} kernel {entry} failed: "
+                           + lib.wrt_error_string(err).decode())
+
+
+def check_args(label: str, dev: torch.device, spec, copy: bool = False):
+    """Each (name, tensor or None, dtype, shape or None for any) of
+    ``spec`` checked to lie on ``dev``, contiguous, with that dtype and
+    shape → the tensors, None kept. With ``copy`` a tensor that is not
+    contiguous is copied instead of refused."""
+    out = []
+    for name, x, dt, shape in spec:
+        if x is not None:
+            if (x.device != dev or x.dtype != dt
+                    or (shape is not None and x.shape != shape)
+                    or not (copy or x.is_contiguous())):
+                want = "" if shape is None else f" of shape {shape}"
+                raise ValueError(
+                    f"{label} kernel: {name} must be a contiguous {dt} "
+                    f"tensor{want} on {dev}, got {x.dtype} {tuple(x.shape)} "
+                    f"on {x.device} (contiguous={x.is_contiguous()})")
+            if copy:
+                x = x.contiguous()
+        out.append(x)
+    return out
+
+
+def pointer_block(tensors) -> ctypes.Array:
+    """The data pointers of ``tensors`` (null for None) as the host array
+    that an entry taking an argument struct copies into it."""
+    return (ctypes.c_void_p * len(tensors))(
+        *[None if x is None else x.data_ptr() for x in tensors])
+
+
+# Which of a kernel and its twin a routed entry runs: "auto" by the
+# tensors' device (traversal "auto"), "kernel" the CUDA kernel only
+# ("pallas"), "twin" the plain twin on any device ("pallas_interpret").
+ROUTES = ("auto", "kernel", "twin")
+
+
+class Kernel:
+    """A kernel's Python entry, called with the arguments of ``twin`` and
+    ``launch``. The device of the first tensor argument decides: CPU
+    tensors run ``twin`` (the plain version) and count nothing; CUDA
+    tensors run ``launch`` (which checks the arguments and launches the
+    kernel) and add one to ``launches``; any other device raises. A
+    ``routed`` entry also takes ``route`` (ROUTES): ``"kernel"`` launches
+    or raises, ``"twin"`` runs the twin on any device. With ``span_name``
+    the whole call is that span."""
+
+    def __init__(self, name: str, twin, launch, label: str, doc: str,
+                 routed: bool = False, span_name: Optional[str] = None):
+        self.__name__ = self.__qualname__ = name
+        self.twin, self.launch, self.label = twin, launch, label
+        self.routed, self.span_name = routed, span_name
+        self.launches = 0
+        self.__doc__ = (
+            f"{doc} CUDA tensors launch the kernel (counted in "
+            f"``{name}.launches``); CPU tensors run the plain twin "
+            f"(``{name}.twin``); "
+            + ("``route`` as in ROUTES." if routed
+               else "any other device raises."))
+
+    def __call__(self, *args, **kw):
+        if self.span_name is None:
+            return self._dispatch(args, kw)
+        with span(self.span_name):
+            return self._dispatch(args, kw)
+
+    def _dispatch(self, args, kw):
+        route = kw.pop("route", "auto") if self.routed else "auto"
+        if route not in ROUTES:
+            raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
+        dev = next(x.device for x in (*args, *kw.values())
+                   if isinstance(x, torch.Tensor))
+        if route == "twin" or (route == "auto" and dev.type == "cpu"):
+            return self.twin(*args, **kw)
+        if dev.type == "cuda":
+            out = self.launch(*args, **kw)
+            self.launches += 1
+            return out
+        raise ValueError(
+            f"no {self.label} kernel for device {dev}"
+            + (" (route 'kernel', traversal 'pallas', runs only the CUDA "
+               "kernels)" if route == "kernel" else ""))

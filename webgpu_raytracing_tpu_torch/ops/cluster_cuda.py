@@ -54,8 +54,8 @@ The wrappers (:func:`trace_closest_tiles`, :func:`trace_any_tiles`,
 :func:`trace_sched_tiles`; ``trace_near_{closest,any,pairs}_tiles`` and
 their ``_two_level`` forms;
 ``trace_pipelined_{closest,any,pairs}_tiles``; :func:`trace_binned_tiles`;
-:func:`top_keys_tiles`; all made by one factory
-from the launcher, the twin and the keywords that tell the entries apart)
+:func:`top_keys_tiles`; each a routed ``_build.Kernel`` made from its
+launcher, its twin and the keywords that tell the entries apart)
 launch their kernel entry for CUDA tensors, counting each launch in their
 own ``launches``, and run the plain twin (their ``twin``) for CPU tensors
 only; any other device raises. Their ``route`` (ROUTES; ``traversal``
@@ -72,13 +72,14 @@ slot scans; that changes the kernels' work, never their results.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
 
 from ..config import F32_MAX, TRACE_SCHED_VALUES
 from ..utils.timing import span, traced
-from ._build import check_current_device
+from ._build import ROUTES, Kernel, check_args, check_current_device, launch
 from .adjudicate import adjudicate_compact
 from .cluster_trace import (
     EPS2,
@@ -91,10 +92,6 @@ from .intersect import Hit, safe_inv_dir
 from .strictf import scross, sdot3
 
 _INF = float(F32_MAX)
-# Which of a kernel and its twin a wrapper runs: "auto" by the tensors'
-# device (traversal "auto"), "kernel" the CUDA kernel only ("pallas"),
-# "twin" the plain twin on any device ("pallas_interpret").
-ROUTES = ("auto", "kernel", "twin")
 _F32_MAX_BITS = 0x7F7FFFFF
 _I32_MAX = 0x7FFFFFFF
 # the stop of a tile that walked its whole order: no best t lies above it
@@ -1022,22 +1019,6 @@ def _near_two_level_stats(stats, super_box) -> None:
         stats["table_steps"] = 0
 
 
-def _check_cuda(tensors: dict) -> torch.device:
-    """The device of a kernel's tensors, which must all be contiguous, of
-    their dtype and on one CUDA device, the current one."""
-    dev = next(iter(tensors.values()))[0].device
-    if dev.type != "cuda":
-        raise ValueError(f"the cluster trace kernel takes CUDA tensors, not {dev}")
-    check_current_device(dev)
-    for name, (x, dt) in tensors.items():
-        if x.device != dev or x.dtype != dt or not x.is_contiguous():
-            raise ValueError(
-                f"{name}: expected a contiguous {dt} tensor on {dev}, got "
-                f"{x.dtype} on {x.device} (contiguous={x.is_contiguous()})"
-            )
-    return dev
-
-
 # K5's rounds (JAX ``sched_rounds``); the dynamic shared memory a block may
 # ask for on sm_90 (232,448 bytes less 1 KB kept for the kernels' static
 # variables); the most boxes a block orders itself (K2n: clusters; K3 with
@@ -1148,17 +1129,12 @@ def _check_walk(r, inv_d, t_max, excl, snear, order, box, face_id, tile,
     return n_tiles, n_cols
 
 
-def _run(lib, entry, dev, args) -> None:
-    """Launch ``entry`` on the current stream of ``dev``, the current
-    device (:func:`_check_cuda`); raise on a launch error. Every launch of
-    the library is this span, ``wrt.trace.kernel``."""
+def _run(entry, dev, args) -> None:
+    """Launch the trace or key kernel's ``entry`` with ``args``
+    (:func:`._build.launch`). Every launch of those kernels is this span,
+    ``wrt.trace.kernel``."""
     with span("wrt.trace.kernel"):
-        err = entry(*args, torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(
-            "cluster trace kernel launch failed: "
-            + lib.wrt_error_string(err).decode()
-        )
+        launch("cluster trace", entry, dev, *args)
 
 
 def _entry(kind, snear, group, jblk, pipelined):
@@ -1190,6 +1166,14 @@ def _ptr(x) -> Optional[int]:
     return None if x is None else x.data_ptr()
 
 
+def _check_super_box(super_box, near, group) -> None:
+    if (super_box is not None) != bool(near and group):
+        raise ValueError(
+            "super_box goes with a two-level walk that orders its supers "
+            "itself, and only with that"
+        )
+
+
 def _launch_kernel(o, d, inv_d, t_max, excl, snear, order, box, face_id,
                    tri, tile, any_hit: bool = False, group: int = 0,
                    jblk: int = 0, pipelined: bool = False, t_start=None,
@@ -1205,8 +1189,6 @@ def _launch_kernel(o, d, inv_d, t_max, excl, snear, order, box, face_id,
     take them: ``start_code`` (closest-hit K1, K2pl, K2n), ``cap`` and
     ``return_stop`` (closest-hit K1 → (t, code, stop)), ``t_start``
     (K2n; for the others the order they are given is already masked)."""
-    from ._build import load
-
     near = snear is None
     _check_hooks(any_hit, group, jblk, pipelined, near, start_code, cap,
                  return_stop)
@@ -1215,40 +1197,23 @@ def _launch_kernel(o, d, inv_d, t_max, excl, snear, order, box, face_id,
             "t_start masks the tile entry distances: outside the kernel "
             "for an order sorted outside (prepare_tiles), inside for K2n"
         )
-    tensors = dict(
-        o=(o, torch.float32), d=(d, torch.float32),
-        inv_d=(inv_d, torch.float32), t_max=(t_max, torch.float32),
-        excl=(excl, torch.int32), box=(box, torch.float32),
-        face_id=(face_id, torch.int32), tri=(tri, torch.float32),
-    )
-    if not near:
-        tensors.update(snear=(snear, torch.float32),
-                       order=(order, torch.int32))
-    if (super_box is not None) != bool(near and group):
-        raise ValueError(
-            "super_box goes with a two-level walk that orders its supers "
-            "itself, and only with that"
-        )
-    if super_box is not None:
-        tensors["super_box"] = (super_box, torch.float32)
-    if t_start is not None:
-        tensors["t_start"] = (t_start, torch.float32)
-    if start_code is not None:
-        tensors["start_code"] = (start_code, torch.int32)
-    dev = _check_cuda(tensors)
-    r = o.shape[0]
-    if (
-        o.shape != (r, 3) or d.shape != (r, 3) or tri.shape[1:] != (9,)
-        or any(x is not None and x.shape != (r,)
-               for x in (t_start, start_code))
-    ):
-        raise ValueError("cluster trace kernel: inconsistent shapes")
+    _check_super_box(super_box, near, group)
+    dev, r = o.device, o.shape[0]
+    f32, i32 = torch.float32, torch.int32
+    check_args("cluster trace", dev, [
+        ("o", o, f32, (r, 3)), ("d", d, f32, (r, 3)),
+        ("inv_d", inv_d, f32, None), ("t_max", t_max, f32, None),
+        ("excl", excl, i32, None), ("snear", snear, f32, None),
+        ("order", order, i32, None), ("super_box", super_box, f32, None),
+        ("box", box, f32, None), ("face_id", face_id, i32, None),
+        ("tri", tri, f32, (len(tri), 9)), ("t_start", t_start, f32, (r,)),
+        ("start_code", start_code, i32, (r,)),
+    ])
     if jblk and any_hit:
         raise ValueError("K5 has a closest-hit entry only")
     n_tiles, n_cols = _check_walk(r, inv_d, t_max, excl, snear, order, box,
                                   face_id, tile, group, 9, jblk, pipelined,
                                   super_box)
-    lib = load()
     code_out = torch.empty((r,), dtype=torch.int32, device=dev)
     t_out = None if any_hit else torch.empty(
         (r,), dtype=torch.float32, device=dev
@@ -1275,8 +1240,7 @@ def _launch_kernel(o, d, inv_d, t_max, excl, snear, order, box, face_id,
     outs = (code_out.data_ptr(),) if any_hit else (
         t_out.data_ptr(), code_out.data_ptr()
     )
-    _run(lib, getattr(lib, "wrt_trace_" + name), dev,
-         head + outs + (n_tiles, tile))
+    _run("wrt_trace_" + name, dev, head + outs + (n_tiles, tile))
     if return_stop:
         return t_out, code_out, stop_out
     return code_out if any_hit else (t_out, code_out)
@@ -1285,31 +1249,22 @@ def _launch_kernel(o, d, inv_d, t_max, excl, snear, order, box, face_id,
 def _launch_binned(o, d, inv_d, t_max, excl, sched, box, face_id, tri, tile,
                    start_code=None):
     """Check the arguments and launch K4 → (t, code)."""
-    from ._build import load
-
-    tensors = dict(
-        o=(o, torch.float32), d=(d, torch.float32),
-        inv_d=(inv_d, torch.float32), t_max=(t_max, torch.float32),
-        excl=(excl, torch.int32), sched=(sched, torch.int32),
-        box=(box, torch.float32), face_id=(face_id, torch.int32),
-        tri=(tri, torch.float32),
-    )
-    if start_code is not None:
-        tensors["start_code"] = (start_code, torch.int32)
-    dev = _check_cuda(tensors)
-    r = o.shape[0]
-    if (
-        not 0 < tile <= 1024 or r % tile or sched.shape != (r // tile, 2)
-        or o.shape != (r, 3) or d.shape != (r, 3) or inv_d.shape != (r, 3)
-        or t_max.shape != (r,) or excl.shape != (r,)
-        or box.shape != (face_id.shape[0], 6) or tri.shape[1:] != (9,)
-        or (start_code is not None and start_code.shape != (r,))
-    ):
-        raise ValueError("binned pass kernel: inconsistent shapes")
-    lib = load()
+    dev, r = o.device, o.shape[0]
+    if not 0 < tile <= 1024 or r % tile:
+        raise ValueError(
+            f"binned pass kernel: {r} rays are not whole tiles of {tile}")
+    f32, i32 = torch.float32, torch.int32
+    check_args("cluster trace", dev, [
+        ("o", o, f32, (r, 3)), ("d", d, f32, (r, 3)),
+        ("inv_d", inv_d, f32, (r, 3)), ("t_max", t_max, f32, (r,)),
+        ("excl", excl, i32, (r,)), ("sched", sched, i32, (r // tile, 2)),
+        ("box", box, f32, (len(face_id), 6)), ("face_id", face_id, i32, None),
+        ("tri", tri, f32, (len(tri), 9)),
+        ("start_code", start_code, i32, (r,)),
+    ])
     t_out = torch.empty((r,), dtype=torch.float32, device=dev)
     code_out = torch.empty((r,), dtype=torch.int32, device=dev)
-    _run(lib, lib.wrt_trace_binned, dev, (
+    _run("wrt_trace_binned", dev, (
         o.data_ptr(), d.data_ptr(), inv_d.data_ptr(), t_max.data_ptr(),
         excl.data_ptr(), sched.data_ptr(), box.data_ptr(),
         face_id.data_ptr(), face_id.shape[1], tri.data_ptr(), EPS2,
@@ -1323,25 +1278,18 @@ def _launch_top_keys(o, inv_d, t_max, boxes, n: int, t_start=None,
                      chunk=None):
     """Check the arguments and launch the key kernel → n tensors (R,) int32
     (``chunk``, the twin's memory knob, is not read)."""
-    from ._build import load
-
-    tensors = dict(o=(o, torch.float32), inv_d=(inv_d, torch.float32),
-                   t_max=(t_max, torch.float32), boxes=(boxes, torch.float32))
-    if t_start is not None:
-        tensors["t_start"] = (t_start, torch.float32)
-    dev = _check_cuda(tensors)
-    r, c = o.shape[0], boxes.shape[0]
-    if (
-        n not in (2, 3) or c < 1 or o.shape != (r, 3)
-        or inv_d.shape != (r, 3) or t_max.shape != (r,)
-        or boxes.shape != (c, 6)
-        or (t_start is not None and t_start.shape != (r,))
-    ):
-        raise ValueError(
-            "top keys kernel: inconsistent shapes, no box, or n not 2 or 3")
-    lib = load()
+    dev, r, c = o.device, o.shape[0], len(boxes)
+    f32 = torch.float32
+    check_args("cluster trace", dev, [
+        ("o", o, f32, (r, 3)), ("inv_d", inv_d, f32, (r, 3)),
+        ("t_max", t_max, f32, (r,)), ("boxes", boxes, f32, (c, 6)),
+        ("t_start", t_start, f32, (r,)),
+    ])
+    if n not in (2, 3) or c < 1:
+        raise ValueError(f"top keys kernel: n = {n} is not 2 or 3, or no "
+                         f"box ({c})")
     keys = torch.empty((n, r), dtype=torch.int32, device=dev)
-    _run(lib, lib.wrt_top_keys, dev, (
+    _run("wrt_top_keys", dev, (
         o.data_ptr(), inv_d.data_ptr(), t_max.data_ptr(), _ptr(t_start),
         boxes.data_ptr(), c, key_masks(c)[0], n, keys.data_ptr(), r,
     ))
@@ -1355,33 +1303,21 @@ def _launch_pairs(a, inv_d, t_max, excl, snear, order, box, face_id, mat_b,
     amb): K2p; K3p (``group`` = G); K2pl (``pipelined``); K2n (``snear``
     and ``order`` None, with or without ``pipelined``); K3p ordering its
     supers itself (``snear`` and ``order`` None, ``group``, ``super_box``)."""
-    from ._build import load
-
-    tensors = dict(
-        a=(a, torch.float32), inv_d=(inv_d, torch.float32),
-        t_max=(t_max, torch.float32), excl=(excl, torch.int32),
-        box=(box, torch.float32), face_id=(face_id, torch.int32),
-        mat_b=(mat_b, torch.float32),
-    )
-    if snear is not None:
-        tensors.update(snear=(snear, torch.float32),
-                       order=(order, torch.int32))
-    if (super_box is not None) != bool(snear is None and group):
-        raise ValueError(
-            "super_box goes with a two-level walk that orders its supers "
-            "itself, and only with that"
-        )
-    if super_box is not None:
-        tensors["super_box"] = (super_box, torch.float32)
-    dev = _check_cuda(tensors)
-    r = a.shape[0]
+    _check_super_box(super_box, snear is None, group)
+    dev, r = a.device, a.shape[0]
     c, s = face_id.shape
-    if a.shape != (r, 10) or mat_b.shape != (c, 10, 4 * s):
-        raise ValueError("pairs trace kernel: inconsistent shapes")
+    f32, i32 = torch.float32, torch.int32
+    check_args("cluster trace", dev, [
+        ("a", a, f32, (r, 10)), ("inv_d", inv_d, f32, None),
+        ("t_max", t_max, f32, None), ("excl", excl, i32, None),
+        ("snear", snear, f32, None), ("order", order, i32, None),
+        ("super_box", super_box, f32, None), ("box", box, f32, None),
+        ("face_id", face_id, i32, None),
+        ("mat_b", mat_b, f32, (c, 10, 4 * s)),
+    ])
     n_tiles, n_cols = _check_walk(r, inv_d, t_max, excl, snear, order, box,
                                   face_id, tile, group, 19, 0, pipelined,
                                   super_box)
-    lib = load()
     t_out = torch.empty((r,), dtype=torch.float32, device=dev)
     codes = [torch.empty((r,), dtype=torch.int32, device=dev)
              for _ in range(4)]  # c1, c2, c3, amb
@@ -1392,8 +1328,7 @@ def _launch_pairs(a, inv_d, t_max, excl, snear, order, box, face_id, mat_b,
         face_id.data_ptr(), s, mat_b.data_ptr(), EPS2, MARGIN, *tail,
     )
     outs = (t_out.data_ptr(),) + tuple(x.data_ptr() for x in codes)
-    _run(lib, getattr(lib, "wrt_trace_" + name), dev,
-         head + outs + (n_tiles, tile))
+    _run("wrt_trace_" + name, dev, head + outs + (n_tiles, tile))
     return (t_out, *codes)
 
 
@@ -1422,42 +1357,17 @@ def _launch_near_pairs_two_level(a, inv_d, t_max, excl, super_box, box,
 
 
 def _wrapper(name, twin, launch, doc, **fixed):
-    """A kernel's wrapper. It takes the arguments of ``launch`` and of
-    ``twin`` (the same names, so a :func:`prepare_tiles` dict fits both)
-    less the keywords ``fixed``, which say what the entry is (``any_hit``,
-    ``pipelined``). With ``route="auto"`` CUDA tensors launch the kernel
-    and add one to ``wrapper.launches``, CPU tensors run ``wrapper.twin``,
-    the plain version (an any-hit one returns the codes alone), and any
-    other device raises; ``route="kernel"`` launches the kernel or
-    raises; ``route="twin"`` runs the twin on any device (ROUTES)."""
+    """A trace or key kernel's routed :class:`._build.Kernel`. It takes the
+    arguments of ``launch`` and of ``twin`` (the same names, so a
+    :func:`prepare_tiles` dict fits both) less the keywords ``fixed``,
+    which say what the entry is (``any_hit``, ``pipelined``); an any-hit
+    twin returns the codes alone."""
     def plain(*args, **kw):
         out = twin(*args, **fixed, **kw)
         return out[1] if fixed.get("any_hit") else out
 
-    def wrapper(*args, route: str = "auto", **kw):
-        dev = (args[0] if args else next(iter(kw.values()))).device
-        if route not in ROUTES:
-            raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
-        if route == "twin" or (route == "auto" and dev.type == "cpu"):
-            return wrapper.twin(*args, **kw)
-        if dev.type == "cuda":
-            out = launch(*args, **fixed, **kw)
-            wrapper.launches += 1
-            return out
-        raise ValueError(
-            f"no cluster trace kernel for device {dev}"
-            + (" (route 'kernel', traversal 'pallas', runs only the CUDA "
-               "kernels)" if route == "kernel" else ""))
-
-    wrapper.__name__ = wrapper.__qualname__ = name
-    wrapper.__doc__ = (
-        f"{doc} CUDA tensors launch the kernel (counted in "
-        f"``{name}.launches``); CPU tensors run the plain twin "
-        f"(``{name}.twin``); ``route`` as in ROUTES."
-    )
-    wrapper.launches = 0
-    wrapper.twin = plain
-    return wrapper
+    return Kernel(name, plain, functools.partial(launch, **fixed),
+                  "cluster trace", doc, routed=True)
 
 
 _RAYS = "(o, d, inv_d, t_max, excl"

@@ -35,7 +35,6 @@ exact-pairs step.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import NamedTuple, Optional
 
@@ -44,6 +43,7 @@ import torch
 from ..config import F32_MAX, INV_PI, RenderSettings, ShadingType
 from ..utils.timing import count, span, traced
 from . import detmath, ray_sort, rng, traverse
+from ._build import Kernel, check_args, launch, pointer_block
 from .adjudicate import adjudicate_compact
 from .cluster_cuda import (
     trace_any_clustered_cuda,
@@ -387,31 +387,6 @@ def _shade_bounce_torch(state, h, n, new_o, throughput, o, d, prev_bsdf_pdf,
     return Bounce(state, throughput, alive, o, d, prev_bsdf_pdf)
 
 
-def _checked(kernel, dev, spec):
-    """Each (name, tensor or None, dtype, shape) of ``spec`` checked to lie
-    on ``dev`` with that dtype and shape → the tensors made contiguous (a
-    no-op for the path's own tensors), None kept."""
-    out = []
-    for name, x, dt, shape in spec:
-        if x is not None:
-            if (x.device != dev or x.dtype != dt
-                    or tuple(x.shape) != tuple(shape)):
-                raise ValueError(
-                    f"{kernel}: {name} must be a {dt} tensor of shape "
-                    f"{tuple(shape)} on {dev}, got {x.dtype} "
-                    f"{tuple(x.shape)} on {x.device}")
-            x = x.contiguous()
-        out.append(x)
-    return out
-
-
-def _pointer_block(tensors) -> ctypes.Array:
-    """The data pointers of ``tensors`` (null for None) as the host array a
-    shading entry copies into its argument struct."""
-    return (ctypes.c_void_p * len(tensors))(
-        *[None if x is None else x.data_ptr() for x in tensors])
-
-
 def _shade_hit_buffers(hit, alive, d, color, throughput, env_dir, env_w,
                        env_mis_pdf, prev_bsdf_pdf, tables, env_mis):
     """``wrt_shade_hit``'s arguments checked, its outputs allocated →
@@ -421,7 +396,7 @@ def _shade_hit_buffers(hit, alive, d, color, throughput, env_dir, env_w,
     r, n_f, k = d.shape[0], tables.tri.shape[0], tables.mat_color.shape[0]
     f32, i32 = torch.float32, torch.int32
     pc = tables.clusters.partner_code
-    ins = _checked("shading kernel", dev, [
+    ins = check_args("shading", dev, [
         ("face", hit.face, i32, (r,)), ("u", hit.u, f32, (r,)),
         ("v", hit.v, f32, (r,)), ("alive", alive, torch.bool, (r,)),
         ("d", d, f32, (r, 3)), ("color", color, f32, (r, 3)),
@@ -435,7 +410,7 @@ def _shade_hit_buffers(hit, alive, d, color, throughput, env_dir, env_w,
         ("tri", tables.tri, f32, (n_f, 9)),
         ("shade_normal", tables.shade_normal, f32, (n_f, 12)),
         ("partner_code", pc, i32, (n_f,)),
-    ])
+    ], copy=True)
 
     def new(*shape, dtype=f32):
         return torch.empty(shape, dtype=dtype, device=dev)
@@ -449,7 +424,7 @@ def _shade_hit_buffers(hit, alive, d, color, throughput, env_dir, env_w,
     outs = list(out)
     if not env_mis:
         outs[4] = None  # not written: the input passes through
-    return out, _pointer_block(ins + outs), ins + outs
+    return out, pointer_block(ins + outs), ins + outs
 
 
 def _shade_bounce_buffers(state, h, n, new_o, throughput, o, d,
@@ -459,13 +434,13 @@ def _shade_bounce_buffers(state, h, n, new_o, throughput, o, d,
     dev = d.device
     r = d.shape[0]
     f32 = torch.float32
-    ins = _checked("shading kernel", dev, [
+    ins = check_args("shading", dev, [
         ("state", state, torch.int64, (r,)), ("h", h, torch.bool, (r,)),
         ("n", n, f32, (r, 3)), ("new_o", new_o, f32, (r, 3)),
         ("throughput", throughput, f32, (r, 3)), ("o", o, f32, (r, 3)),
         ("d", d, f32, (r, 3)),
         ("prev_bsdf_pdf", prev_bsdf_pdf if env_is else None, f32, (r,)),
-    ])
+    ], copy=True)
 
     def new(*shape, dtype=f32):
         return torch.empty(shape, dtype=dtype, device=dev)
@@ -477,82 +452,51 @@ def _shade_bounce_buffers(state, h, n, new_o, throughput, o, d,
     outs = list(out)
     if not env_is:
         outs[5] = None
-    return out, _pointer_block(ins + outs), ins + outs
+    return out, pointer_block(ins + outs), ins + outs
 
 
-def _launch(entry, block, flags, r, dev):
-    from ._build import check_current_device, load
-
-    check_current_device(dev)
-    lib = load()
-    err = getattr(lib, entry)(ctypes.addressof(block), *flags, r,
-                              torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"shading kernel {entry} failed: "
-                           + lib.wrt_error_string(err).decode())
-    count("shade.kernel_launches", 1)
-
-
-def shade_hit(hit, alive, d, color, throughput, env_dir, env_w, env_mis_pdf,
-              prev_bsdf_pdf, tables, shading: ShadingType,
-              env_mis: bool) -> HitShading:
-    """A segment's hit, after its closest-hit trace: the deferred
-    environment's direction and weight on lanes that miss now (and, with
-    ``env_mis``, env-IS past the first segment, the BSDF pdf its fetch
-    weighs by), emission and albedo on lanes that hit, the shading normal,
-    the offset origin of the rays that leave, and their exclusion code.
-
-    CUDA tensors launch ``wrt_shade_hit`` (``csrc/shade.cu``, counted in
-    ``shade_hit.launches`` and the frame's ``shade.kernel_launches``); CPU
-    tensors run the plain twin (``shade_hit.twin``); any other device
-    raises. Outputs are new tensors."""
-    dev = d.device
-    if dev.type == "cpu":
-        return shade_hit.twin(hit, alive, d, color, throughput, env_dir,
-                              env_w, env_mis_pdf, prev_bsdf_pdf, tables,
-                              shading, env_mis)
-    if dev.type != "cuda":
-        raise ValueError(f"no shading kernel for device {dev}")
-    out, block, _ = _shade_hit_buffers(
+def _launch_shade_hit(hit, alive, d, color, throughput, env_dir, env_w,
+                      env_mis_pdf, prev_bsdf_pdf, tables, shading, env_mis):
+    out, block, keep = _shade_hit_buffers(
         hit, alive, d, color, throughput, env_dir, env_w, env_mis_pdf,
         prev_bsdf_pdf, tables, env_mis)
-    _launch("wrt_shade_hit", block,
-            (int(shading == ShadingType.PHONG), int(env_mis)), d.shape[0],
-            dev)
-    shade_hit.launches += 1
+    launch("shading", "wrt_shade_hit", d.device, block,
+           int(shading == ShadingType.PHONG), int(env_mis), d.shape[0])
+    count("shade.kernel_launches", 1)
     return out
 
 
-def shade_bounce(state, h, n, new_o, throughput, o, d, prev_bsdf_pdf,
-                 env_is: bool, run_env: bool) -> Bounce:
-    """A segment's bounce, after its light and env-NEE samples: the
-    cosine-weighted direction from ``n``, with ``env_is`` the BSDF pdf of
-    that direction that the deferred fetch weighs by (-1 unless
-    ``run_env``), Russian roulette, and the lanes that go on from
-    ``new_o``. The RNG advances on ``h`` lanes alone.
-
-    CUDA tensors launch ``wrt_shade_bounce`` (counted in
-    ``shade_bounce.launches`` and ``shade.kernel_launches``); CPU tensors
-    run ``shade_bounce.twin``; any other device raises. Outputs are new
-    tensors."""
-    dev = d.device
-    if dev.type == "cpu":
-        return shade_bounce.twin(state, h, n, new_o, throughput, o, d,
-                                 prev_bsdf_pdf, env_is, run_env)
-    if dev.type != "cuda":
-        raise ValueError(f"no shading kernel for device {dev}")
-    out, block, _ = _shade_bounce_buffers(
+def _launch_shade_bounce(state, h, n, new_o, throughput, o, d,
+                         prev_bsdf_pdf, env_is, run_env):
+    out, block, keep = _shade_bounce_buffers(
         state, h, n, new_o, throughput, o, d, prev_bsdf_pdf, env_is)
-    _launch("wrt_shade_bounce", block, (int(env_is), int(run_env)),
-            d.shape[0], dev)
-    shade_bounce.launches += 1
+    launch("shading", "wrt_shade_bounce", d.device, block, int(env_is),
+           int(run_env), d.shape[0])
+    count("shade.kernel_launches", 1)
     return out
 
 
-shade_hit.launches = 0
-shade_hit.twin = _shade_hit_torch
-shade_bounce.launches = 0
-shade_bounce.twin = _shade_bounce_torch
+shade_hit = Kernel(
+    "shade_hit", _shade_hit_torch, _launch_shade_hit, "shading",
+    "A segment's hit, after its closest-hit trace (hit, alive, d, color, "
+    "throughput, env_dir, env_w, env_mis_pdf, prev_bsdf_pdf, tables, "
+    "shading, env_mis) → HitShading: the deferred environment's direction "
+    "and weight on lanes that miss now (and, with ``env_mis``, env-IS past "
+    "the first segment, the BSDF pdf its fetch weighs by), emission and "
+    "albedo on lanes that hit, the shading normal, the offset origin of "
+    "the rays that leave, and their exclusion code; outputs are new "
+    "tensors. The kernel is ``wrt_shade_hit`` (``csrc/shade.cu``), its "
+    "launches also counted in the frame's ``shade.kernel_launches``.")
+shade_bounce = Kernel(
+    "shade_bounce", _shade_bounce_torch, _launch_shade_bounce, "shading",
+    "A segment's bounce, after its light and env-NEE samples (state, h, n, "
+    "new_o, throughput, o, d, prev_bsdf_pdf, env_is, run_env) → Bounce: "
+    "the cosine-weighted direction from ``n``, with ``env_is`` the BSDF "
+    "pdf of that direction that the deferred fetch weighs by (-1 unless "
+    "``run_env``), Russian roulette, and the lanes that go on from "
+    "``new_o``. The RNG advances on ``h`` lanes alone; outputs are new "
+    "tensors. The kernel is ``wrt_shade_bounce``, its launches also "
+    "counted in ``shade.kernel_launches``.")
 
 
 class LightSample(NamedTuple):

@@ -22,8 +22,8 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..config import FovOrientation, LensShape, ProjectionType, RenderSettings
-from ..utils.timing import traced
 from . import rng
+from ._build import Kernel, check_args, launch
 from .detmath import det_div, det_sincos, det_sqrt, det_tan, normalize
 
 
@@ -191,59 +191,23 @@ def _camera_rays_torch(
 
 def _launch_camera_rays(pos, view, state, settings):
     """Check the arguments and launch ``wrt_camera_rays`` → (o, d, state)."""
-    from ._build import check_current_device, load
-
-    dev = pos.device
-    check_current_device(dev)
-    r = pos.shape[0]
-    for name, x, dt, shape in (("pos", pos, torch.float32, (r, 2)),
-                               ("view", view, torch.float32, (4, 4)),
-                               ("state", state, torch.int64, (r,))):
-        if (x.device != dev or x.dtype != dt or tuple(x.shape) != shape
-                or not x.is_contiguous()):
-            raise ValueError(
-                f"camera rays kernel: {name} must be a contiguous {dt} "
-                f"tensor of shape {shape} on {dev}, got {x.dtype} "
-                f"{tuple(x.shape)} on {x.device} "
-                f"(contiguous={x.is_contiguous()})")
-    lib = load()
+    dev, r = pos.device, pos.shape[0]
+    check_args("camera rays", dev, [
+        ("pos", pos, torch.float32, (r, 2)),
+        ("view", view, torch.float32, (4, 4)),
+        ("state", state, torch.int64, (r,))])
     o = torch.empty((r, 3), dtype=torch.float32, device=dev)
     d = torch.empty((r, 3), dtype=torch.float32, device=dev)
     state_out = torch.empty((r,), dtype=torch.int64, device=dev)
-    scalars = scalar_block(settings)
-    err = lib.wrt_camera_rays(
-        pos.data_ptr(), view.data_ptr(), state.data_ptr(),
-        int(settings.projection_type), int(settings.lens_shape),
-        ctypes.addressof(scalars), o.data_ptr(), d.data_ptr(),
-        state_out.data_ptr(), r, torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError("camera rays kernel launch failed: "
-                           + lib.wrt_error_string(err).decode())
+    launch("camera rays", "wrt_camera_rays", dev, pos.data_ptr(),
+           view.data_ptr(), state.data_ptr(), int(settings.projection_type),
+           int(settings.lens_shape), scalar_block(settings), o.data_ptr(),
+           d.data_ptr(), state_out.data_ptr(), r)
     return o, d, state_out
 
 
-@traced("wrt.raygen")
-def camera_rays(
-    pos: torch.Tensor,  # (R, 2) pixel coordinates (jittered)
-    view: torch.Tensor,  # (4, 4) view matrix (camera → world)
-    state: torch.Tensor,  # (R,) RNG state words
-    settings: RenderSettings,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """cameraRay (render.ts:749-765). Returns (origin, direction, state).
-
-    CUDA tensors launch the kernel (counted in ``camera_rays.launches``);
-    CPU tensors run the plain twin (``camera_rays.twin``); any other device
-    raises."""
-    dev = pos.device
-    if dev.type == "cpu":
-        return camera_rays.twin(pos, view, state, settings)
-    if dev.type == "cuda":
-        out = _launch_camera_rays(pos, view, state, settings)
-        camera_rays.launches += 1
-        return out
-    raise ValueError(f"no camera rays kernel for device {dev}")
-
-
-camera_rays.launches = 0
-camera_rays.twin = _camera_rays_torch
+camera_rays = Kernel(
+    "camera_rays", _camera_rays_torch, _launch_camera_rays, "camera rays",
+    "cameraRay (render.ts:749-765) (pos (R, 2) jittered pixel coordinates, "
+    "view (4, 4) camera → world, state (R,) RNG words, settings) → "
+    "(origin, direction, state).", span_name="wrt.raygen")
