@@ -38,6 +38,19 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
    twin on the card, beside its bound (the bytes its lanes need over
    3.35 TB/s, or the twin's f32 operations a lane over 67 TFLOP/s, the
    larger). ``drive_path`` checks two launches a segment on every path.
+2d. rederive (``phase_rederive``): the kernel ``wrt_rederive_uv``
+   (csrc/rederive.cu) timed on the primary and first-bounce legs of a
+   config #5 slab (the last of 8, faces from K3; after phase 7's tables)
+   and of the 1080p slice (faces from K2n; alone: ``python -c "import
+   torch, chip_smoke as c; c.phase_rederive_alone(torch, c.smi())"``):
+   on the device with L2 emptied before each call (a 128 MiB read
+   between calls, outside CUDA events around each call), so that its
+   time and its bound are both of HBM; back to back (the leg stays in
+   L2); and the twin on the card, beside its bound (the bytes its lanes
+   need over 3.35 TB/s, or the twin's f32 operations a hit over 67
+   TFLOP/s, the larger). Its bits are the card tests'
+   (``test_rederive_kernel_matches_twin_on_card``); ``drive_path``
+   checks one launch a closest-hit leg on every path.
 3. K1 vs twins: on 1080p ray sets of ``stress_scene(44_556)`` made
    from frame 0 exactly as ``path_trace`` makes them, each CUDA entry and
    its plain-torch twin run on the same device tensors. Closest-hit: the
@@ -361,6 +374,27 @@ def _queued_ms(torch, fn, reps: int):
     return start.elapsed_time(end) / reps, host_ms
 
 
+def _cold_ms(torch, fn, reps: int) -> float:
+    """The device's time for one ``fn()`` whose inputs come from HBM:
+    before each of ``reps`` calls a 128 MiB read (more than the card's 50
+    MB L2) evicts them, and CUDA events around each call leave the read
+    out; all queued behind a spinning kernel so that the host's enqueue
+    is out of the measure too → ms a call (the mean)."""
+    junk = torch.zeros(2**25, dtype=torch.float32, device=DEVICE)
+    fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(100_000_000)
+    for start, end in events:
+        junk.sum()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in events) / reps
+
+
 def _Dispatched(torch):
     """A dispatch mode that records the name of every PyTorch operation
     run inside it (``.names``)."""
@@ -551,6 +585,81 @@ def phase_shade_alone(torch, card):
             RenderSettings(**SLICE).replace(
                 environment="equirect", env_importance_sampling=True),
             0, 1080),
+    }
+
+
+def phase_rederive(torch, card, name, tables, st, row0, rows, seed=0):
+    """Phase 2d: the rederive kernel on frame 0's primary and first-bounce
+    legs of ``rows`` rows of ``st``'s frame from ``row0``
+    (:func:`frame0_legs`), each ray's face from the closest-hit kernel of
+    the frame's route (K3 or K2n): timed on the device from HBM
+    (:func:`_cold_ms`), back to back from L2, and as the twin on the
+    card, beside the bound → the legs' entries and the bounce leg's
+    times."""
+    import types
+
+    from webgpu_raytracing_tpu_torch.ops import cluster_cuda as cc
+    from webgpu_raytracing_tpu_torch.ops.cluster_trace import rederive_uv
+
+    legs = frame0_legs(torch, tables, st, seed, row0=row0, rows=rows)
+    out = {}
+    for leg_name in ("primary", "bounce"):
+        leg = legs[leg_name]
+        t, face = cc.trace_closest_clustered_cuda(
+            tables=tables, tile=st.trace_tile, kernel_near=True, raw=True,
+            **leg)
+        args = (leg["o"], leg["d"], t, face, tables)
+        r = face.shape[0]
+        n_hit = int((face >= 0).sum())
+        # a hit reads face, o, d and its triangle row; a miss face and t;
+        # each writes t, u, v (csrc/rederive.cu)
+        nbytes = n_hit * (4 + 24 + 36 + 12) + (r - n_hit) * (4 + 4 + 12)
+        i = int(torch.nonzero(face >= 0)[0])
+        cpu_one = [a[i:i + 1].cpu() for a in args[:4]]
+        ops = _f32_ops(torch, lambda: rederive_uv.twin(
+            *cpu_one, types.SimpleNamespace(tri=tables.tri.cpu())))
+
+        def call():
+            return rederive_uv(*args)
+
+        ms = _cold_ms(torch, call, 20)
+        warm_ms, host_ms = _queued_ms(torch, call, 20)
+        plain_ms = _time_cuda(torch, lambda: rederive_uv.twin(*args), 3)
+        ops_ms = ops * n_hit / PEAK_F32 * 1e3
+        bytes_ms = nbytes / PEAK_BYTES * 1e3
+        out[leg_name] = dict(
+            rays=r, hits=n_hit, ms=ms, ms_l2_warm=warm_ms,
+            host_ms_to_queue=host_ms, plain_ms=plain_ms,
+            bound_ms=max(ops_ms, bytes_ms),
+            bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+            ops_per_hit=ops, bytes=nbytes)
+        print(f"rederive {name} {leg_name}: {r} rays ({n_hit} hits); "
+              f"kernel {ms:.4f} ms from HBM (L2 emptied before each call), "
+              f"{warm_ms:.4f} ms a call back to back from L2, "
+              f"{host_ms:.4f} ms of host to queue one; twin on the card "
+              f"{plain_ms:.3f} ms; bound {out[leg_name]['bound_ms']:.4f} ms "
+              f"by {out[leg_name]['bound_by']} ({nbytes} B, {ops} f32 ops "
+              f"a hit) ({card})", flush=True)
+    out.update({k: out["bounce"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                               "bound_by")})
+    return out
+
+
+def phase_rederive_alone(torch, card):
+    """Phase 2d by itself: the config #5 slab (the last of 8) and the
+    1080p slice."""
+    from webgpu_raytracing_tpu_torch.config import RenderSettings
+    from webgpu_raytracing_tpu_torch.models.stress import stress_scene
+
+    dev = torch.device(DEVICE)
+    return {
+        "config5_slab": phase_rederive(
+            torch, card, "config5_slab",
+            stress_scene(CONFIG5_TRIANGLES).tables(dev),
+            RenderSettings(**CONFIG5), 1890, 270),
+        "slice_1080p": phase_rederive(
+            torch, card, "slice_1080p", stress_scene(N_TRIANGLES).tables(dev),
+            RenderSettings(**SLICE), 0, 1080),
     }
 
 
@@ -1505,9 +1614,11 @@ def drive_path(torch, name, scene, st, frames, seed, card, per_frame,
                env_data=None, finite=True):
     """Render one warm-up and ``frames`` timed frames through Renderer on
     the card; check sample counts, launch counts (per frame, in the order
-    of WRAPPERS; the camera rays kernel once a sample and slab) and the
-    image; return (the measured numbers, the Renderer)."""
+    of WRAPPERS; the camera rays kernel once a sample and slab, each
+    shading kernel once a segment, the rederive kernel once a closest-hit
+    leg) and the image; return (the measured numbers, the Renderer)."""
     from webgpu_raytracing_tpu_torch.ops import integrator as ti
+    from webgpu_raytracing_tpu_torch.ops.cluster_trace import rederive_uv
     from webgpu_raytracing_tpu_torch.ops.raygen import camera_rays
     from webgpu_raytracing_tpu_torch.renderer import Renderer
 
@@ -1521,6 +1632,7 @@ def drive_path(torch, name, scene, st, frames, seed, card, per_frame,
     _zero_launch_counts()
     camera_rays.launches = 0
     ti.shade_hit.launches = ti.shade_bounce.launches = 0
+    rederive_uv.launches = 0
     rays = 0.0
     t0 = time.perf_counter()
     for _ in range(frames):
@@ -1531,6 +1643,7 @@ def drive_path(torch, name, scene, st, frames, seed, card, per_frame,
     launches = _launch_counts()
     raygen = camera_rays.launches
     shade = (ti.shade_hit.launches, ti.shade_bounce.launches)
+    rederive = rederive_uv.launches
     peak = torch.cuda.max_memory_allocated()
     img = r.buffers.image
     want = (1.0 + st.sample_count) * (frames + 1)
@@ -1552,6 +1665,18 @@ def drive_path(torch, name, scene, st, frames, seed, card, per_frame,
     if shade != (shade_per_frame * frames,) * 2:
         fail(f"{name}: shading kernel launches {shade} in {frames} frames, "
              f"expected {shade_per_frame * frames} each")
+    # rederive once a closest-hit leg (one a sample and slab in
+    # trace_direct), but not on an exact-pairs leg whose flagged rays
+    # outnumber adjudicate_compact's batch: that leg adjudicates densely
+    legs = raygen_per_frame * max(st.bounces_depth - 1, 1)
+    exact = 0
+    if st.exact_pairs:
+        exact = legs if st.exact_pairs_bounce else raygen_per_frame
+    if not (legs - exact) * frames <= rederive <= legs * frames:
+        want = (f"{legs * frames}" if not exact else
+                f"{(legs - exact) * frames} to {legs * frames}")
+        fail(f"{name}: {rederive} rederive kernel launches in {frames} "
+             f"frames, expected {want}")
     rgb = img[..., :3]
     if bool(torch.isinf(rgb).any()):
         fail(f"{name}: +-inf in the accumulation buffer")
@@ -1569,11 +1694,13 @@ def drive_path(torch, name, scene, st, frames, seed, card, per_frame,
           f"(frame_slabs {st.frame_slabs}), {ms:.1f} ms/frame, "
           f"{mrays:.3f} Mrays/s ({rays / frames:.0f} rays/frame), launches "
           f"{ {w: n for w, n in zip(WRAPPERS, launches) if n} }, camera "
-          f"rays kernel {raygen}, shading kernels {shade}, NaN pixels "
+          f"rays kernel {raygen}, shading kernels {shade}, rederive kernel "
+          f"{rederive}, NaN pixels "
           f"{nan_share:.4f}, peak memory {peak / 2**30:.2f} GiB, Renderer set-up "
           f"{setup_s:.1f} s ({card})", flush=True)
     return dict(launches=launches, raygen_per_frame=raygen / frames,
-                shade_per_frame=sum(shade) / frames, ms_per_frame=ms, mrays=mrays, nan_share=nan_share, peak_gib=peak / 2**30,
+                shade_per_frame=sum(shade) / frames,
+                rederive_per_frame=rederive / frames, ms_per_frame=ms, mrays=mrays, nan_share=nan_share, peak_gib=peak / 2**30,
                 rays_per_frame=rays / frames), r
 
 
@@ -2982,6 +3109,9 @@ def main() -> int:
         RenderSettings(**SLICE).replace(environment="equirect",
                                         env_importance_sampling=True),
         0, 1080)}
+    rederive = {"slice_1080p": phase_rederive(
+        torch, card, "slice_1080p", scene.tables(torch.device(DEVICE)),
+        RenderSettings(**SLICE), 0, 1080)}
     closest, anyhit, pairs, sched, k4, hooked, binned_legs, keys = (
         phase_kernel_vs_twin(torch, scene, sky, a.seed, card))
     paths = phase_paths(torch, scene, sky, a.frames, a.seed, card)
@@ -3026,6 +3156,9 @@ def main() -> int:
         phase_config5_kernels(torch, tables5, a.seed, card))
     shade["config5_slab"] = phase_shade(torch, card, "config5_slab", tables5,
                                         RenderSettings(**CONFIG5), 1890, 270)
+    rederive["config5_slab"] = phase_rederive(
+        torch, card, "config5_slab", tables5, RenderSettings(**CONFIG5), 1890,
+        270)
     del scene5
     slabs = CONFIG5["frame_slabs"]
     drive_pair(
@@ -3197,6 +3330,16 @@ def main() -> int:
                                                            "direct")},
              timed_leg="config5_slab", legs=shade,
              **{k: shade["config5_slab"][k] for k in (
+                 "ms", "plain_ms", "bound_ms", "bound_by")}),
+        dict(name="rederive_uv", route="cuda",
+             source="webgpu_raytracing_tpu_torch/csrc/rederive.cu",
+             replaces=f"none: XLA code in {pallas}:2047 (rederive_uv)",
+             library_ms=None,
+             launches_per_frame={
+                 k: paths[k]["rederive_per_frame"] for k in ("config5",
+                                                              "direct")},
+             timed_leg="config5_slab bounce", legs=rederive,
+             **{k: rederive["config5_slab"][k] for k in (
                  "ms", "plain_ms", "bound_ms", "bound_by")}),
     ]}), flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all",

@@ -1,8 +1,8 @@
 """PyTorch port: the one binding of the CUDA kernels (``ops/_build.py``
 ``Kernel``, ``check_args``, ``launch``), case by case over every kernel
 entry: camera rays, both shading steps, a trace wrapper of each launcher
-(the exact search, pairs, K3 ordering its supers, K4) and the ray sort's
-key.
+(the exact search, pairs, K3 ordering its supers, K4), the ray sort's
+key and rederive.
 
 * On CPU tensors an entry is its plain twin: the twin's bits, no launch
   counted.
@@ -119,6 +119,15 @@ def _trace(kind):
         ("boxes", args["boxes"].double()), ("t_max", tm_[:-1])]
 
 
+def _rederive(_):
+    o, d, tm_ = _rays()
+    tables = _scene().tables("cpu", cluster_size=16)
+    face = torch.from_numpy(np.random.default_rng(6).integers(
+        -1, tables.tri.shape[0], o.shape[0]).astype(np.int32))
+    kw = dict(o=o, d=d, t=tm_, face=face, tables=tables)
+    return cc.rederive_uv, kw, [("face", face.long()), ("o", o[:, :2])]
+
+
 CASES = {
     **{f"camera_rays_{p}": (_camera, p) for p in range(4)},
     "shade_hit": (_shade, "hit"),
@@ -128,6 +137,7 @@ CASES = {
     "trace_near_closest_two_level_tiles": (_trace, "near_two_level"),
     "trace_binned_tiles": (_trace, "binned"),
     "top_keys_tiles": (_trace, "keys"),
+    "rederive_uv": (_rederive, None),
 }
 
 

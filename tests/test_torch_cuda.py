@@ -14,6 +14,7 @@ import os
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from webgpu_raytracing_tpu_torch.camera import Camera
 from webgpu_raytracing_tpu_torch.config import F32_MAX, RenderSettings
@@ -1262,22 +1263,23 @@ def test_path_trace_shading_kernels_on_card(cuda, mode, monkeypatch):
     assert rmse < 1e-5, rmse
 
 
+class Ops(TorchDispatchMode):
+    """Records the name of every PyTorch operation run inside it."""
+
+    def __init__(self):
+        super().__init__()
+        self.names = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.names.append(func.overloadpacket.__name__)
+        return func(*args, **(kwargs or {}))
+
+
 def test_shade_kernels_one_device_op_each_on_card(cuda):
     """A call on CUDA tensors dispatches no PyTorch operation but the
     allocation of its outputs, so its one launch is the kernel; a wrong
     dtype raises before any launch."""
-    from torch.utils._python_dispatch import TorchDispatchMode
-
     from webgpu_raytracing_tpu_torch.ops import integrator as ti
-
-    class Ops(TorchDispatchMode):
-        def __init__(self):
-            super().__init__()
-            self.names = []
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            self.names.append(func.overloadpacket.__name__)
-            return func(*args, **(kwargs or {}))
 
     (shading, env_is, seg, run_env, _), _, (t, x) = _shade_inputs(
         "phong_envis_run_env", 5000, cuda)
@@ -1298,3 +1300,69 @@ def test_shade_kernels_one_device_op_each_on_card(cuda):
     with pytest.raises(ValueError, match="shading kernel: alive"):
         ti.shade_hit(*bad)
     assert ti.shade_hit.launches == launches[0] + 1
+
+
+# --- rederive (csrc/rederive.cu) ---
+
+def _rederive_legs(which, dev):
+    """(o, d, t, face, tables) of each leg of ``which``: ``config5``, the
+    primary and first-bounce legs of a config #5 slab (the last of 8,
+    3840 x 270 = 1,036,800 rays) with their faces from K3; ``k2n_1080p``,
+    frame 0's first-bounce leg of the 1080p slice with its faces from K2n;
+    ``edge``, tests/test_torch_rederive.py's edge-case batch."""
+    import types
+
+    if which == "edge":
+        from test_torch_rederive import edge_batch
+
+        o, d, t, face, tables = edge_batch()
+        return [(o.to(dev), d.to(dev), t.to(dev), face.to(dev),
+                 types.SimpleNamespace(tri=tables.tri.to(dev)))]
+    import chip_smoke as cs
+    from webgpu_raytracing_tpu_torch.models.stress import stress_scene
+
+    if which == "config5":
+        tables = stress_scene(1_000_000).tables(dev)
+        st = RenderSettings(width=3840, height=2160, frame_slabs=8)
+        legs = cs.frame0_legs(torch, tables, st, 0, row0=1890, rows=270)
+        names = ("primary", "bounce")
+    else:
+        tables = stress_scene(44_556).tables(dev)
+        st = RenderSettings(width=1920, height=1080)
+        legs = cs.frame0_legs(torch, tables, st, 0)
+        names = ("bounce",)
+    assert cc.is_two_level(tables.clusters) == (which == "config5")
+    out = []
+    for name in names:
+        leg = legs[name]
+        t, face = cc.trace_closest_clustered_cuda(
+            tables=tables, tile=st.trace_tile, kernel_near=True, raw=True,
+            **leg)
+        out.append((leg["o"], leg["d"], t, face, tables))
+    return out
+
+
+@pytest.mark.parametrize("which", ["config5", "k2n_1080p", "edge"])
+def test_rederive_kernel_matches_twin_on_card(cuda, which):
+    """One launch a call, and nothing dispatched but the (3, R) output's
+    allocation and its rows' views; t, u and v equal the twin's on CPU
+    copies bit for bit, NaN equal to NaN whatever its payload (the card's
+    NaN is not the CPU's); the face passes through."""
+    import types
+
+    from webgpu_raytracing_tpu_torch.ops.cluster_trace import rederive_uv
+
+    for o, d, t, face, tables in _rederive_legs(which, cuda):
+        before = rederive_uv.launches
+        with Ops() as ops:
+            got = rederive_uv(o, d, t, face, tables)
+        torch.cuda.synchronize()
+        assert rederive_uv.launches == before + 1
+        assert ops.names == ["empty", "unbind"], ops.names
+        assert got.face is face
+        want = rederive_uv.twin(o.cpu(), d.cpu(), t.cpu(), face.cpu(),
+                                types.SimpleNamespace(tri=tables.tri.cpu()))
+        for name in "tuv":
+            _same_bits(getattr(got, name), getattr(want, name), name)
+        hits = int((face >= 0).sum())
+        assert hits > (10 if which == "edge" else 100_000), hits

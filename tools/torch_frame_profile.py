@@ -3,6 +3,7 @@
     python3 tools/torch_frame_profile.py [--frames 2] [--width 1920 --height 1080]
         [--trace-sched J] [--order-outside] [--pipeline-rounds] [--sort]
         [--binned] [--multipass-cap N] [--nee] [--envis] [--config5]
+        [--analytic]
 
 Renders the main-path slice (``stress_scene(44_556)``, default path
 settings, procedural sky) on the first CUDA device: one warm-up frame,
@@ -31,14 +32,18 @@ procedural sky written into a 4096x2048 equirect map
 (``chip_smoke.sky_equirect``) under ``env_importance_sampling``, as
 BASELINE config #3 lights its 4k HDR. ``--config5`` renders BASELINE
 config #5 instead (``stress_scene(1_000_000)``, 3840x2160 in 8 slabs, two-level
-tables). Prints, per frame, each span's self and inclusive busy time and
+tables); ``--analytic`` BASELINE config #1, the ``analytic_256.direct``
+cell's frame (``cli.analytic_scene``, 256x256, pinhole, direct lighting
+only). Prints, per frame, each span's self and inclusive busy time and
 launches, host time and the idle time put down to it, the longest idle
 gaps with the span each opened in, the device's busy share of its span,
 the top CUDA kernels, the frame's counters
 (``Renderer.last_counts``), shading's kernel launches a frame twice over
 (the host counter ``shade.kernel_launches`` and, by kernel name, the
 ``shade_*_kernel`` operations on the device trace with their device
-time: 2 a path segment), and one JSON line with the numbers. The
+time: 2 a path segment), rederive's the same way
+(``rederive.kernel_launches`` and ``rederive_uv_kernel``: 1 a
+closest-hit leg), and one JSON line with the numbers. The
 card's name and power limit (nvidia-smi) are printed beside them. Fails
 without a CUDA device.
 """
@@ -74,6 +79,7 @@ def main() -> int:
     ap.add_argument("--multipass-cap", type=int, default=0)
     ap.add_argument("--nee", action="store_true")
     ap.add_argument("--envis", action="store_true")
+    ap.add_argument("--analytic", action="store_true")
     a = ap.parse_args()
     a.sort = a.sort or a.binned or a.multipass_cap > 0
 
@@ -91,7 +97,11 @@ def main() -> int:
     ).stdout.strip()
 
     from chip_smoke import sky_equirect
-    from webgpu_raytracing_tpu_torch.config import RenderSettings
+    from webgpu_raytracing_tpu_torch.config import (
+        ProjectionType,
+        RenderSettings,
+    )
+    from webgpu_raytracing_tpu_torch.frontend.cli import analytic_scene
     from webgpu_raytracing_tpu_torch.models.stress import stress_scene
     from webgpu_raytracing_tpu_torch.ops.env_sample import (
         build_env_distribution,
@@ -101,6 +111,8 @@ def main() -> int:
 
     if a.config5:
         a.width, a.height = 3840, 2160
+    if a.analytic:
+        a.width = a.height = 256
     st = RenderSettings(width=a.width, height=a.height, sample_count=1,
                         bounces_depth=4,
                         environment="equirect" if a.envis else "procedural",
@@ -112,12 +124,18 @@ def main() -> int:
                         sort_bounce_rays=a.sort, live_slice=True,
                         binned_sort=a.binned, multipass_cap=a.multipass_cap,
                         next_event_estimation=a.nee)
+    if a.analytic:
+        st = st.replace(bounces_depth=1,
+                        projection_type=ProjectionType.PERSPECTIVE)
     env = None
     if a.envis:
         env = build_env_distribution(
             sky_equirect(torch, 2048, 4096, "cuda").cpu().numpy(), "cuda")
-    r = Renderer(stress_scene(1_000_000 if a.config5 else 44_556), st,
-                 env_data=env, base_seed=a.seed, device="cuda")
+    if a.analytic:
+        scene = analytic_scene()
+    else:
+        scene = stress_scene(1_000_000 if a.config5 else 44_556)
+    r = Renderer(scene, st, env_data=env, base_seed=a.seed, device="cuda")
     r.step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -147,6 +165,10 @@ def main() -> int:
         if m:
             shade[m.group(0)] = (launches[name] / a.frames,
                                  us / 1e3 / a.frames)
+    rederive = [(launches[name] / a.frames, us / 1e3 / a.frames)
+                for name, us in kernels.items()
+                if "rederive_uv_kernel" in name]
+    rederive = tuple(map(sum, zip(*rederive))) or (0.0, 0.0)
     busy_ms = sum(kernels.values()) / 1e3 / a.frames
     starts = [e.time_range.start for e in ops]
     ends = [e.time_range.end for e in ops]
@@ -180,10 +202,15 @@ def main() -> int:
           "shade.kernel_launches; on the device trace " + (", ".join(
               f"{k} {n:.1f} ({ms:.2f} ms)" for k, (n, ms) in
               sorted(shade.items())) or "none"))
+    print("rederive kernel launches per frame: "
+          f"{counts.get('rederive.kernel_launches', 0) / a.frames:.1f} by "
+          "rederive.kernel_launches; on the device trace "
+          f"rederive_uv_kernel {rederive[0]:.1f} ({rederive[1]:.2f} ms)")
     print(json.dumps({
         "card": card, "frames": a.frames, "width": a.width,
         "height": a.height, "trace_sched": a.trace_sched,
         "kernel_near": not a.order_outside, "config5": a.config5,
+        "analytic": a.analytic,
         "pipeline_rounds": a.pipeline_rounds,
         "sort": a.sort, "binned": a.binned,
         "multipass_cap": a.multipass_cap, "nee": a.nee, "envis": a.envis,
@@ -195,6 +222,7 @@ def main() -> int:
         "counts": {k: v / a.frames for k, v in counts.items()},
         "shade_kernels": {k: {"launches": n, "ms": ms}
                           for k, (n, ms) in shade.items()},
+        "rederive_kernel": {"launches": rederive[0], "ms": rederive[1]},
         "rays_per_frame": r.last_rays,
     }))
     return 0

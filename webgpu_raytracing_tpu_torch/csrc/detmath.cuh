@@ -1,10 +1,10 @@
 // Correctly rounded f32 helpers and the reference's PCG draws as device
-// functions: ops/detmath.py, and the parts of ops/rng.py that camera rays
-// draw, op for op in the same order. Built with the library's
-// --fmad=false (no product is contracted into its add) and without fast
-// math (IEEE `/` and sqrtf), each line rounds as the eager plain-torch
-// twin rounds it on the CPU, so a kernel made of them gives the twin's
-// bits. Rules the twins impose:
+// functions: ops/detmath.py, ops/strictf.py's dot and cross, and the
+// parts of ops/rng.py that camera rays draw, op for op in the same order.
+// Built with the library's --fmad=false (no product is contracted into its
+// add) and without fast math (IEEE `/` and sqrtf), each line rounds as the
+// eager plain-torch twin rounds it on the CPU, so a kernel made of them
+// gives the twin's bits. Rules the twins impose:
 //   - torch.round is rintf (ties to even);
 //   - torch.clamp(x, min=e) keeps a NaN: `x < e ? e : x`, never fmaxf;
 //   - Python-float operands are their f32 roundings (JAX's weak types);
@@ -83,6 +83,17 @@ __device__ __forceinline__ float det_sqrt(float x) {
   const float r = (x - p.h) - p.l;
   const float res = s + r / (2.0f * s);
   return (s > 0.0f && isfinite(s)) ? res : s;
+}
+
+// strictf.sdot3: every product rounded, the adds left-associated
+__device__ __forceinline__ float dot3(F3 a, F3 b) {
+  return (a.x * b.x + a.y * b.y) + a.z * b.z;
+}
+
+// strictf.scross: every product rounded before its subtraction
+__device__ __forceinline__ F3 cross3(F3 a, F3 b) {
+  return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z,
+          a.x * b.y - a.y * b.x};
 }
 
 // v / max(|v|, 1e-20), the dot product left-associated

@@ -116,10 +116,6 @@ __device__ __forceinline__ F3 sample_sphere(F2 t) {
   return {sin_theta * sc.y, u, sin_theta * sc.x};
 }
 
-__device__ __forceinline__ float dot3(F3 a, F3 b) {  // strictf.sdot3
-  return (a.x * b.x + a.y * b.y) + a.z * b.z;
-}
-
 __device__ __forceinline__ float nan_max(float a, float b) {
   return (a != a) ? a : ((b != b) ? b : (a < b ? b : a));
 }

@@ -24,7 +24,10 @@ of each ray as packed int32 keys); and ``wrt_error_string``. In
 ``csrc/raygen.cu``: ``wrt_camera_rays`` (a sample's camera rays, one
 thread a ray, with ``csrc/detmath.cuh``'s device functions). In
 ``csrc/shade.cu``: ``wrt_shade_hit`` and ``wrt_shade_bounce`` (a path
-segment's shading, one thread a lane, with ``csrc/shade.cuh``). The
+segment's shading, one thread a lane, with ``csrc/shade.cuh``). In
+``csrc/rederive.cu``: ``wrt_rederive_uv`` (a closest-hit leg's exact t,
+u and v from each ray's face, one thread a ray, with
+``csrc/rederive.cuh``). The
 closest-hit entries of K1, K2pl and K2n and K4 take the code carried in
 beside t_max (or null), K1's also the cap and the stop output, K2n's
 closest-hit and any-hit entries the per-ray ``t_start``.
@@ -186,6 +189,8 @@ def _entries():
         "wrt_shade_hit": (i, [p, i, i, ctypes.c_longlong, p]),
         # the pointer block (host), env_is, run_env, n_lanes, stream
         "wrt_shade_bounce": (i, [p, i, i, ctypes.c_longlong, p]),
+        # o, d, t, face, tri, out, n_rays, stream
+        "wrt_rederive_uv": (i, [p, p, p, p, p, p, ctypes.c_longlong, p]),
         "wrt_error_string": (ctypes.c_char_p, [i]),
     }
 

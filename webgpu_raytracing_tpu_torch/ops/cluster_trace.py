@@ -11,7 +11,9 @@ of those boxes). This module holds what runs outside the trace kernels
 (ops/cluster_cuda.py): the tables, the per-tile entry distances
 (:func:`tile_nears_fused`, over clusters or over supers), the ray matrix
 A (:func:`ray_matrix`) and the exact sequential Möller–Trumbore
-evaluation (:func:`exact_face_eval`, :func:`rederive_uv`).
+evaluation (:func:`exact_face_eval`, :func:`rederive_uv`). On CUDA
+tensors :func:`rederive_uv` is one launch of ``wrt_rederive_uv``
+(``csrc/rederive.cu``); its plain twin is ``_rederive_uv_torch``.
 
 It also holds the clustered oracle (``traversal="clustered"``; the JAX
 package's XLA trace): :func:`trace_closest_clustered` and
@@ -42,7 +44,8 @@ import numpy as np
 import torch
 
 from ..config import EPSILON, F32_MAX, MIN_DIST
-from ..utils.timing import traced
+from ..utils.timing import count
+from ._build import Kernel, check_args, launch
 from .detmath import det_div
 from .intersect import Hit, safe_inv_dir
 from .strictf import scross, sdot3
@@ -182,11 +185,8 @@ def exact_face_eval(o, d, tri, present, t_bound):
     return valid, t, u_num / det_safe, v_num / det_safe
 
 
-@traced("wrt.trace.rederive")
-def rederive_uv(o, d, t, face, tables) -> Hit:
-    """Exact t and barycentrics of the winning triangle, from the face
-    alone (unmasked Möller–Trumbore algebra, correctly rounded divides);
-    misses keep the incoming t."""
+def _rederive_uv_torch(o, d, t, face, tables) -> Hit:
+    """:func:`rederive_uv`'s plain twin."""
     hit_mask = face >= 0
     tri = tables.tri[face.clamp(min=0).long()]
     p0, e1, e2 = tri[:, 0:3], tri[:, 3:6], tri[:, 6:9]
@@ -205,6 +205,33 @@ def rederive_uv(o, d, t, face, tables) -> Hit:
         v=torch.where(hit_mask, v, zero),
         face=face,
     )
+
+
+def _launch_rederive_uv(o, d, t, face, tables) -> Hit:
+    """Check the arguments and launch ``wrt_rederive_uv`` into one (3, R)
+    tensor → its rows (views) as t, u, v, and ``face`` itself."""
+    dev, r = o.device, o.shape[0]
+    f32 = torch.float32
+    o, d, t, fc, tri = check_args("rederive", dev, [
+        ("o", o, f32, (r, 3)), ("d", d, f32, (r, 3)), ("t", t, f32, (r,)),
+        ("face", face, torch.int32, (r,)),
+        ("tri", tables.tri, f32, (tables.tri.shape[0], 9)),
+    ])
+    out = torch.empty((3, r), dtype=f32, device=dev)
+    launch("rederive", "wrt_rederive_uv", dev, o.data_ptr(), d.data_ptr(),
+           t.data_ptr(), fc.data_ptr(), tri.data_ptr(), out.data_ptr(), r)
+    count("rederive.kernel_launches", 1)
+    return Hit(*out.unbind(0), face=face)
+
+
+rederive_uv = Kernel(
+    "rederive_uv", _rederive_uv_torch, _launch_rederive_uv, "rederive",
+    "Exact t and barycentrics of the winning triangle, from the face alone "
+    "(o, d, t, face, tables) → Hit (unmasked Möller–Trumbore algebra, "
+    "correctly rounded divides); misses keep the incoming t, with u = v = "
+    "0. The kernel is ``wrt_rederive_uv`` (``csrc/rederive.cu``), its "
+    "launches also counted in the frame's ``rederive.kernel_launches``.",
+    span_name="wrt.trace.rederive")
 
 
 def tile_nears_fused(
