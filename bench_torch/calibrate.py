@@ -31,19 +31,20 @@ import run  # noqa: E402
 
 def control(spec, seed, device, size=None):
     """The numbers of the bfloat16 reference against the float32 one on
-    the frame after the warm-up frames of ``seed``."""
+    the frame after the warm-up frames of ``seed``, from that frame's
+    view."""
     import torch
 
     import compare
     import reference as ref
+    from motion import CameraPath
 
     st = run.settings_of(spec)
     if size is not None:
         st["width"], st["height"] = size
     desc = run.generate_scene(spec, seed)
     img = run.generate_env(spec, seed, torch.device(device))
-    cam = spec["config"]["camera"]
-    view = ref.view_matrix(cam["position"], cam["orientation"])
+    view = CameraPath(spec["config"]).view(run.WARMUP_FRAMES)
     fseed, jitter = run.frame_inputs(seed, run.WARMUP_FRAMES + 1,
                                      st["jitter_strength"])[-1]
     out = {}

@@ -5,7 +5,8 @@
 
 A cell is an entry of ``workloads`` in ``BENCHMARK.json`` beside this
 folder: a configuration (``configs/<config>.json``: the scene generator
-and its arguments, the image size, the camera pose and the settings) and
+and its arguments, the image size, the camera pose or the camera path
+(motion.py) and the settings) and
 a traffic mix (``traffic/<mix>.json``: the settings it overrides and the
 environment map's generator and shape), with the limits of its
 comparison in ``cells/<cell>.json``. Generators live in
@@ -15,13 +16,20 @@ comparison in ``cells/<cell>.json``. Generators live in
 Set-up builds one ``Renderer`` of the port from the configuration's
 scene, warms it up with two frames, and then drives ``Renderer.step()``
 back to back for ``--seconds`` (a closed loop, as the viewer and
-``cli render`` run frames). With ``--trace 0`` the last line of standard output holds the
+``cli render`` run frames). On a camera path, before each frame whose
+pose differs from the last one's, the harness sets ``renderer.camera``
+and calls ``renderer.reset()``, as ``cli orbit`` does, inside the
+frame's time; such a frame starts its accumulation from zero. With
+``--trace 0`` the last line of standard output holds the
 end-to-end metrics; with ``--trace 1`` the frames of a shorter window
 run under ``torch.profiler``, the layers marked by ranges put around the
 port's functions from here, and the line holds the per-layer metrics.
 After the window one frame drawn from the seed is rendered again by the
-plain reference (reference.py) and compared (compare.py). The run fails,
-and prints no result, without a CUDA device.
+plain reference (reference.py), from that frame's own view, and compared
+(compare.py). The run fails, and prints no result, without a CUDA
+device, or when JAX or the JAX package has been loaded into the process.
+A configuration with ``reprojection_rate`` > 0 is refused: the plain
+reference has no temporal reprojection.
 """
 
 from __future__ import annotations
@@ -66,6 +74,8 @@ RANGES = (
 PROFILER_OWN = ("Activity Buffer Request",)
 # the integrators whose per-sample colours the comparison reads
 INTEGRATORS = ("path_trace", "trace_direct")
+# top-level modules that a run may not have loaded when it reports
+JAX_NAMES = ("jax", "jaxlib", "flax", "webgpu_raytracing_tpu")
 
 
 class Patches:
@@ -132,6 +142,11 @@ def settings_of(spec: dict) -> dict:
     st = dict(DEFAULTS)
     st.update(spec["config"]["settings"])
     st.update(spec["traffic"].get("settings", {}))
+    if st.get("reprojection_rate", 0):
+        raise SystemExit("bench_torch: reprojection_rate > 0 is not "
+                         "measured: the plain reference has no temporal "
+                         "reprojection, and frame_inputs draws the jitter "
+                         "every frame, as Renderer._step does at rate 0")
     return st
 
 
@@ -218,6 +233,27 @@ class Capture:
     def take(self):
         out, self.colors = self.colors, []
         return out
+
+
+class Drive:
+    """Steps the renderer along the configuration's camera path, frame by
+    frame from the first warm-up frame: before a frame whose pose differs
+    from the last one's it sets ``renderer.camera`` and calls
+    ``renderer.reset()``, as ``cli orbit`` does."""
+
+    def __init__(self, renderer, path, camera_cls):
+        self.renderer, self.path, self.camera_cls = renderer, path, camera_cls
+        self.frame = 0
+
+    def step(self):
+        r = self.renderer
+        if self.path.moves_before(self.frame):
+            position, orientation = self.path.pose(self.frame)
+            r.camera = self.camera_cls(position=position,
+                                       orientation=orientation)
+            r.reset()
+        r.step()
+        self.frame += 1
 
 
 def frame_colors(colors, slabs: int):
@@ -310,6 +346,7 @@ def _run(args, device, cell_spec_, size, out, patches, phases) -> dict:
 
     import compare
     import reference as ref
+    from motion import CameraPath
 
     phases["import"] = time.time() - t
     dev = torch.device(device)
@@ -335,17 +372,17 @@ def _run(args, device, cell_spec_, size, out, patches, phases) -> dict:
                     if st["env_importance_sampling"] else img.cpu().numpy())
     phases["environment"] = time.time() - t
 
-    cam = spec["config"]["camera"]
+    path = CameraPath(spec["config"])
+    position, orientation = path.pose(0)
     t = time.time()
     renderer = renderer_mod.Renderer(
         scene, program_settings(st), env_data=env_data,
-        camera=Camera(position=np.asarray(cam["position"], np.float32),
-                      orientation=np.asarray(cam["orientation"],
-                                             np.float32)),
+        camera=Camera(position=position, orientation=orientation),
         base_seed=args.seed, device=dev)
     if cuda:
         torch.cuda.synchronize(dev)
     phases["tables"] = time.time() - t
+    drive = Drive(renderer, path, Camera)
 
     capture = Capture(renderer_mod, patches)
     legs = None
@@ -363,7 +400,7 @@ def _run(args, device, cell_spec_, size, out, patches, phases) -> dict:
     warm_s = []
     for _ in range(WARMUP_FRAMES):
         t0 = time.perf_counter()
-        renderer.step()
+        drive.step()
         sync()
         warm_s.append(time.perf_counter() - t0)
     if args.trace:  # the profiler's own start-up, outside the window
@@ -404,17 +441,19 @@ def _run(args, device, cell_spec_, size, out, patches, phases) -> dict:
         if legs is not None:
             legs.on = bool(last)
         before = renderer.buffers.image
+        # a frame after a move starts its accumulation from zero
+        moved = path.moves_before(drive.frame)
         t0 = time.perf_counter()
         if args.trace:
             with prof_mod.record_function("bench.frame"):
-                renderer.step()
+                drive.step()
         else:
-            renderer.step()
+            drive.step()
         t1 = time.perf_counter()
         frame_s.append(t1 - t0)
         rays_total += renderer.last_rays
         if capture.on:
-            compared.append(dict(index=i, before=before,
+            compared.append(dict(index=i, before=before, moved=moved,
                                  after=renderer.buffers.image,
                                  colors=capture.take(),
                                  rays=renderer.last_rays))
@@ -451,7 +490,7 @@ def _run(args, device, cell_spec_, size, out, patches, phases) -> dict:
     if args.trace:
         ctx = trace_context(profiler, frames, window_s, legs, renderer,
                             kind)
-    del renderer, scene, env_data, capture, legs, profiler
+    del renderer, drive, scene, env_data, capture, legs, profiler
     if cuda:
         torch.cuda.empty_cache()
 
@@ -462,13 +501,17 @@ def _run(args, device, cell_spec_, size, out, patches, phases) -> dict:
     rscene = ref.Scene(desc, dev)
     renv = ref.Environment(st["environment"], img,
                            st["env_importance_sampling"])
-    view = ref.view_matrix(cam["position"], cam["orientation"])
     tally = compare.Tally()
     for c in compared:
-        seed, jitter = inputs[WARMUP_FRAMES + c["index"]]
-        colors, rays = ref.render_frame(rscene, renv, st, view, seed, jitter)
+        frame = WARMUP_FRAMES + c["index"]
+        seed, jitter = inputs[frame]
+        colors, rays = ref.render_frame(rscene, renv, st, path.view(frame),
+                                        seed, jitter)
+        before = c["before"]
+        if c["moved"]:
+            before = torch.zeros_like(before)
         tally.add(frame_colors(c["colors"], st.get("frame_slabs", 1)), colors,
-                  c["rays"], rays, c["before"], c["after"])
+                  c["rays"], rays, before, c["after"])
     numbers = tally.numbers()
     limits = spec["limits"]["limits"]
     correct = compare.verdict(numbers, limits)
@@ -665,8 +708,28 @@ def main(argv=None) -> int:
     phases = {"torch_and_cuda": time.time() - t}
     result = run(args, "cuda", spec, out=lambda s: print(s, flush=True),
                  phases=phases)
-    compared = result["compared"]
-    for k, v in compared.items():
+    return report(result)
+
+
+def jax_loaded() -> list:
+    """The loaded modules of JAX, its companions and the JAX package,
+    by whole top-level name (the port's name begins with the JAX
+    package's)."""
+    return sorted(n for n in list(sys.modules)
+                  if n.split(".")[0] in JAX_NAMES)
+
+
+def report(result) -> int:
+    """Print the result of a run, each compared number beside its limit
+    last on standard error and the result's line last on standard output;
+    print no result, and fail, where the process has loaded JAX or the
+    JAX package by now, the window closed."""
+    found = jax_loaded()
+    if found:
+        print("bench_torch: no result: the process has loaded "
+              + ", ".join(found), file=sys.stderr, flush=True)
+        return 3
+    for k, v in result["compared"].items():
         print(f"{k} {v['value']} limit {v['limit']}", file=sys.stderr,
               flush=True)
     print(json.dumps(result), flush=True)

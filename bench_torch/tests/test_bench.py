@@ -4,15 +4,21 @@
 
 They check the manifest against the benchmark's contract, that every
 cell's files resolve, that the copied generators give the port's faces,
-the roofline count on a hand-made leg, that a new traffic file becomes a
-cell with no file edited, that run.py refuses to run without a CUDA
-device, and, on the CPU at small sizes, that a sound run is correct and
-that the control and each fault a cell can have are not.
+the roofline count on a hand-made leg, that a new traffic file or a new
+configuration becomes a cell with no file edited, that run.py refuses to
+run without a CUDA device, and, on the CPU at small sizes, that a sound
+run is correct and that the control and each fault a cell can have are
+not. For a camera that moves (BASELINE config #4's scripted orbit) they
+check the harness's orbit poses and frame draws against the port's, and
+a configuration of that kind (``orbit_floor``, written here) with its
+control and faults; that a run reports no result once JAX is loaded; and
+that a configuration under temporal reprojection is refused.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import re
@@ -31,6 +37,7 @@ sys.path.insert(0, ROOT)
 
 import calibrate  # noqa: E402
 import compare  # noqa: E402
+import motion  # noqa: E402
 import reference  # noqa: E402
 import roofline  # noqa: E402
 import run  # noqa: E402
@@ -199,15 +206,52 @@ def test_block_cull_finds_every_box_a_ray_meets(seed):
     assert len(want) > 100 and not (b % 37 == 0).any()
 
 
-@pytest.mark.parametrize("config,traffic", [
-    ("analytic_256", "white"),  # a traffic file written here
-    ("stress1m_4k", "nee"),  # mixes kept for the cells planned next
-    ("stress1m_4k", "envis"),
-])
-def test_a_new_cell_needs_new_files_and_entries_alone(tmp_path, config,
-                                                      traffic):
-    root = tmp_path / "checkout"
-    root.mkdir()
+# a scene written into a checkout as a new generator for the
+# configuration ``orbit_floor``
+FLOOR_SCENE = """\
+from __future__ import annotations
+
+import numpy as np
+
+from scenes._mesh import ground_plane, uv_sphere
+
+
+def generate(seed: int):
+    del seed
+    models = [
+        ("light", uv_sphere((0.5, 6.0, -6.5), 1.0, material_idx=0, lat=8,
+                            lon=12)),
+        ("sphere", uv_sphere((-0.7, 0.2, -6.3), 1.1, material_idx=1)),
+        ("floor", ground_plane(-1.0, 20.0, material_idx=2)),
+    ]
+    return (models,
+            np.array([[0, 0, 0], [0.8, 0.3, 0.3], [0.7, 0.7, 0.7]],
+                     np.float32),
+            np.array([[12, 12, 12], [0, 0, 0], [0, 0, 0]], np.float32))
+"""
+# config #4 as ``cli orbit`` flies it (cli.PRESETS[4]: the orbit about
+# (0, 1, -6), radius 6, height 1, 4 poses, 1024 spp a pose at 2 spp a
+# frame), with a pose every ``frames_per_pose`` frames
+ORBIT_FLOOR = {
+    "name": "orbit_floor",
+    "source": "BASELINE.json configs #4: a scripted orbit, reset-on-move",
+    "reduced": [],
+    "scene": {"generator": "floor_scene", "args": {}},
+    "camera_path": {"center": [0.0, 1.0, -6.0], "radius": 6.0,
+                    "height": 1.0, "poses": 4, "frames_per_pose": 512},
+    "settings": {"width": 256, "height": 256, "sample_count": 1,
+                 "bounces_depth": 4},
+}
+LIMITS = {"bad_px_pct": 0.5, "rays_err_pct": 0.03, "accum_px": 0}
+
+
+def new_cell(root, config, traffic, per_pose=None):
+    """Copy the benchmark into ``root`` and add the cell ``config.traffic``
+    with new files and entries alone: a traffic file where the mix is
+    new, the configuration ``orbit_floor`` with its generator, the cell's
+    limits and the manifest's entries; no file that was there changes.
+    ``per_pose`` sets ``orbit_floor``'s frames a pose. → the cell's
+    name."""
     shutil.copy(os.path.join(ROOT, "BENCHMARK.json"), root)
     shutil.copytree(HERE, root / "bench_torch",
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
@@ -217,25 +261,51 @@ def test_a_new_cell_needs_new_files_and_entries_alone(tmp_path, config,
         mix.write_text(json.dumps(
             {"why": "a white environment",
              "settings": {"environment": "white"}, "env": None}))
+    m = json.loads((root / "BENCHMARK.json").read_text())
+    if config == ORBIT_FLOOR["name"]:
+        cfg = json.loads(json.dumps(ORBIT_FLOOR))
+        if per_pose is not None:
+            cfg["camera_path"]["frames_per_pose"] = per_pose
+        (root / "bench_torch" / "scenes" / "floor_scene.py").write_text(
+            FLOOR_SCENE)
+        (root / "bench_torch" / "configs" / (config + ".json")).write_text(
+            json.dumps(cfg))
+        m["configs"].append(dict(
+            name=config, source=ORBIT_FLOOR["source"], reduced=[],
+            file=f"bench_torch/configs/{config}.json", why="a new config"))
     name = f"{config}.{traffic}"
     (root / "bench_torch" / "cells" / (name + ".json")).write_text(
-        json.dumps({"limits": {"bad_px_pct": 0.5, "rays_err_pct": 0.03,
-                               "accum_px": 0}}))
-    m = json.loads((root / "BENCHMARK.json").read_text())
+        json.dumps({"limits": LIMITS}))
     m["workloads"].append(dict(name=name, config=config, traffic=traffic,
                                chips=1, why="a new cell"))
     (root / "BENCHMARK.json").write_text(json.dumps(m))
     for p, data in before.items():
         if p.name != "BENCHMARK.json":
             assert p.read_bytes() == data
+    return name
+
+
+@pytest.mark.parametrize("config,traffic", [
+    ("analytic_256", "white"),  # a traffic file written here
+    ("stress1m_4k", "nee"),  # mixes kept for the cells planned next
+    ("stress1m_4k", "envis"),
+    ("orbit_floor", "path"),  # a camera path: config #4's orbit
+])
+def test_a_new_cell_needs_new_files_and_entries_alone(tmp_path, config,
+                                                      traffic):
+    root = tmp_path / "checkout"
+    root.mkdir()
+    name = new_cell(root, config, traffic)
     spec = run.cell_spec(name, str(root))
-    mix = json.loads(mix.read_text())
+    mix = json.loads((root / "bench_torch" / "traffic"
+                      / (traffic + ".json")).read_text())
     assert all(run.settings_of(spec)[k] == v
                for k, v in mix["settings"].items())
     args = argparse.Namespace(workload=name, seed=SEED, seconds=0.5,
                               trace=0)
     res = run.run(args, "cpu", spec, size=SMALL, out=lambda s: None)
     assert res["correct"], res["compared"]
+    assert set(res["compared"]) == set(spec["limits"]["limits"])
 
 
 def test_run_refuses_without_cuda():
@@ -320,3 +390,186 @@ def test_each_fault_is_not_correct(cell, fault, monkeypatch):
             monkeypatch.setattr(rmod, name, make(getattr(rmod, name)))
     res = cpu_run(cell)
     assert not res["correct"], res["compared"]
+
+
+# --- a camera that moves: config #4's scripted orbit -----------------------
+
+@pytest.mark.parametrize("center,radius,height,poses,per_pose", [
+    ([0.0, 1.0, -6.0], 6.0, 1.0, 4, 1),  # cli orbit's
+    ([-1.25, 1.2, -1.25], 12.0, 4.0, 240, 2),
+    ([0.3, -2.0, 5.0], 3, 0, 7, 3),  # level with the centre
+])
+def test_orbit_poses_are_the_ports(center, radius, height, poses, per_pose):
+    from webgpu_raytracing_tpu_torch.camera import orbit_path
+
+    want = list(orbit_path(np.array(center), radius, height, poses))
+    path = motion.CameraPath({"camera_path": dict(
+        center=center, radius=radius, height=height, poses=poses,
+        frames_per_pose=per_pose)})
+    for f in range(2 * poses * per_pose + 1):
+        cam = want[(f // per_pose) % poses]
+        position, orientation = path.pose(f)
+        assert np.array_equal(position, cam.position)
+        assert np.array_equal(orientation, cam.orientation)
+        assert np.array_equal(path.view(f), cam.view_matrix())
+        assert path.moves_before(f) == (f > 0 and f % per_pose == 0
+                                        and poses > 1)
+
+
+def test_drive_hands_each_frame_its_pose_and_draws(monkeypatch):
+    """A CPU ``Renderer`` driven along a camera path renders each frame
+    from the path's view, with the seed and jitter that ``frame_inputs``
+    gives the reference, and from zero accumulation after each move."""
+    import webgpu_raytracing_tpu_torch.renderer as rmod
+    from webgpu_raytracing_tpu_torch.camera import Camera
+
+    from scenes import analytic
+
+    seen = []
+
+    def record(fn):
+        def frame(buffers, tables, env, inputs, settings):
+            seen.append(inputs)
+            return fn(buffers, tables, env, inputs, settings)
+        return frame
+
+    monkeypatch.setattr(rmod, "render_frame", record(rmod.render_frame))
+    st = dict(reference.DEFAULTS, width=8, height=6, jitter_strength=0.75)
+    path = motion.CameraPath(dict(ORBIT_FLOOR, camera_path=dict(
+        ORBIT_FLOOR["camera_path"], frames_per_pose=3)))
+    renderer = rmod.Renderer(
+        run.program_scene(analytic.generate(0)), run.program_settings(st),
+        camera=Camera(*path.pose(0)), base_seed=SEED, device="cpu")
+    drive = run.Drive(renderer, path, Camera)
+    for _ in range(10):
+        drive.step()
+    draws = run.frame_inputs(SEED, 10, 0.75)
+    assert len(seen) == 10
+    for f, (inputs, (seed, jitter)) in enumerate(zip(seen, draws)):
+        assert inputs.seed == seed
+        assert np.array_equal(inputs.jitter.numpy(), jitter)
+        assert np.array_equal(inputs.view.numpy(), path.view(f))
+        assert inputs.counter == f % 3
+
+
+def test_a_configuration_under_reprojection_is_refused():
+    config = dict(ORBIT_FLOOR, settings=dict(ORBIT_FLOOR["settings"],
+                                             reprojection_rate=4))
+    with pytest.raises(SystemExit, match="reprojection"):
+        run.settings_of(dict(config=config, traffic={}))
+
+
+@pytest.fixture(scope="module")
+def orbit_cells(tmp_path_factory):
+    """``orbit_floor`` with a new pose every frame ("moved": the compared
+    frame follows a move) and every third frame ("still": it does not)."""
+    out = {}
+    for key, per_pose in (("moved", 1), ("still", 3)):
+        root = tmp_path_factory.mktemp(key) / "checkout"
+        root.mkdir()
+        name = new_cell(root, "orbit_floor", "path", per_pose)
+        out[key] = run.cell_spec(name, str(root))
+    return out
+
+
+def orbit_run(spec, seed=SEED):
+    """A run whose compared frame is the third, the first window frame: a
+    window shorter than a frame draws it whatever the machine's pace."""
+    args = argparse.Namespace(workload="orbit_floor.path", seed=seed,
+                              seconds=0.01, trace=0)
+    return run.run(args, "cpu", spec, size=SMALL, out=lambda s: None)
+
+
+@pytest.mark.parametrize("seed", [SEED, 7])
+@pytest.mark.parametrize("key", ["moved", "still"])
+def test_a_moving_run_is_correct(orbit_cells, key, seed):
+    res = orbit_run(orbit_cells[key], seed)
+    assert res["correct"], res["compared"]
+
+
+@pytest.mark.parametrize("key", ["moved", "still"])
+def test_the_moving_control_is_not_correct(orbit_cells, key):
+    spec = orbit_cells[key]
+    numbers = calibrate.control(spec, SEED, "cpu", SMALL)
+    assert not compare.verdict(numbers, spec["limits"]["limits"]), numbers
+
+
+def _no_reset(monkeypatch, rmod):
+    """A move does not restart the accumulation."""
+    monkeypatch.setattr(rmod.Renderer, "reset", lambda self: None)
+
+
+def _cleared(monkeypatch, rmod):
+    """Every frame clears the accumulation, the camera moved or not."""
+    fn = rmod.render_frame
+
+    def frame(buffers, tables, env, inputs, settings):
+        return fn(buffers, tables, env,
+                  dataclasses.replace(inputs, counter=0), settings)
+    monkeypatch.setattr(rmod, "render_frame", frame)
+
+
+def _wrong_view(monkeypatch, rmod):
+    """Each frame's rays leave from the last frame's view."""
+    views = []
+    fn = rmod.camera_rays
+
+    def rays(pos, view, *a, **k):
+        if not views or view is not views[-1]:
+            views.append(view)
+        return fn(pos, views[-2] if len(views) > 1 else view, *a, **k)
+    monkeypatch.setattr(rmod, "camera_rays", rays)
+
+
+@pytest.mark.parametrize("fault,key,fails", [
+    (_no_reset, "moved", "accum_px"), (_cleared, "still", "accum_px"),
+    (_wrong_view, "moved", "bad_px_pct"),
+])
+def test_each_moving_fault_is_not_correct(orbit_cells, fault, key, fails,
+                                          monkeypatch):
+    import webgpu_raytracing_tpu_torch.renderer as rmod
+
+    fault(monkeypatch, rmod)
+    res = orbit_run(orbit_cells[key])
+    assert not res["correct"], res["compared"]
+    number = res["compared"][fails]
+    assert number["value"] > number["limit"], res["compared"]
+
+
+# --- no result once JAX is loaded ------------------------------------------
+
+@pytest.mark.parametrize("loaded", [None, "jax.numpy", "jaxlib", "flax",
+                                    "webgpu_raytracing_tpu.renderer"])
+def test_no_result_once_jax_is_loaded(loaded, monkeypatch, capsys):
+    """``main`` drives a whole run (on the CPU here, its check for a card
+    passed over) in which the module ``loaded`` is loaded: it prints no
+    result, fails, and names the module on standard error. The port's own
+    modules, whose name begins with the JAX package's, are no such
+    module."""
+    import types
+
+    for name in run.jax_loaded():
+        monkeypatch.delitem(sys.modules, name)
+    real = run.run
+
+    def on_cpu(args, device, spec, out=print, phases=None):
+        if loaded:
+            monkeypatch.setitem(sys.modules, loaded,
+                                types.ModuleType(loaded))
+        return real(args, "cpu", spec, size=SMALL, out=out, phases=phases)
+
+    monkeypatch.setattr(run, "run", on_cpu)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "init", lambda: None)
+    rc = run.main(["--workload", "analytic_256.direct", "--seed", str(SEED),
+                   "--seconds", "0.3"])
+    out, err = capsys.readouterr()
+    assert "webgpu_raytracing_tpu_torch.renderer" in sys.modules
+    last = out.strip().splitlines()[-1]
+    if loaded is None:
+        assert rc == 0 and json.loads(last)["correct"]
+        assert err.strip().splitlines()[-1].startswith("accum_px")
+    else:
+        assert rc != 0 and not last.startswith("{")
+        assert loaded in err.strip().splitlines()[-1]
