@@ -11,7 +11,8 @@
   legs and no other) inside ``wrt.shade``; the only added operation is
   the stack of the frame's one read-back.
 * Counters: the closest-hit legs' live lanes sum to ``last_rays`` on a
-  path frame without shadow legs; no leg has more live lanes than lanes.
+  path frame without shadow legs; no leg has more live lanes than lanes;
+  a first frame counts one ``renderer.restarts``.
 * Tracing changes no result: image, G-buffer, ``last_rays``, the
   integrator's RNG state and the host generator are bit-identical.
 * A garbage collection inside a traced frame is a ``wrt.gc`` span.
@@ -229,7 +230,11 @@ def test_no_leg_has_more_live_lanes_than_lanes(scene, kind, monkeypatch):
     want = collections.Counter()
     for name, v in calls:
         want[name] += v
-    assert dict(want) == pytest.approx(r.last_counts)
+    # the integrator's counters, and the renderer's own: a first frame
+    # starts its accumulation from zero
+    counts = dict(r.last_counts)
+    assert counts.pop("renderer.restarts") == 1
+    assert dict(want) == pytest.approx(counts)
 
 
 def _run_frames(scene, kind, on, monkeypatch):

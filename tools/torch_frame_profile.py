@@ -3,7 +3,7 @@
     python3 tools/torch_frame_profile.py [--frames 2] [--width 1920 --height 1080]
         [--trace-sched J] [--order-outside] [--pipeline-rounds] [--sort]
         [--binned] [--multipass-cap N] [--nee] [--envis] [--config5]
-        [--analytic]
+        [--analytic] [--orbit [--per-pose 512]]
 
 Renders the main-path slice (``stress_scene(44_556)``, default path
 settings, procedural sky) on the first CUDA device: one warm-up frame,
@@ -34,7 +34,11 @@ BASELINE config #3 lights its 4k HDR. ``--config5`` renders BASELINE
 config #5 instead (``stress_scene(1_000_000)``, 3840x2160 in 8 slabs, two-level
 tables); ``--analytic`` BASELINE config #1, the ``analytic_256.direct``
 cell's frame (``cli.analytic_scene``, 256x256, pinhole, direct lighting
-only). Prints, per frame, each span's self and inclusive busy time and
+only); ``--orbit`` BASELINE config #4, the ``orbit44k_256.path`` cell's
+frames (256x256, the same scene, ``cli orbit``'s 4 poses about (0, 1,
+-6), a move every ``--per-pose`` frames with ``reset()`` before the
+frame, as ``cli orbit`` does; the timed and the profiled frames each
+start with a move). Prints, per frame, each span's self and inclusive busy time and
 launches, host time and the idle time put down to it, the longest idle
 gaps with the span each opened in, the device's busy share of its span,
 the top CUDA kernels, the frame's counters
@@ -43,7 +47,8 @@ the top CUDA kernels, the frame's counters
 ``shade_*_kernel`` operations on the device trace with their device
 time: 2 a path segment), rederive's the same way
 (``rederive.kernel_launches`` and ``rederive_uv_kernel``: 1 a
-closest-hit leg), and one JSON line with the numbers. The
+closest-hit leg), the restarts of accumulation (``renderer.restarts``)
+of each profiled frame, and one JSON line with the numbers. The
 card's name and power limit (nvidia-smi) are printed beside them. Fails
 without a CUDA device.
 """
@@ -80,9 +85,12 @@ def main() -> int:
     ap.add_argument("--nee", action="store_true")
     ap.add_argument("--envis", action="store_true")
     ap.add_argument("--analytic", action="store_true")
+    ap.add_argument("--orbit", action="store_true")
+    ap.add_argument("--per-pose", type=int, default=512)
     a = ap.parse_args()
     a.sort = a.sort or a.binned or a.multipass_cap > 0
 
+    import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -97,6 +105,7 @@ def main() -> int:
     ).stdout.strip()
 
     from chip_smoke import sky_equirect
+    from webgpu_raytracing_tpu_torch.camera import orbit_path
     from webgpu_raytracing_tpu_torch.config import (
         ProjectionType,
         RenderSettings,
@@ -111,7 +120,7 @@ def main() -> int:
 
     if a.config5:
         a.width, a.height = 3840, 2160
-    if a.analytic:
+    if a.analytic or a.orbit:
         a.width = a.height = 256
     st = RenderSettings(width=a.width, height=a.height, sample_count=1,
                         bounces_depth=4,
@@ -136,20 +145,36 @@ def main() -> int:
     else:
         scene = stress_scene(1_000_000 if a.config5 else 44_556)
     r = Renderer(scene, st, env_data=env, base_seed=a.seed, device="cuda")
-    r.step()
+    poses = list(orbit_path(np.array([0.0, 1.0, -6.0]), 6.0, 1.0, 4))
+    at = {"pose": -1, "frames": 0}  # the orbit's pose, frames rendered at it
+
+    def step(move=False):
+        """One frame; on the orbit, first a move to the next pose with
+        ``reset()`` where ``move`` or the pose has had its frames."""
+        if a.orbit and (move or at["frames"] == a.per_pose):
+            at["pose"] = (at["pose"] + 1) % len(poses)
+            at["frames"] = 0
+            r.camera = poses[at["pose"]]
+            r.reset()
+        r.step()
+        at["frames"] += 1
+
+    step(move=True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(a.frames):
-        r.step()
+    for k in range(a.frames):
+        step(move=k == 0)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) / a.frames * 1e3
     counts = collections.Counter()
+    restarts = []
     with tracing(), profile(activities=[ProfilerActivity.CPU,
                                         ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(a.frames):
-            r.step()
+        for k in range(a.frames):
+            step(move=k == 0)
             counts.update(r.last_counts)
+            restarts.append(r.last_counts.get("renderer.restarts", 0))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     cpu, ops, launch_at = spans.device_view(prof.events())
@@ -206,11 +231,15 @@ def main() -> int:
           f"{counts.get('rederive.kernel_launches', 0) / a.frames:.1f} by "
           "rederive.kernel_launches; on the device trace "
           f"rederive_uv_kernel {rederive[0]:.1f} ({rederive[1]:.2f} ms)")
+    print("restarts of accumulation (renderer.restarts) by profiled frame: "
+          + " ".join(str(n) for n in restarts))
     print(json.dumps({
         "card": card, "frames": a.frames, "width": a.width,
         "height": a.height, "trace_sched": a.trace_sched,
         "kernel_near": not a.order_outside, "config5": a.config5,
-        "analytic": a.analytic,
+        "analytic": a.analytic, "orbit": a.orbit,
+        "per_pose": a.per_pose if a.orbit else None,
+        "restarts": restarts,
         "pipeline_rounds": a.pipeline_rounds,
         "sort": a.sort, "binned": a.binned,
         "multipass_cap": a.multipass_cap, "nee": a.nee, "envis": a.envis,

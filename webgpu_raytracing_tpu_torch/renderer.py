@@ -464,12 +464,15 @@ class Renderer:
     def step(self, seed: Optional[int] = None) -> None:
         """renderFrame (render.ts:1651-1710). Seeds and jitter are drawn
         from the host generator in the JAX package's order. The frame is
-        the span ``wrt.frame`` (its args: ``counter``)."""
+        the span ``wrt.frame`` (its args: ``counter``); a frame that
+        starts accumulating from zero counts ``renderer.restarts``."""
         timing.reset_counts()
         with span("wrt.frame", self.counter):
             self._step(seed)
 
     def _step(self, seed: Optional[int]) -> None:
+        if self.counter == 0:
+            timing.count("renderer.restarts", 1)
         if seed is None:
             seed = int(self._rng.integers(0, 2**32, dtype=np.uint64))
         rate = self.settings.reprojection_rate
