@@ -51,6 +51,18 @@ Phases (any failure exits non-zero; nothing is caught to carry on):
    TFLOP/s, the larger). Its bits are the card tests'
    (``test_rederive_kernel_matches_twin_on_card``); ``drive_path``
    checks one launch a closest-hit leg on every path.
+2e. lights (``phase_light``): the kernels ``wrt_light_sample`` and
+   ``wrt_light_add`` (csrc/light.cu) on the 256² direct frame's lanes
+   (config #1, after the build) and on a config #5 slab's first-bounce
+   lanes under NEE (after phase 7's tables; alone: ``python -c "import
+   torch, chip_smoke as c; c.phase_light_alone(torch, c.smi())"``): two
+   samples chained around their shadow legs as ``direct_light`` chains
+   them, every output bit for bit against the CPU twins, one launch a
+   call and nothing dispatched but its outputs' allocations; each kernel
+   timed from HBM, back to back, and as the twin on the card, beside its
+   bound (bytes over 3.35 TB/s, or the twin's f32 operations a lane over
+   67 TFLOP/s, the larger). ``drive_path`` checks two launches a light
+   sample on every path (none without NEE).
 3. K1 vs twins: on 1080p ray sets of ``stress_scene(44_556)`` made
    from frame 0 exactly as ``path_trace`` makes them, each CUDA entry and
    its plain-torch twin run on the same device tensors. Closest-hit: the
@@ -663,6 +675,181 @@ def phase_rederive_alone(torch, card):
     }
 
 
+def _nee_lanes(torch, tables, st, row0, rows, seed):
+    """A config #5-like bounce segment under NEE (``_shade_segment`` and
+    its ``shade_hit``): the shading points, normals, RNG states, hit
+    lanes and exclusion codes ``direct_light`` takes there."""
+    from webgpu_raytracing_tpu_torch.ops import integrator as ti
+
+    hit_args, state, _ = _shade_segment(torch, tables, st, row0, rows, seed)
+    sh = ti.shade_hit(*hit_args)
+    return sh.new_o, sh.n, state, sh.h, sh.excl
+
+
+def _direct_lanes(torch, tables, st, seed):
+    """``trace_direct``'s first sample of ``st``'s frame: camera rays,
+    their closest hits, and the shading points, normals, RNG states, hit
+    lanes and exclusion codes its ``direct_light`` takes."""
+    import numpy as np
+
+    from webgpu_raytracing_tpu_torch.camera import Camera
+    from webgpu_raytracing_tpu_torch.ops import integrator as ti
+    from webgpu_raytracing_tpu_torch.ops import rng
+    from webgpu_raytracing_tpu_torch.ops.raygen import camera_rays
+
+    dev = torch.device(DEVICE)
+    w, h = st.render_width, st.render_height
+    ys, xs = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    pos = np.stack([xs, ys], -1).reshape(-1, 2).astype(np.float32)
+    pos += np.random.default_rng(seed).uniform(0, 1, pos.shape).astype(
+        np.float32)
+    idx = torch.from_numpy((xs + ys * w).reshape(-1)).to(dev)
+    o, d, state = camera_rays(torch.from_numpy(pos).to(dev),
+                              torch.as_tensor(Camera().view_matrix(),
+                                              device=dev),
+                              rng.seed_state(seed, idx), st)
+    hit = ti.trace_closest(o, d, torch.full((o.shape[0],), F32_MAX,
+                                            device=dev), tables, st,
+                           primary=True)
+    found = hit.face >= 0
+    face = hit.face.clamp(min=0).long()
+    shade = tables.shade_normal[face]
+    n = ti.face_normal(shade, hit.u, hit.v, st.shading_type)
+    point = ti.face_point_offset(tables.tri[face], shade, hit.u, hit.v)
+    pc = tables.clusters.partner_code
+    excl = None if pc is None else torch.where(
+        found, pc[face], torch.full_like(hit.face, -1))
+    return point, n, state, found, excl
+
+
+def phase_light(torch, card, name, tables, st, lanes):
+    """Phase 2e: the lights' two kernels on ``lanes`` (``_nee_lanes`` or
+    ``_direct_lanes``), two samples chained as ``direct_light`` chains
+    them around their shadow legs: every output bit for bit against the
+    CPU twins; one launch a call and nothing dispatched but its outputs'
+    allocations; each kernel (the add as at one sample a point: no colour
+    in, the division) timed on the device from HBM (:func:`_cold_ms`),
+    back to back from L2 (:func:`_queued_ms`), and as the twin on the
+    card, beside its bound (the bytes its lanes need over 3.35 TB/s, or
+    the twin's f32 operations a lane over 67 TFLOP/s, the larger) → the
+    call's entry."""
+    from webgpu_raytracing_tpu_torch.ops import integrator as ti
+
+    point, normal, state, active, excl = lanes
+    r = point.shape[0]
+    cpu_tables = tables.to("cpu")
+    cpu = [x.cpu() for x in (point, normal)]
+    state_cpu, color, color_cpu = state.cpu(), None, None
+    n_shadowed = 0
+    for k in range(2):
+        before = ti.light_sample.launches, ti.light_add.launches
+        with _Dispatched(torch) as seen:
+            ray = ti.light_sample(point, state, tables)
+        shadowed = ti.trace_any(point, ray.d, ray.t_max, tables, st, active,
+                                excl)
+        with _Dispatched(torch) as seen_add:
+            color = ti.light_add(shadowed, ray.d, normal, ray.carry, color,
+                                 tables, 2, k == 1)
+        torch.cuda.synchronize()
+        if (ti.light_sample.launches - before[0],
+                ti.light_add.launches - before[1]) != (1, 1):
+            fail(f"light {name}: not one launch a call")
+        if set(seen.names) != {"empty"} or set(seen_add.names) != {"empty"}:
+            fail(f"light {name}: a call dispatches {seen.names} / "
+                 f"{seen_add.names}, not only its outputs' allocations")
+        want = ti.light_sample.twin(cpu[0], state_cpu, cpu_tables)
+        shadowed_cpu = shadowed.cpu()
+        want_c = ti.light_add.twin(shadowed_cpu, want.d, cpu[1], want.carry,
+                                   color_cpu, cpu_tables, 2, k == 1)
+        for field, g, w in [*zip(ti.LightRay._fields, ray, want),
+                            ("color", color, want_c)]:
+            g = g.cpu()
+            if g.dtype == torch.float32:
+                nan = torch.isnan(w)
+                same = torch.equal(torch.isnan(g), nan) and torch.equal(
+                    g.masked_fill(nan, 0).view(torch.int32),
+                    w.masked_fill(nan, 0).view(torch.int32))
+            else:
+                same = torch.equal(g, w)
+            if not same:
+                fail(f"light {name}: sample {k}'s {field} differs from the "
+                     "CPU twin")
+        n_shadowed += int(shadowed.sum())
+        state, state_cpu, color_cpu = ray.state, want.state, want_c
+
+    ray = ti.light_sample(point, state, tables)
+    shadowed = ti.trace_any(point, ray.d, ray.t_max, tables, st, active,
+                            excl)
+    calls = {"sample": lambda: ti.light_sample(point, state, tables),
+             "add": lambda: ti.light_add(shadowed, ray.d, normal, ray.carry,
+                                         None, tables, 1, True)}
+    plain = {"sample": lambda: ti.light_sample.twin(point, state, tables),
+             "add": lambda: ti.light_add.twin(shadowed, ray.d, normal,
+                                              ray.carry, None, tables, 1,
+                                              True)}
+    one = [x[:1].cpu() for x in (point, normal, state, shadowed)]
+    one_ray = ti.light_sample.twin(one[0], one[2], cpu_tables)
+    ops = {"sample": _f32_ops(torch, lambda: ti.light_sample.twin(
+               one[0], one[2], cpu_tables)),
+           "add": _f32_ops(torch, lambda: ti.light_add.twin(
+               one[3], one_ray.d, one[1], one_ray.carry, None, cpu_tables,
+               1, True))}
+    # the bytes each lane reads and writes once (csrc/light.cu), and the
+    # light's rows (triangle, face normal, material) and the emissions
+    n_light = int(tables.model_face_count[0])
+    nbytes = {"sample": r * (20 + 36) + n_light * (36 + 12 + 4),
+              "add": r * (37 + 12) + 12 * tables.mat_emission.shape[0]}
+    out = dict(lanes=r, active_lanes=int(active.sum()),
+               shadowed_per_sample=n_shadowed / 2, light_faces=n_light,
+               mismatch=0)
+    for k in ("sample", "add"):
+        ms = _cold_ms(torch, calls[k], 20)
+        warm_ms, host_ms = _queued_ms(torch, calls[k], 20)
+        plain_ms = _time_cuda(torch, plain[k], 3)
+        ops_ms = ops[k] * r / PEAK_F32 * 1e3
+        bytes_ms = nbytes[k] / PEAK_BYTES * 1e3
+        out[k] = dict(ms=ms, ms_l2_warm=warm_ms, host_ms_to_queue=host_ms,
+                      plain_ms=plain_ms, bound_ms=max(ops_ms, bytes_ms),
+                      bound_by="operations" if ops_ms >= bytes_ms
+                      else "bytes", ops_per_lane=ops[k], bytes=nbytes[k])
+        print(f"light {name} {k}: {r} lanes ({out['active_lanes']} active, "
+              f"{n_shadowed / 2:.0f} shadowed a sample, {n_light} light "
+              "faces) bit for bit against the CPU twin over two samples; "
+              f"kernel {ms:.4f} ms from HBM (L2 emptied before each call), "
+              f"{warm_ms:.4f} ms a call back to back from L2, "
+              f"{host_ms:.4f} ms of host to queue one; twin on the card "
+              f"{plain_ms:.3f} ms; bound {out[k]['bound_ms']:.4f} ms by "
+              f"{out[k]['bound_by']} ({nbytes[k]} B, {ops[k]} f32 ops a "
+              f"lane) ({card})", flush=True)
+    for k in ("ms", "plain_ms", "bound_ms"):
+        out[k] = out["sample"][k] + out["add"][k]
+    out["bound_by"] = out["sample"]["bound_by"]
+    return out
+
+
+def phase_light_alone(torch, card):
+    """Phase 2e by itself: a config #5 slab's first-bounce lanes under NEE
+    (the last of 8) and the 256² direct frame's lanes (config #1)."""
+    from webgpu_raytracing_tpu_torch.config import (
+        ProjectionType, RenderSettings,
+    )
+    from webgpu_raytracing_tpu_torch.frontend.cli import analytic_scene
+    from webgpu_raytracing_tpu_torch.models.stress import stress_scene
+
+    dev = torch.device(DEVICE)
+    st = RenderSettings(width=256, height=256, bounces_depth=1,
+                        projection_type=ProjectionType.PERSPECTIVE)
+    tables = analytic_scene().tables(dev)
+    out = {"direct_256": phase_light(torch, card, "direct_256", tables, st,
+                                     _direct_lanes(torch, tables, st, 0))}
+    tables = stress_scene(CONFIG5_TRIANGLES).tables(dev)
+    st = RenderSettings(next_event_estimation=True, **CONFIG5)
+    out["config5_slab_nee"] = phase_light(
+        torch, card, "config5_slab_nee", tables, st,
+        _nee_lanes(torch, tables, st, 1890, 270, 27182818))
+    return out
+
+
 def phase_raygen(torch, card):
     """Phase 2b: the camera rays kernel against the CPU twin, timed beside
     its bound and the twin on the card → its ``kernels`` entry."""
@@ -1116,7 +1303,7 @@ def frame0_legs(torch, tables, st, seed, row0=0, rows=None, sky=None):
     from webgpu_raytracing_tpu_torch.ops import detmath, rng
     from webgpu_raytracing_tpu_torch.ops.env_sample import sample_env
     from webgpu_raytracing_tpu_torch.ops.integrator import (
-        face_normal, face_point_offset, light_ray, sample_lights,
+        face_normal, face_point_offset, light_sample,
     )
     from webgpu_raytracing_tpu_torch.ops.raygen import camera_rays
     from webgpu_raytracing_tpu_torch.ops.strictf import sdot3
@@ -1149,9 +1336,8 @@ def frame0_legs(torch, tables, st, seed, row0=0, rows=None, sky=None):
                               hit.u, hit.v)
     excl = torch.where(h_mask, tables.clusters.partner_code[fi],
                        torch.full_like(hit.face, -1))
-    ls, _ = sample_lights(state, tables, st)
-    dirn, t_light, _ = light_ray(new_o, ls)
-    legs["nee"] = dict(o=new_o, d=dirn, t_max=t_light, active=h_mask,
+    ray = light_sample(new_o, state, tables)
+    legs["nee"] = dict(o=new_o, d=ray.d, t_max=ray.t_max, active=h_mask,
                        excl_code=excl)
     if sky is not None:
         ed, _, _, _ = sample_env(sky, state)
@@ -1633,6 +1819,7 @@ def drive_path(torch, name, scene, st, frames, seed, card, per_frame,
     camera_rays.launches = 0
     ti.shade_hit.launches = ti.shade_bounce.launches = 0
     rederive_uv.launches = 0
+    ti.light_sample.launches = ti.light_add.launches = 0
     rays = 0.0
     t0 = time.perf_counter()
     for _ in range(frames):
@@ -1644,6 +1831,7 @@ def drive_path(torch, name, scene, st, frames, seed, card, per_frame,
     raygen = camera_rays.launches
     shade = (ti.shade_hit.launches, ti.shade_bounce.launches)
     rederive = rederive_uv.launches
+    light = (ti.light_sample.launches, ti.light_add.launches)
     peak = torch.cuda.max_memory_allocated()
     img = r.buffers.image
     want = (1.0 + st.sample_count) * (frames + 1)
@@ -1677,6 +1865,16 @@ def drive_path(torch, name, scene, st, frames, seed, card, per_frame,
                 f"{(legs - exact) * frames} to {legs * frames}")
         fail(f"{name}: {rederive} rederive kernel launches in {frames} "
              f"frames, expected {want}")
+    # each light kernel once a light sample: samples_per_point at every
+    # segment under NEE, and at every sample and slab of trace_direct
+    light_per_frame = 0
+    if st.bounces_depth <= 1:
+        light_per_frame = raygen_per_frame * st.samples_per_point
+    elif st.next_event_estimation:
+        light_per_frame = shade_per_frame * st.samples_per_point
+    if light != (light_per_frame * frames,) * 2:
+        fail(f"{name}: light kernel launches {light} in {frames} frames, "
+             f"expected {light_per_frame * frames} each")
     rgb = img[..., :3]
     if bool(torch.isinf(rgb).any()):
         fail(f"{name}: +-inf in the accumulation buffer")
@@ -1695,12 +1893,13 @@ def drive_path(torch, name, scene, st, frames, seed, card, per_frame,
           f"{mrays:.3f} Mrays/s ({rays / frames:.0f} rays/frame), launches "
           f"{ {w: n for w, n in zip(WRAPPERS, launches) if n} }, camera "
           f"rays kernel {raygen}, shading kernels {shade}, rederive kernel "
-          f"{rederive}, NaN pixels "
+          f"{rederive}, light kernels {light}, NaN pixels "
           f"{nan_share:.4f}, peak memory {peak / 2**30:.2f} GiB, Renderer set-up "
           f"{setup_s:.1f} s ({card})", flush=True)
     return dict(launches=launches, raygen_per_frame=raygen / frames,
                 shade_per_frame=sum(shade) / frames,
-                rederive_per_frame=rederive / frames, ms_per_frame=ms, mrays=mrays, nan_share=nan_share, peak_gib=peak / 2**30,
+                rederive_per_frame=rederive / frames,
+                light_per_frame=sum(light) / frames, ms_per_frame=ms, mrays=mrays, nan_share=nan_share, peak_gib=peak / 2**30,
                 rays_per_frame=rays / frames), r
 
 
@@ -3089,7 +3288,10 @@ def main() -> int:
     card = phase_environment(torch)
     phase_build()
     raygen = phase_raygen(torch, card)
-    from webgpu_raytracing_tpu_torch.config import RenderSettings
+    from webgpu_raytracing_tpu_torch.config import (
+        ProjectionType, RenderSettings,
+    )
+    from webgpu_raytracing_tpu_torch.frontend.cli import analytic_scene
     from webgpu_raytracing_tpu_torch.models.stress import stress_scene
     from webgpu_raytracing_tpu_torch.ops.cluster_cuda import is_two_level
     from webgpu_raytracing_tpu_torch.ops.env_sample import (
@@ -3112,6 +3314,13 @@ def main() -> int:
     rederive = {"slice_1080p": phase_rederive(
         torch, card, "slice_1080p", scene.tables(torch.device(DEVICE)),
         RenderSettings(**SLICE), 0, 1080)}
+    direct_st = RenderSettings(width=256, height=256, bounces_depth=1,
+                               projection_type=ProjectionType.PERSPECTIVE)
+    direct_tables = analytic_scene().tables(torch.device(DEVICE))
+    light = {"direct_256": phase_light(
+        torch, card, "direct_256", direct_tables, direct_st,
+        _direct_lanes(torch, direct_tables, direct_st, a.seed))}
+    del direct_tables
     closest, anyhit, pairs, sched, k4, hooked, binned_legs, keys = (
         phase_kernel_vs_twin(torch, scene, sky, a.seed, card))
     paths = phase_paths(torch, scene, sky, a.frames, a.seed, card)
@@ -3159,6 +3368,10 @@ def main() -> int:
     rederive["config5_slab"] = phase_rederive(
         torch, card, "config5_slab", tables5, RenderSettings(**CONFIG5), 1890,
         270)
+    nee5 = RenderSettings(next_event_estimation=True, **CONFIG5)
+    light["config5_slab_nee"] = phase_light(
+        torch, card, "config5_slab_nee", tables5, nee5,
+        _nee_lanes(torch, tables5, nee5, 1890, 270, 27182818))
     del scene5
     slabs = CONFIG5["frame_slabs"]
     drive_pair(
@@ -3340,6 +3553,17 @@ def main() -> int:
                                                               "direct")},
              timed_leg="config5_slab bounce", legs=rederive,
              **{k: rederive["config5_slab"][k] for k in (
+                 "ms", "plain_ms", "bound_ms", "bound_by")}),
+        dict(name="lights", route="cuda",
+             source="webgpu_raytracing_tpu_torch/csrc/light.cu",
+             replaces="none: XLA code in "
+             "webgpu_raytracing_tpu/ops/integrator.py (direct_light)",
+             launches_per_sample=2, mismatches=0, library_ms=None,
+             launches_per_frame={
+                 k: paths[k]["light_per_frame"] for k in (
+                     "nee", "direct", "config5_nee", "config5")},
+             timed_leg="config5_slab_nee", legs=light,
+             **{k: light["config5_slab_nee"][k] for k in (
                  "ms", "plain_ms", "bound_ms", "bound_by")}),
     ]}), flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all",

@@ -2,7 +2,7 @@
 ``Kernel``, ``check_args``, ``launch``), case by case over every kernel
 entry: camera rays, both shading steps, a trace wrapper of each launcher
 (the exact search, pairs, K3 ordering its supers, K4), the ray sort's
-key and rederive.
+key, rederive and both steps of a light sample.
 
 * On CPU tensors an entry is its plain twin: the twin's bits, no launch
   counted.
@@ -128,6 +128,24 @@ def _rederive(_):
     return cc.rederive_uv, kw, [("face", face.long()), ("o", o[:, :2])]
 
 
+def _light(step):
+    from test_torch_light import light_lanes, light_tables
+
+    gen = np.random.default_rng(12)
+    tables = light_tables(gen, (0, 20))
+    point, normal, state, shadowed = light_lanes(gen, 100, tables,
+                                                 ShadingType.PHONG)
+    if step == "sample":
+        kw = dict(point=point, state=state, tables=tables)
+        return ti.light_sample, kw, [("state", state.to(torch.int32)),
+                                     ("point", point[:, :2])]
+    ray = ti.light_sample.twin(point, state, tables)
+    kw = dict(shadowed=shadowed, d=ray.d, normal=normal, carry=ray.carry,
+              color=torch.ones_like(ray.d), tables=tables, spp=2, last=True)
+    return ti.light_add, kw, [("shadowed", shadowed.to(torch.uint8)),
+                              ("carry", ray.carry.t())]
+
+
 CASES = {
     **{f"camera_rays_{p}": (_camera, p) for p in range(4)},
     "shade_hit": (_shade, "hit"),
@@ -138,6 +156,8 @@ CASES = {
     "trace_binned_tiles": (_trace, "binned"),
     "top_keys_tiles": (_trace, "keys"),
     "rederive_uv": (_rederive, None),
+    "light_sample": (_light, "sample"),
+    "light_add": (_light, "add"),
 }
 
 

@@ -1366,3 +1366,50 @@ def test_rederive_kernel_matches_twin_on_card(cuda, which):
             _same_bits(getattr(got, name), getattr(want, name), name)
         hits = int((face >= 0).sum())
         assert hits > (10 if which == "edge" else 100_000), hits
+
+
+# --- the lights (csrc/light.cu) ---
+
+@pytest.mark.parametrize("r", [3001, 1_036_803], ids=["3001", "slab"])
+@pytest.mark.parametrize("case", ["flat_one_face_spp1", "phong_one_face_spp2",
+                                  "flat_many_faces_spp2",
+                                  "phong_many_faces_spp1"])
+def test_light_kernels_match_cpu_twin_on_card(cuda, case, r):
+    """``wrt_light_sample`` then ``wrt_light_add`` on
+    tests/test_torch_light.py's random lanes, sample by sample: one launch
+    each and nothing dispatched but their outputs' allocations; every
+    output equal to the CPU twin's bit for bit, NaN equal to NaN."""
+    import types
+
+    from test_torch_light import CASES, light_lanes, light_tables
+
+    from webgpu_raytracing_tpu_torch.ops import integrator as ti
+
+    shading, faces, spp = CASES[case]
+    gen = np.random.default_rng(140 + sorted(CASES).index(case))
+    tables = light_tables(gen, faces)
+    point, normal, state, shadowed = light_lanes(gen, r, tables, shading)
+    t_dev = types.SimpleNamespace(**{
+        k: v.to(cuda) for k, v in vars(tables).items()
+        if isinstance(v, torch.Tensor)})
+    p_dev, n_dev, s_dev, sh_dev = (x.to(cuda) for x in (point, normal, state,
+                                                         shadowed))
+    color, color_dev = None, None
+    for k in range(spp):
+        last = k == spp - 1
+        before = ti.light_sample.launches, ti.light_add.launches
+        with Ops() as ops:
+            ray = ti.light_sample(p_dev, s_dev, t_dev)
+            c_dev = ti.light_add(sh_dev, ray.d, n_dev, ray.carry, color_dev,
+                                 t_dev, spp, last)
+        torch.cuda.synchronize()
+        assert (ti.light_sample.launches, ti.light_add.launches) == (
+            before[0] + 1, before[1] + 1)
+        assert set(ops.names) == {"empty"}, ops.names
+        want = ti.light_sample.twin(point, state, tables)
+        for name, g, w in zip(ti.LightRay._fields, ray, want):
+            _same_bits(g, w, name)
+        want_c = ti.light_add.twin(shadowed, want.d, normal, want.carry,
+                                   color, tables, spp, last)
+        _same_bits(c_dev, want_c, f"color of sample {k}")
+        state, s_dev, color, color_dev = want.state, ray.state, want_c, c_dev

@@ -47,7 +47,10 @@ the top CUDA kernels, the frame's counters
 ``shade_*_kernel`` operations on the device trace with their device
 time: 2 a path segment), rederive's the same way
 (``rederive.kernel_launches`` and ``rederive_uv_kernel``: 1 a
-closest-hit leg), the restarts of accumulation (``renderer.restarts``)
+closest-hit leg), the lights' the same way (``light.kernel_launches``
+and ``light_sample_kernel`` / ``light_add_kernel``: 2 a light sample,
+so 2 a ``direct_light`` call at one sample a point; none without NEE or
+the direct integrator), the restarts of accumulation (``renderer.restarts``)
 of each profiled frame, and one JSON line with the numbers. The
 card's name and power limit (nvidia-smi) are printed beside them. Fails
 without a CUDA device.
@@ -194,6 +197,12 @@ def main() -> int:
                 for name, us in kernels.items()
                 if "rederive_uv_kernel" in name]
     rederive = tuple(map(sum, zip(*rederive))) or (0.0, 0.0)
+    light = {}  # "light_sample_kernel" → (launches, ms) a frame
+    for name, us in kernels.items():
+        m = re.search(r"light_(sample|add)_kernel", name)
+        if m:
+            light[m.group(0)] = (launches[name] / a.frames,
+                                 us / 1e3 / a.frames)
     busy_ms = sum(kernels.values()) / 1e3 / a.frames
     starts = [e.time_range.start for e in ops]
     ends = [e.time_range.end for e in ops]
@@ -231,6 +240,11 @@ def main() -> int:
           f"{counts.get('rederive.kernel_launches', 0) / a.frames:.1f} by "
           "rederive.kernel_launches; on the device trace "
           f"rederive_uv_kernel {rederive[0]:.1f} ({rederive[1]:.2f} ms)")
+    print("light kernel launches per frame: "
+          f"{counts.get('light.kernel_launches', 0) / a.frames:.1f} by "
+          "light.kernel_launches; on the device trace " + (", ".join(
+              f"{k} {n:.1f} ({ms:.2f} ms)" for k, (n, ms) in
+              sorted(light.items())) or "none"))
     print("restarts of accumulation (renderer.restarts) by profiled frame: "
           + " ".join(str(n) for n in restarts))
     print(json.dumps({
@@ -252,6 +266,8 @@ def main() -> int:
         "shade_kernels": {k: {"launches": n, "ms": ms}
                           for k, (n, ms) in shade.items()},
         "rederive_kernel": {"launches": rederive[0], "ms": rederive[1]},
+        "light_kernels": {k: {"launches": n, "ms": ms}
+                          for k, (n, ms) in light.items()},
         "rays_per_frame": r.last_rays,
     }))
     return 0

@@ -108,6 +108,16 @@ __device__ __forceinline__ float offset_1(float p, float n) {
   return fabsf(p) < 0x1p-5f ? p_int : p_float;
 }
 
+// facePointOffset (render.ts:883-889) of a face's rows: its point at
+// (u, v), p0 + e1 u + e2 v, offset along its face normal
+__device__ __forceinline__ F3 face_point_offset(const float* t,
+                                                const float* sn, float u,
+                                                float v) {
+  const F3 p = {(t[0] + t[3] * u) + t[6] * v, (t[1] + t[4] * u) + t[7] * v,
+                (t[2] + t[5] * u) + t[8] * v};
+  return {offset_1(p.x, sn[0]), offset_1(p.y, sn[1]), offset_1(p.z, sn[2])};
+}
+
 // rng.sample_sphere (rng.ts:102-109)
 __device__ __forceinline__ F3 sample_sphere(F2 t) {
   const float u = t.x * 2.0f - 1.0f;
@@ -165,12 +175,7 @@ __device__ __forceinline__ void shade_hit_lane(const ShadeHitArgs& a,
   }
   store3(a.n_out, i, n);
 
-  const float* t = a.tri + 9 * f;  // facePoint, then facePointOffset
-  const F3 p = {(t[0] + t[3] * u) + t[6] * v, (t[1] + t[4] * u) + t[7] * v,
-                (t[2] + t[5] * u) + t[8] * v};
-  store3(a.new_o_out, i,
-         F3{offset_1(p.x, sn[0]), offset_1(p.y, sn[1]),
-            offset_1(p.z, sn[2])});
+  store3(a.new_o_out, i, face_point_offset(a.tri + 9 * f, sn, u, v));
 
   if (a.partner_code != nullptr) a.excl_out[i] = h ? a.partner_code[f] : -1;
   a.h_out[i] = h;

@@ -27,7 +27,9 @@ thread a ray, with ``csrc/detmath.cuh``'s device functions). In
 segment's shading, one thread a lane, with ``csrc/shade.cuh``). In
 ``csrc/rederive.cu``: ``wrt_rederive_uv`` (a closest-hit leg's exact t,
 u and v from each ray's face, one thread a ray, with
-``csrc/rederive.cuh``). The
+``csrc/rederive.cuh``). In ``csrc/light.cu``: ``wrt_light_sample`` and
+``wrt_light_add`` (a light sample of NEE on either side of its shadow
+leg, one thread a lane, with ``csrc/light.cuh``). The
 closest-hit entries of K1, K2pl and K2n and K4 take the code carried in
 beside t_max (or null), K1's also the cap and the stop output, K2n's
 closest-hit and any-hit entries the per-ray ``t_start``.
@@ -191,6 +193,10 @@ def _entries():
         "wrt_shade_bounce": (i, [p, i, i, ctypes.c_longlong, p]),
         # o, d, t, face, tri, out, n_rays, stream
         "wrt_rederive_uv": (i, [p, p, p, p, p, p, ctypes.c_longlong, p]),
+        # the pointer block (host), n_lanes, stream
+        "wrt_light_sample": (i, [p, ctypes.c_longlong, p]),
+        # the pointer block (host), spp, last, n_lanes, stream
+        "wrt_light_add": (i, [p, i, i, ctypes.c_longlong, p]),
         "wrt_error_string": (ctypes.c_char_p, [i]),
     }
 

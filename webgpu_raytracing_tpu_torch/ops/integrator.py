@@ -521,9 +521,11 @@ def sample_lights(state, tables, settings: RenderSettings):
     shade = tables.shade_normal[face_idx]
     point = face_point_offset(tri, shade, u, v)
     normal = face_normal(shade, u, v, settings.shading_type)
-    # 1/pdf = |cross(e1, e2)|/2 × face count (render.ts:862-869)
+    # 1/pdf = |cross(e1, e2)|/2 × face count (render.ts:862-869); the
+    # square root correctly rounded, as JAX's and the card's are (torch's
+    # on the CPU may be an ulp off)
     cr = scross(tri[..., 3:6], tri[..., 6:9])
-    area = torch.sqrt(sdot3(cr, cr)) / 2.0
+    area = detmath.det_sqrt(sdot3(cr, cr)) / 2.0
     p = area * count.to(torch.float32)
     mat = tables.face_material[face_idx]
     return LightSample(p=p, point=point, normal=normal, material_idx=mat), state
@@ -539,32 +541,147 @@ def light_ray(point, ls: LightSample):
     return ds * inv_d.unsqueeze(-1), t_max, d_sq
 
 
+class LightRay(NamedTuple):
+    """:func:`light_sample`'s outputs, in the order of
+    ``LightSampleArgs``'s outputs (``csrc/light.cuh``)."""
+
+    d: torch.Tensor  # (R, 3) the shadow ray's direction
+    t_max: torch.Tensor  # (R,) the distance to the light point
+    carry: torch.Tensor  # (3, R) for light_add: 1/pdf, d_sq, the material
+    state: torch.Tensor  # (R,) i64
+
+
+# the light's normal, which pointColor never reads, is drawn flat: no ops
+_FLAT = RenderSettings(shading_type=ShadingType.FLAT)
+
+
+def _light_sample_torch(point, state, tables) -> LightRay:
+    """The plain twin of ``wrt_light_sample``: :func:`sample_lights` and
+    :func:`light_ray`, eager ops, one rounding each. The carry's last row
+    is the light face's material index as the bits of an f32."""
+    ls, state = sample_lights(state, tables, _FLAT)
+    d, t_max, d_sq = light_ray(point, ls)
+    carry = torch.stack([ls.p, d_sq, ls.material_idx.view(torch.float32)])
+    return LightRay(d, t_max, carry, state)
+
+
+def _light_add_torch(shadowed, d, normal, carry, color, tables, spp,
+                     last) -> torch.Tensor:
+    """The plain twin of ``wrt_light_add``: one sample's emission ×
+    cosine / r² × (1/pdf), unless ``shadowed``, added to ``color`` (None
+    on the first sample: zeros); ``last`` divides by ``spp``."""
+    if color is None:
+        color = torch.zeros_like(d)
+    vis = torch.where(shadowed, 0.0, 1.0)
+    cosine = torch.clamp(sdot3(d, normal), min=0.0)
+    emission = tables.mat_emission[carry[2].view(torch.int32).long()]
+    contrib = vis * cosine * carry[0] / torch.clamp(carry[1], min=1e-20)
+    color = color + emission * contrib.unsqueeze(-1)
+    return color / float(spp) if last else color
+
+
+def _light_sample_buffers(point, state, tables):
+    """``wrt_light_sample``'s arguments checked, its outputs allocated →
+    (the outputs, the pointer block in ``LightSampleArgs``'s order, the
+    tensors it points to)."""
+    dev = point.device
+    r, n_f = point.shape[0], tables.tri.shape[0]
+    m = tables.model_face_offset.shape[0]
+    f32, i32, i64 = torch.float32, torch.int32, torch.int64
+    ins = check_args("lights", dev, [
+        ("point", point, f32, (r, 3)), ("state", state, i64, (r,)),
+        ("model_face_offset", tables.model_face_offset, i32, (m,)),
+        ("model_face_count", tables.model_face_count, i32, (m,)),
+        ("tri", tables.tri, f32, (n_f, 9)),
+        ("shade_normal", tables.shade_normal, f32, (n_f, 12)),
+        ("face_material", tables.face_material, i32, (n_f,)),
+    ], copy=True)
+    out = LightRay(
+        d=torch.empty((r, 3), dtype=f32, device=dev),
+        t_max=torch.empty((r,), dtype=f32, device=dev),
+        carry=torch.empty((3, r), dtype=f32, device=dev),
+        state=torch.empty((r,), dtype=i64, device=dev))
+    return out, pointer_block(ins + list(out)), ins + list(out)
+
+
+def _light_add_buffers(shadowed, d, normal, carry, color, tables):
+    """``wrt_light_add``'s arguments checked, its output allocated, as
+    :func:`_light_sample_buffers`."""
+    dev = d.device
+    r, k = d.shape[0], tables.mat_emission.shape[0]
+    f32 = torch.float32
+    ins = check_args("lights", dev, [
+        ("shadowed", shadowed, torch.bool, (r,)), ("d", d, f32, (r, 3)),
+        ("normal", normal, f32, (r, 3)), ("carry", carry, f32, (3, r)),
+        ("color", color, f32, (r, 3)),
+        ("mat_emission", tables.mat_emission, f32, (k, 3)),
+    ], copy=True)
+    out = torch.empty((r, 3), dtype=f32, device=dev)
+    return out, pointer_block(ins + [out]), ins + [out]
+
+
+def _launch_light_sample(point, state, tables) -> LightRay:
+    out, block, keep = _light_sample_buffers(point, state, tables)
+    launch("lights", "wrt_light_sample", point.device, block, point.shape[0])
+    count("light.kernel_launches", 1)
+    return out
+
+
+def _launch_light_add(shadowed, d, normal, carry, color, tables, spp,
+                      last) -> torch.Tensor:
+    out, block, keep = _light_add_buffers(shadowed, d, normal, carry, color,
+                                          tables)
+    launch("lights", "wrt_light_add", d.device, block, int(spp), int(last),
+           d.shape[0])
+    count("light.kernel_launches", 1)
+    return out
+
+
+light_sample = Kernel(
+    "light_sample", _light_sample_torch, _launch_light_sample, "lights",
+    "A light sample before its shadow leg (point, state, tables) → "
+    "LightRay: ``random_1u`` then ``random_2`` on every lane, unmasked, "
+    "a point on one of the light model's faces (model 0), the shadow ray "
+    "from ``point`` to it (direction, t_max) and what :data:`light_add` "
+    "needs (1/pdf, the squared distance, the light's material); outputs "
+    "are new tensors. The kernel is ``wrt_light_sample`` "
+    "(``csrc/light.cu``), its launches also counted in the frame's "
+    "``light.kernel_launches``.")
+light_add = Kernel(
+    "light_add", _light_add_torch, _launch_light_add, "lights",
+    "A light sample after its shadow leg (shadowed, d, normal, carry, "
+    "color, tables, spp, last) → the colour: emission × cosine / r² × "
+    "(1/pdf) on unshadowed lanes, added to ``color`` (None on the first "
+    "sample, which starts from +0), divided by ``spp`` when ``last``; a "
+    "new tensor. The kernel is ``wrt_light_add``, its launches also "
+    "counted in ``light.kernel_launches``.")
+
+
 @traced("wrt.light")
 def direct_light(point, normal, state, tables, settings: RenderSettings,
                  active=None, excl=None, sort=False, seg=0):
     """pointColor (render.ts:1143-1157): ``samples_per_point`` light
     samples, each with a shadow ray; emission × cosine / r² × (1/pdf).
-    Traced as ``wrt.light``, its shadow legs' ``wrt.trace`` inside it.
+    Traced as ``wrt.light``, its shadow legs' ``wrt.trace`` inside it. A
+    sample is :data:`light_sample`, the shadow leg, :data:`light_add`: on
+    the card two launches around the leg.
 
     NaN shading points (the reference's inverted offsetRay select, see
     :func:`offset_ray`) stay NaN: their shadow rays come out unshadowed
     and the contribution poisons the pixel, exactly as in the JAX package
     and the reference (deliberate parity)."""
-    r = point.shape[0]
-    color = torch.zeros((r, 3), dtype=torch.float32, device=point.device)
-    for _ in range(settings.samples_per_point):
-        ls, state = sample_lights(state, tables, settings)
-        dirn, t_max, d_sq = light_ray(point, ls)
+    spp = settings.samples_per_point
+    color = None
+    for k in range(spp):
+        ray = light_sample(point, state, tables)
         shadowed = trace_any(
-            point, dirn, t_max, tables, settings, active, excl, sort=sort,
-            seg=seg,
+            point, ray.d, ray.t_max, tables, settings, active, excl,
+            sort=sort, seg=seg,
         )
-        vis = torch.where(shadowed, 0.0, 1.0)
-        cosine = torch.clamp(sdot3(dirn, normal), min=0.0)
-        emission = tables.mat_emission[ls.material_idx.long()]
-        contrib = (vis * cosine * ls.p / torch.clamp(d_sq, min=1e-20))
-        color = color + emission * contrib.unsqueeze(-1)
-    return color / float(settings.samples_per_point), state
+        color = light_add(shadowed, ray.d, normal, ray.carry, color, tables,
+                          spp, k == spp - 1)
+        state = ray.state
+    return color, state
 
 
 class PathResult(NamedTuple):
