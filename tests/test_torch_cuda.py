@@ -978,6 +978,47 @@ def test_sorted_binned_chained_frames_on_card(cuda):
         assert torch.equal(got.view(torch.int32), want.view(torch.int32)), name
 
 
+def test_sorted_sliced_frame_keys_outside_the_trace_launch_on_card(
+        cuda, monkeypatch):
+    """A 128x32 path frame of the mini scene over two-level tables in 8
+    slabs, as the ``stress1m_4k.sorted`` cell cuts its frame: sorted legs
+    of 512 rays, sliced to 384 / 256 rows. With the ray sort on it equals
+    the unsorted frame bit for bit; the key kernel launches once a sorted
+    leg (32, counted in ``top_keys_tiles.launches`` as before), never
+    through ``cluster_cuda._run``, which launches the trace kernels."""
+    from webgpu_raytracing_tpu_torch.utils import timing
+
+    st = RenderSettings(width=128, height=32, bounces_depth=4,
+                        sample_count=1, environment="procedural",
+                        frame_slabs=8)
+    entries = []
+    run_ = cc._run
+
+    def spy(entry, dev, args):
+        entries.append(entry)
+        return run_(entry, dev, args)
+
+    monkeypatch.setattr(cc, "_run", spy)
+
+    def frame(settings):
+        r = Renderer(_mini_scene(), settings, base_seed=77, device=cuda)
+        r.tables = _mini_scene().tables(cuda, cluster_size=16, group_size=4)
+        before = cc.top_keys_tiles.launches
+        with timing.tracing():
+            r.step()
+        torch.cuda.synchronize()
+        return (r.buffers.image, cc.top_keys_tiles.launches - before,
+                r.last_counts)
+
+    want, launched, _ = frame(st)
+    assert launched == 0
+    got, launched, counts = frame(st.replace(sort_bounce_rays=True))
+    assert launched == counts["trace.sort.legs"] == 32
+    assert counts["trace.sort.traced"] < counts["trace.sort.rays"]
+    assert entries and "wrt_top_keys" not in entries
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
 def _camera_inputs(w, h, row0, rows, seed, moved, dev):
     """Jittered pixel positions of ``rows`` rows from ``row0`` of a w x h
     image, the view of the default or a moved and rotated camera, and the

@@ -12,7 +12,8 @@
   the stack of the frame's one read-back.
 * Counters: the closest-hit legs' live lanes sum to ``last_rays`` on a
   path frame without shadow legs; no leg has more live lanes than lanes;
-  a first frame counts one ``renderer.restarts``.
+  the frame's counters are the integrator's, the ray sort's (sorted
+  frames only) and one ``renderer.restarts`` of a first frame.
 * Tracing changes no result: image, G-buffer, ``last_rays``, the
   integrator's RNG state and the host generator are bit-identical.
 * A garbage collection inside a traced frame is a ``wrt.gc`` span.
@@ -38,7 +39,7 @@ from webgpu_raytracing_tpu_torch.config import RenderSettings
 from webgpu_raytracing_tpu_torch.frontend import cli
 from webgpu_raytracing_tpu_torch.models import test_models as tm
 from webgpu_raytracing_tpu_torch.models.scene import scene_from_facesets
-from webgpu_raytracing_tpu_torch.ops import integrator
+from webgpu_raytracing_tpu_torch.ops import integrator, ray_sort
 from webgpu_raytracing_tpu_torch.ops.env_sample import build_env_distribution
 from webgpu_raytracing_tpu_torch.renderer import FrameBuffers, Renderer
 from webgpu_raytracing_tpu_torch.utils import timing
@@ -208,17 +209,21 @@ def test_closest_live_lanes_sum_to_last_rays(scene):
 
 @pytest.mark.parametrize("kind", list(KINDS))
 def test_no_leg_has_more_live_lanes_than_lanes(scene, kind, monkeypatch):
-    calls = []
+    calls, sort_calls = [], []
 
-    def spy(name, value):
-        calls.append((name, float(value)))
-        timing.count(name, value)
+    def spy(into):
+        def count(name, value):
+            into.append((name, float(value)))
+            timing.count(name, value)
+        return count
 
-    monkeypatch.setattr(integrator, "count", spy)
+    monkeypatch.setattr(integrator, "count", spy(calls))
+    monkeypatch.setattr(ray_sort, "count", spy(sort_calls))
     r = renderer(scene, kind)
     with timing.tracing():
         r.step()
     assert calls
+    assert bool(sort_calls) == r.settings.sort_bounce_rays
     live = {}
     for name, v in calls:
         kind_, what = name.rsplit(".", 1)
@@ -228,10 +233,10 @@ def test_no_leg_has_more_live_lanes_than_lanes(scene, kind, monkeypatch):
             assert 0 <= live.pop(kind_) <= v, name
     assert not live
     want = collections.Counter()
-    for name, v in calls:
+    for name, v in calls + sort_calls:
         want[name] += v
-    # the integrator's counters, and the renderer's own: a first frame
-    # starts its accumulation from zero
+    # the integrator's and the ray sort's counters, and the renderer's
+    # own: a first frame starts its accumulation from zero
     counts = dict(r.last_counts)
     assert counts.pop("renderer.restarts") == 1
     assert dict(want) == pytest.approx(counts)

@@ -15,9 +15,10 @@ layers: ``wrt.frame``, ``wrt.raygen``, ``wrt.shade`` (shading and
 sampling), ``wrt.env`` (the environment: env-IS draws, pdfs and MIS
 weights, the deferred fetch), ``wrt.light`` (NEE's light samples, its
 shadow legs inside), ``wrt.trace`` (a leg), ``wrt.trace.prep``,
-``wrt.trace.kernel`` (every hand-written launch), ``wrt.trace.rederive``,
-``wrt.trace.sort`` (the ray sort's keys, sort, gathers, count reads and
-unsorts) and ``wrt.gc``. Each device operation is given to the innermost
+``wrt.trace.kernel`` (every trace kernel's launch), ``wrt.trace.rederive``,
+``wrt.trace.sort`` (the ray sort's sort, gathers, count reads and
+unsorts), ``wrt.trace.sort.key`` inside it (the sort's key kernel) and
+``wrt.gc``. Each device operation is given to the innermost
 span open at its launch, found by correlation id
 (``bench_torch/spans.py``), so the port's ctypes launches count where
 they were launched. The default frame orders every tile inside the
@@ -51,7 +52,10 @@ closest-hit leg), the lights' the same way (``light.kernel_launches``
 and ``light_sample_kernel`` / ``light_add_kernel``: 2 a light sample,
 so 2 a ``direct_light`` call at one sample a point; none without NEE or
 the direct integrator), the restarts of accumulation (``renderer.restarts``)
-of each profiled frame, and one JSON line with the numbers. The
+of each profiled frame, with ``--sort`` the ray sort's key kernel
+(``wrt.trace.sort.key``) apart from the rest of ``wrt.trace.sort`` and
+its counters a frame (``trace.sort.legs``, ``.rays``, ``.traced``,
+``.full_width``, ``.count_reads``), and one JSON line with the numbers. The
 card's name and power limit (nvidia-smi) are printed beside them. Fails
 without a CUDA device.
 """
@@ -70,6 +74,9 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "bench_torch"))
+
+# the ray sort's counters (ops/ray_sort.sorted_trace), trace.sort.<name>
+SORT_COUNTS = ("legs", "rays", "traced", "full_width", "count_reads")
 
 
 def main() -> int:
@@ -247,6 +254,23 @@ def main() -> int:
               sorted(light.items())) or "none"))
     print("restarts of accumulation (renderer.restarts) by profiled frame: "
           + " ".join(str(n) for n in restarts))
+    sort = {}
+    if a.sort:
+        none = {"self_us": 0.0, "self_launches": 0}
+        key = table.get("wrt.trace.sort.key", none)
+        rest = table.get("wrt.trace.sort", none)
+        sort = {
+            "key_ms": key["self_us"] / 1e3,
+            "key_launches": key["self_launches"],
+            "rest_ms": rest["self_us"] / 1e3,
+            "rest_launches": rest["self_launches"],
+            **{k: counts.get("trace.sort." + k, 0) / a.frames
+               for k in SORT_COUNTS}}
+        print(f"ray sort per frame: key kernel (wrt.trace.sort.key) "
+              f"{sort['key_ms']:.2f} ms / {sort['key_launches']:.0f} "
+              f"launches; the rest of wrt.trace.sort {sort['rest_ms']:.2f} "
+              f"ms / {sort['rest_launches']:.0f} launches; " + ", ".join(
+                  f"{k} {sort[k]:.1f}" for k in SORT_COUNTS))
     print(json.dumps({
         "card": card, "frames": a.frames, "width": a.width,
         "height": a.height, "trace_sched": a.trace_sched,
@@ -268,6 +292,7 @@ def main() -> int:
         "rederive_kernel": {"launches": rederive[0], "ms": rederive[1]},
         "light_kernels": {k: {"launches": n, "ms": ms}
                           for k, (n, ms) in light.items()},
+        "ray_sort": sort,
         "rays_per_frame": r.last_rays,
     }))
     return 0

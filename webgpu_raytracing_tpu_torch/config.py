@@ -134,9 +134,13 @@ PORT_ONLY_FIELDS = frozenset({"kernel_near"})
 # Fields whose default differs from the JAX package's → the reason.
 DEFAULT_DEVIATIONS = {
     "sort_bounce_rays": (
-        "the sorted frame is not shown faster than the unsorted one: its "
-        "key is a kernel of a few ms a leg, but the sort, gathers and "
-        "unsort add about as much as the sorted trace saves (PERF.md)"
+        "the sorted frame is slower than the unsorted one: on an H100 "
+        "the benchmark's stress1m_4k.sorted cell (config #5 at 4K, sort "
+        "and live slice on) renders 94.5 Mrays/s against 104.0 for the "
+        "unsorted stress1m_4k.path; the sorted, sliced legs cut the trace "
+        "kernels from 119.8 to 97.2 ms a frame, but the key kernel (8.3 "
+        "ms), the sort, gathers and unsort (9.7 ms in 1,664 launches) and "
+        "one host read of a count per sorted leg cost more (PERF.md)"
     ),
     "kernel_near": (
         "not a JAX setting (PORT_ONLY_FIELDS; the JAX dispatcher's argument "

@@ -1130,9 +1130,9 @@ def _check_walk(r, inv_d, t_max, excl, snear, order, box, face_id, tile,
 
 
 def _run(entry, dev, args) -> None:
-    """Launch the trace or key kernel's ``entry`` with ``args``
-    (:func:`._build.launch`). Every launch of those kernels is this span,
-    ``wrt.trace.kernel``."""
+    """Launch the trace kernel's ``entry`` with ``args``
+    (:func:`._build.launch`). Every launch of a trace kernel is this span,
+    ``wrt.trace.kernel``; the key kernel launches outside it."""
     with span("wrt.trace.kernel"):
         launch("cluster trace", entry, dev, *args)
 
@@ -1289,7 +1289,7 @@ def _launch_top_keys(o, inv_d, t_max, boxes, n: int, t_start=None,
         raise ValueError(f"top keys kernel: n = {n} is not 2 or 3, or no "
                          f"box ({c})")
     keys = torch.empty((n, r), dtype=torch.int32, device=dev)
-    _run("wrt_top_keys", dev, (
+    launch("cluster trace", "wrt_top_keys", dev, *(
         o.data_ptr(), inv_d.data_ptr(), t_max.data_ptr(), _ptr(t_start),
         boxes.data_ptr(), c, key_masks(c)[0], n, keys.data_ptr(), r,
     ))
@@ -1357,7 +1357,7 @@ def _launch_near_pairs_two_level(a, inv_d, t_max, excl, super_box, box,
 
 
 def _wrapper(name, twin, launch, doc, **fixed):
-    """A trace or key kernel's routed :class:`._build.Kernel`. It takes the
+    """A trace kernel's routed :class:`._build.Kernel`. It takes the
     arguments of ``launch`` and of ``twin`` (the same names, so a
     :func:`prepare_tiles` dict fits both) less the keywords ``fixed``,
     which say what the entry is (``any_hit``, ``pipelined``); an any-hit
@@ -1475,12 +1475,14 @@ trace_binned_tiles = _wrapper(
     "clusters ``sched[b, 0]`` and ``sched[b, 1]`` (-1: none) by K1's gate "
     "and slot test → (best t, code), starting from (t_max, start_code or "
     "-1).")
-top_keys_tiles = _wrapper(
-    "top_keys_tiles", _top_keys_torch, _launch_top_keys,
+# the span of the key's whole call, kernel or twin: the ray sort's, not a
+# trace kernel's (the key kernel is not launched through _run)
+top_keys_tiles = Kernel(
+    "top_keys_tiles", _top_keys_torch, _launch_top_keys, "cluster trace",
     "The ray sort's coherence key (o, inv_d, t_max, boxes, n, t_start=None, "
     "chunk=65536): per ray the ``n`` (2 or 3) smallest packed ``(near | box "
     "id)`` keys over the boxes, misses included → n tensors (R,) int32 "
-    "(:func:`_top_keys_torch`).")
+    "(:func:`_top_keys_torch`).", routed=True, span_name="wrt.trace.sort.key")
 
 # variant of a prepare_tiles dict → its (closest-hit, any-hit, pairs)
 # wrappers; K5 has a closest-hit entry only

@@ -29,9 +29,10 @@ sorted trace's results.
 The keys are the slab test of every ray against every box (the supers,
 for two-level tables), each ray's nearest entered boxes kept by the key
 kernel (:func:`.cluster_cuda.top_keys_tiles`; its plain twin on CPU
-tensors). The rest is plain torch: every permutation is a stable
-``torch.sort``; rows are gathered by it and results scattered back
-through its inverse. Each ``lax.cond`` of the JAX
+tensors), whose call is the span ``wrt.trace.sort.key`` inside the
+sort's ``wrt.trace.sort``. The rest is plain torch: every permutation is
+a stable ``torch.sort``; rows are gathered by it and results scattered
+back through its inverse. Each ``lax.cond`` of the JAX
 package on a count of rays becomes one device-to-host read of that count
 (:func:`live_count`, :func:`survivor_count`).
 
@@ -45,7 +46,7 @@ from __future__ import annotations
 
 import torch
 
-from ..utils.timing import traced
+from ..utils.timing import count, traced
 from .cluster_cuda import (
     code_to_face,
     key_masks,
@@ -216,8 +217,13 @@ def sorted_trace(trace_fn, o, d, t_max, tables, active=None, extra=None,
     The stages are this module's functions (:func:`nearest_cluster_key`,
     :func:`sort_keys`, :func:`permute_rows`, :func:`live_count`,
     :func:`unsort`), looked up when called, so that a profile can wrap
-    each one; nothing is measured here. ``route`` (cluster_cuda.ROUTES) is
-    the key's."""
+    each one. With tracing on, the leg counts (utils/timing.count) itself
+    in ``trace.sort.legs`` (1), ``trace.sort.rays`` (R),
+    ``trace.sort.traced`` (the rows traced), ``trace.sort.count_reads``
+    (1 where the live rays were counted on the host) and
+    ``trace.sort.full_width`` (1 where they overflowed the slice): host
+    numbers it holds anyway. ``route`` (cluster_cuda.ROUTES) is the
+    key's."""
     r = o.shape[0]
     if active is not None:
         t_max = torch.where(active, t_max, torch.zeros_like(t_max))
@@ -228,8 +234,14 @@ def sorted_trace(trace_fn, o, d, t_max, tables, active=None, extra=None,
     w = r
     if live_slice is not None and tail is not None and live_slice < 1.0:
         w = min(r, ((int(r * live_slice) + 127) // 128) * 128)
-    if w < r and live_count(key_s, boxes.shape[0]) > w:
-        w = r
+    if w < r:
+        count("trace.sort.count_reads", 1)
+        if live_count(key_s, boxes.shape[0]) > w:
+            count("trace.sort.full_width", 1)
+            w = r
+    count("trace.sort.legs", 1)
+    count("trace.sort.rays", r)
+    count("trace.sort.traced", w)
     args = (o_s[:w], d_s[:w], tm_s[:w], tables, None)
     if extra is not None:
         args = args + (ex_s[:w],)
